@@ -1,28 +1,52 @@
-"""Drive the PyTorch port of the Monte Carlo Cornell path tracer on one
-NVIDIA GPU and hold every kernel against its plain PyTorch version.
+"""Drive the PyTorch port on one NVIDIA GPU through its main paths — the
+Monte Carlo Cornell path tracer, the Whitted stage and the BVH mesh stage —
+and hold every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-1. device    the card's name, power limit and clocks (nvidia-smi);
-2. build     every csrc/*.cu of the port, one nvcc each, started together,
-             into build/torch_kernels/;
-3. parity    the fused_mc kernel against its plain version: Cornell at
-             896x896 from wavefront_init for 32 steps (plain mode and
-             stop_after=4), and Cornell + one sphere at 256x256;
-4. golden    render_turbo_exact at 128x128, 64 spp, RR 0.8, depth 16 against
-             goldens/test/mc_cornell.png (mean abs diff <= 2, p99 <= 16);
-5. main      the main path at full width: render_turbo_exact at 896x896,
-             4 spp, depth 16, RR 0.8, with the launch counters set to 0
-             just before and read just after; the image goes to build/;
-6. speed     the fused stepper at 896x896 as bench.py times the JAX one
-             (256 steps per call, 4 calls after a warm-up), the kernel
-             alone with CUDA events, and the plain version over 16 steps.
+1. device     the card's name, power limit and clocks (nvidia-smi);
+2. build      every csrc/*.cu of the port, one nvcc each, started together,
+              into build/torch_kernels/;
+3. parity     the fused_mc kernel against its plain version: Cornell at
+              896x896 from wavefront_init for 32 steps (plain mode and
+              stop_after=4), and Cornell + one sphere at 256x256;
+4. golden     render_turbo_exact at 128x128, 64 spp, RR 0.8, depth 16 against
+              goldens/test/mc_cornell.png (mean abs diff <= 2, p99 <= 16);
+5. main       the MC main path at full width: render_turbo_exact at 896x896,
+              4 spp, depth 16, RR 0.8; the image goes to build/;
+6. speed      the fused stepper at 896x896 as bench.py times the JAX one
+              (256 steps per call, 4 calls after a warm-up), the kernel
+              alone with CUDA events, and the plain version over 16 steps;
+7. whitted_parity  the fused_whitted kernel against render_fused_plain
+              (truncated == 0 in both, every pixel within 1e-6) and against
+              the ray-tree twin models.whitted.render (truncated == 0, p99
+              < 1e-4, pixels off by more than 1e-3 below 0.5%), 896x896,
+              depth 5, Q=4;
+8. whitted_golden  models.whitted.render and render_fused at 128x128 against
+              goldens/test/whitted.png (gamma 1, mean <= 1.0, p99 <= 4);
+9. mesh_main  mesh.render(prepare(bvh_stage_scene())) at 896x896, depth 5,
+              through the packet kernel, against method="brute" (every
+              pixel within rtol 1e-5, atol 1e-6); the image goes to build/;
+              the shadow rays toward light 0 that it sends are kept;
+10. mesh_parity  the packet kernel against nearest_plain on the 896x896
+              camera rays of bvh_stage_scene (3,584 triangles), on the
+              shadow rays kept from mesh_main, and on 8,192 triangles in
+              64-triangle clusters (hit masks and indices equal, t within
+              rtol 1e-6);
+11. whitted_main  render_fused at 896x896, depth 5, Q=4; image to build/;
+12. mesh_mc    mesh.render_mc through the packet kernel against
+              method="brute" on cornell_mesh_scene, 128x128, 4 spp, depth 16
+              (every pixel's radiance within 2e-3);
+13. whitted_speed, packet_speed  each new kernel alone with CUDA events
+              beside its plain version: ms per 896x896 Whitted frame, ms per
+              802,816-ray packet pass on camera and on shadow rays.
 
-Then the kernels line, the nvidia-smi line, and the last line
-{"ok": true, "device": {...}}.  Exits non-zero, printing no result, where
-CUDA is not available.
+Each main path (5, 9, 11, 12) runs with every launch counter set to 0
+just before it and read just after.  Then the kernels line, the nvidia-smi
+line, and the last line {"ok": true, "device": {...}}.  Exits non-zero,
+printing no result, where CUDA is not available.
 """
 
 from __future__ import annotations
@@ -53,6 +77,27 @@ N_SM, F32_LANES_PER_SM = 132, 128
 
 TOL = 2e-3                # the JAX package's float tolerance for lane state
 MAX_INT_MISMATCH = 1e-4   # share of lanes whose (s, b, n_done) may differ
+# The Whitted gate of tests/test_fused_whitted.py: p99 of the abs error and
+# the share of knife-edge pixels (max channel error above 1e-3).
+WHITTED_P99, KNIFE_EDGE, KNIFE_SHARE = 1e-4, 1e-3, 0.005
+# The fused_whitted kernel against its plain version: a few ulp of a
+# radiance near 1 (the two run the same operations in the same order).
+PLAIN_ATOL = 1e-6
+# models.whitted through two intersectors, on every pixel
+# (tests/test_whitted.py:117).
+WHITTED_RTOL, WHITTED_ATOL = 1e-5, 1e-6
+
+# f32 add/sub/mul/div/sqrt/min/max counted in csrc/fused_whitted.cu and
+# csrc/packet.cu (comparisons, selects and integer work not counted, so the
+# bounds derived from them are floors).
+TRI_OPS = 48        # one Moller-Trumbore ray/triangle test
+SPH_OPS = 30        # one ray/sphere quadratic
+SLOT_OPS = 40       # per live Whitted slot after the hit: normal, point,
+                    # chessboard, colors
+DIFFUSE_OPS = 32    # per Blinn-Phong hit: shading point, final rgb
+LIGHT_OPS = 53      # per light of a Blinn-Phong hit, besides its shadow ray
+SPECULAR_OPS = 131  # per specular hit: Fresnel, reflect, Snell, origins
+SLAB_OPS = 22       # one ray/cluster-AABB slab test
 
 
 def emit(**kw):
@@ -186,7 +231,7 @@ def main_phase(dev, full: RenderConfig) -> int:
     scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
     os.makedirs(OUT, exist_ok=True)
     sync(dev)
-    fused.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     img = mc.render_turbo_exact(scene, cam, full, SEED_KEY0, device=dev)
     sync(dev)
@@ -267,6 +312,357 @@ def speed_phase(dev, full: RenderConfig, max_sm_mhz: float, smi: str,
     return res
 
 
+# --- the Whitted and mesh stages --------------------------------------------
+
+def reset_counts():
+    from cpu_based_ray_tracer_tpu_torch.ops import fused, fused_whitted, packet
+
+    fused.LAUNCHES = fused_whitted.LAUNCHES = packet.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from cpu_based_ray_tracer_tpu_torch.ops import fused, fused_whitted, packet
+
+    return {"fused_mc": fused.LAUNCHES,
+            "fused_whitted": fused_whitted.LAUNCHES,
+            "packet": packet.LAUNCHES}
+
+
+def image_gate(got, want) -> dict:
+    """The Whitted gate's numbers for two (H, W, 3) images."""
+    d = (got - want).abs().float()
+    return dict(max_abs_err=float(d.max()),
+                p99=float(torch.quantile(d.flatten(), 0.99)),
+                knife_edge_share=float((d.amax(-1) > KNIFE_EDGE)
+                                       .float().mean()))
+
+
+def pixels_off(got, want, rtol: float, atol: float) -> dict:
+    """Max abs error, and the pixels with a channel off by more than
+    atol + rtol * |want|."""
+    d = (got - want).abs()
+    off = (d > atol + rtol * want.abs()).any(-1)
+    return dict(max_abs_err=float(d.max()), rtol=rtol, atol=atol,
+                pixels_off=int(off.sum()))
+
+
+def check_gate(res: dict, what: str):
+    if not (res["p99"] < WHITTED_P99 and res["knife_edge_share"] < KNIFE_SHARE):
+        raise RuntimeError(f"{what} fails the Whitted gate: {res}")
+
+
+def whitted_ops(n_tri, n_sph, n_light, counts) -> int:
+    """f32 operations of one frame of csrc/fused_whitted.cu for the work
+    this data needs (live slots, Blinn-Phong hits, specular hits)."""
+    trace = n_tri * TRI_OPS + n_sph * SPH_OPS
+    return (counts["live"] * (trace + SLOT_OPS)
+            + counts["diffuse"] * (DIFFUSE_OPS + n_light * (LIGHT_OPS + trace))
+            + counts["specular"] * SPECULAR_OPS)
+
+
+def whitted_parity_phase(dev, cfg) -> tuple:
+    """The kernel against its plain version and against the ray-tree twin;
+    returns (max abs error vs plain, plain's work counts)."""
+    from cpu_based_ray_tracer_tpu_torch.models import whitted
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_whitted as fw
+    from cpu_based_ray_tracer_tpu_torch.scenes import whitted_scene as ws
+
+    scene, cam = ws.whitted_scene(dev), ws.whitted_camera(dev)
+    got, trunc = fw.render_fused(scene, cam, cfg, queue=4, device=dev)
+    counts = {}
+    plain, trunc_p = fw.render_fused_plain(scene, cam, cfg, queue=4,
+                                           device=dev, counts=counts)
+    t0 = time.perf_counter()
+    twin = whitted.render(scene, cam, cfg, device=dev)
+    sync(dev)
+    twin_s = time.perf_counter() - t0
+    vs_plain, vs_twin = image_gate(got, plain), image_gate(got, twin)
+    emit(phase="whitted_parity", config=f"{cfg.width}x{cfg.height} depth"
+         f"{cfg.whitted_depth} Q4", truncated=float(trunc),
+         truncated_plain=float(trunc_p), vs_plain=vs_plain, vs_twin=vs_twin,
+         twin_seconds=twin_s, work=counts)
+    if float(trunc) != 0.0 or float(trunc_p) != 0.0:
+        raise RuntimeError("the Q=4 queue truncated weight on the reference "
+                           "scene")
+    if not vs_plain["max_abs_err"] <= PLAIN_ATOL:
+        raise RuntimeError(f"fused_whitted disagrees with render_fused_plain "
+                           f"by more than {PLAIN_ATOL}: {vs_plain}")
+    check_gate(vs_twin, "fused_whitted vs models.whitted.render")
+    return vs_plain["max_abs_err"], counts
+
+
+def whitted_golden_phase(dev, mean_tol=1.0, p99_tol=4):
+    """models.whitted.render and render_fused against
+    goldens/test/whitted.png, with test_golden.py's gate for it."""
+    from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+    from cpu_based_ray_tracer_tpu_torch.models import whitted
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_whitted as fw
+    from cpu_based_ray_tracer_tpu_torch.ops import tonemap
+    from cpu_based_ray_tracer_tpu_torch.scenes import whitted_scene as ws
+    from cpu_based_ray_tracer_tpu_torch.utils import image as im
+
+    scene, cam = ws.whitted_scene(dev), ws.whitted_camera(dev)
+    cfg = RenderConfig(width=128, height=128, whitted_depth=5,
+                       ray_chunk=65536)
+    gold = im.read_png(os.path.join(ROOT, "goldens", "test", "whitted.png"))
+    res = {}
+    for name, img in (("whitted_render", whitted.render(scene, cam, cfg,
+                                                        device=dev)),
+                      ("render_fused", fw.render_fused(scene, cam, cfg,
+                                                       device=dev)[0])):
+        u8 = tonemap.quantize_u8(img, gamma=1.0).cpu().numpy()
+        d = np.abs(u8.astype(np.int32) - gold.astype(np.int32))
+        res[name] = dict(mean_abs_diff=float(d.mean()),
+                         p99=float(np.percentile(d, 99)))
+    emit(phase="whitted_golden", mean_tol=mean_tol, p99_tol=p99_tol, **res)
+    for name, r in res.items():
+        if not (r["mean_abs_diff"] <= mean_tol and r["p99"] <= p99_tol):
+            raise RuntimeError(f"{name} disagrees with "
+                               f"goldens/test/whitted.png: {r}")
+
+
+def mesh_parity_phase(dev, cfg, shadow) -> tuple:
+    """The packet kernel against nearest_plain on the camera rays, the
+    ``shadow`` rays (o, d) kept from mesh_main and the streamed case;
+    returns (max abs t error, {case: (clusters, origin, direction, passing
+    pairs)})."""
+    from cpu_based_ray_tracer_tpu_torch import camera
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.ops import packet
+    from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+
+    scene = meshes.bvh_stage_scene(device=dev)
+    cam = meshes.bvh_stage_camera(dev)
+    cl = mesh.prepare(scene).clusters
+    d = camera.perspective_rays(cam, cfg.width, cfg.height).reshape(-1, 3)
+    o = cam.position.expand(d.shape).contiguous()
+    d = d.contiguous()
+    g = np.random.default_rng(3)
+    big = np.concatenate([meshes.icosphere(4), meshes.torus(1.5, 0.4, 48, 32)])
+    ro = torch.as_tensor(g.uniform(-3, 3, (65536, 3)).astype(np.float32),
+                         device=dev)
+    rd = torch.as_tensor(g.normal(size=(65536, 3)).astype(np.float32),
+                         device=dev)
+    rd = (rd / rd.norm(dim=1, keepdim=True)).contiguous()
+    cl_big = packet.build_clusters(big, 64, device=dev)
+    cases = {"camera": (cl, o, d), "shadow": (cl, *shadow),
+             "streamed_8192": (cl_big, ro, rd)}
+    max_err, out = 0.0, {}
+    for name, (c, oo, dd) in cases.items():
+        want_t, want_i, n_pass = packet.nearest_plain(c, oo, dd, cfg.t_min,
+                                                      return_passes=True)
+        got_t, got_i = packet.nearest(c, oo, dd, cfg.t_min)
+        sync(dev)
+        hit = want_t < packet.NO_HIT
+        same_hit = bool(torch.equal(got_t < packet.NO_HIT, hit))
+        same_idx = bool(torch.equal(got_i, want_i))
+        err = (got_t[hit] - want_t[hit]).abs()
+        rel = float((err / want_t[hit].abs()).max()) if hit.any() else 0.0
+        res = dict(rays=oo.shape[0], tris=int((c.tri_id >= 0).sum()),
+                   clusters=c.n_clusters, hits=int(hit.sum()),
+                   hit_masks_equal=same_hit, indices_equal=same_idx,
+                   t_bit_equal_share=float((err == 0).float().mean())
+                   if hit.any() else 1.0,
+                   max_rel_err=rel, max_abs_err=float(err.max())
+                   if hit.any() else 0.0,
+                   passing_pairs=n_pass,
+                   block_cluster_pairs=c.n_clusters
+                   * -(-oo.shape[0] // packet.BLOCK))
+        emit(phase="mesh_parity", case=name, **res)
+        if not (same_hit and same_idx and rel <= 1e-6):
+            raise RuntimeError(f"packet disagrees with nearest_plain on "
+                               f"{name}: {res}")
+        max_err = max(max_err, res["max_abs_err"])
+        out[name] = (c, oo, dd, n_pass)
+    return max_err, out
+
+
+def save_png(img, name, gamma=1.0) -> str:
+    from cpu_based_ray_tracer_tpu_torch.ops import tonemap
+    from cpu_based_ray_tracer_tpu_torch.utils import image as im
+
+    os.makedirs(OUT, exist_ok=True)
+    png = os.path.join(OUT, name)
+    im.write_png(png, tonemap.quantize_u8(img, gamma=gamma).cpu().numpy())
+    return os.path.relpath(png, ROOT)
+
+
+def mesh_main_phase(dev, cfg) -> tuple:
+    """The mesh Whitted main path once, counters set to 0 just before and
+    read just after; then method="brute", which must agree on every pixel.
+    Returns (packet launches, the shadow rays (o, d) toward light 0 that
+    the main path sent, all its chunks concatenated)."""
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+
+    scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
+    bundle = mesh.prepare(scene)
+    sent, make = [], mesh.make_nearest_t_fn
+
+    def recording(b, sort_rays=False):
+        fn = make(b, sort_rays)
+
+        def rec(sc, o, d, t_min):
+            sent.append((o, d))
+            return fn(sc, o, d, t_min)
+        return rec
+
+    mesh.make_nearest_t_fn = recording
+    try:
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        img = mesh.render(bundle, cam, cfg, device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        mesh.make_nearest_t_fn = make
+    # bvh_stage_scene has no specular surface, so each chunk's ray tree is
+    # its level 0 alone: one shadow pass of the chunk's rays per light,
+    # light 0 first.
+    light0 = sent[0::scene.lights.count]
+    so = torch.cat([o for o, _ in light0]).contiguous()
+    sd = torch.cat([d for _, d in light0]).contiguous()
+    if (len(sent) % scene.lights.count or len({o.shape[0] for o, _ in sent})
+            != 1 or so.shape[0] != cfg.width * cfg.height):
+        raise RuntimeError(f"mesh.render sent {len(sent)} shadow passes, "
+                           f"{so.shape[0]} light-0 rays in all")
+    brute = mesh.render(mesh.prepare(scene, method="brute"), cam, cfg,
+                        device=dev)
+    vs_brute = pixels_off(img, brute, WHITTED_RTOL, WHITTED_ATOL)
+    finite = bool(torch.isfinite(img).all())
+    emit(phase="mesh_main", config=f"bvh_stage_scene {cfg.width}x"
+         f"{cfg.height} depth{cfg.whitted_depth} method={bundle.method}",
+         tris=scene.triangles.count, clusters=bundle.clusters.n_clusters,
+         seconds=secs, launches=launches, vs_brute=vs_brute, finite=finite,
+         mean_radiance=float(img.mean()),
+         png=save_png(img, f"mesh_{cfg.width}.png"))
+    if dev.type == "cuda" and launches["packet"] <= 0:
+        raise RuntimeError("mesh.render launched no packet kernel")
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
+            or not float(img.mean()) > 0.0):
+        raise RuntimeError("the mesh main path's image is wrong")
+    if vs_brute["pixels_off"] != 0:
+        raise RuntimeError(f"mesh.render packet vs brute: {vs_brute}")
+    return launches["packet"], (so, sd)
+
+
+def whitted_main_phase(dev, cfg) -> int:
+    """render_fused once, counters set to 0 just before and read just
+    after; returns the fused_whitted launches."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_whitted as fw
+    from cpu_based_ray_tracer_tpu_torch.scenes import whitted_scene as ws
+
+    scene, cam = ws.whitted_scene(), ws.whitted_camera()
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    img, trunc = fw.render_fused(scene, cam, cfg, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    finite = bool(torch.isfinite(img).all())
+    emit(phase="whitted_main", config=f"whitted_scene {cfg.width}x"
+         f"{cfg.height} depth{cfg.whitted_depth} Q4", seconds=secs,
+         launches=launches, truncated=float(trunc), finite=finite,
+         mean_radiance=float(img.mean()),
+         png=save_png(img, f"whitted_{cfg.width}.png"))
+    if dev.type == "cuda" and launches["fused_whitted"] <= 0:
+        raise RuntimeError("render_fused launched no fused_whitted kernel")
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
+            or float(trunc) != 0.0):
+        raise RuntimeError("the Whitted main path's image is wrong")
+    return launches["fused_whitted"]
+
+
+def mesh_mc_phase(dev, cfg, tol=TOL) -> int:
+    """mesh.render_mc through the packet kernel against method="brute" (the
+    oracle of the fused mesh slice); returns the packet launches."""
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_mesh_scene(), cornell.cornell_camera()
+    bundle = mesh.prepare(scene)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    img = mesh.render_mc(bundle, cam, cfg, SEED_KEY0, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    brute = mesh.render_mc(mesh.prepare(scene, method="brute"), cam, cfg,
+                           SEED_KEY0, device=dev)
+    res = pixels_off(img, brute, tol, tol)
+    emit(phase="mesh_mc", config=f"cornell_mesh_scene {cfg.width}x"
+         f"{cfg.height} {cfg.spp}spp depth{cfg.max_depth} "
+         f"rr{cfg.rr_survival} method={bundle.method}",
+         tris=scene.triangles.count, seconds=secs, launches=launches,
+         vs_brute=res, mean_radiance=float(img.mean()),
+         png=save_png(img, f"mesh_mc_{cfg.width}.png"))
+    if dev.type == "cuda" and launches["packet"] <= 0:
+        raise RuntimeError("mesh.render_mc launched no packet kernel")
+    if not (res["pixels_off"] == 0 and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0.0):
+        raise RuntimeError(f"mesh.render_mc packet vs brute: {res}")
+    return launches["packet"]
+
+
+def whitted_speed_phase(dev, cfg, counts, smi, n_iters=20) -> dict:
+    """ms per frame of the fused_whitted kernel alone (CUDA events) and of
+    its plain version; the bound from this frame's counted work."""
+    from cpu_based_ray_tracer_tpu_torch import camera
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_whitted as fw
+    from cpu_based_ray_tracer_tpu_torch.scenes import whitted_scene as ws
+
+    scene, cam = ws.whitted_scene(dev), ws.whitted_camera(dev)
+    wp = fw.pack_whitted_scene(scene)
+    dirs = camera.perspective_rays(cam, cfg.width, cfg.height).reshape(
+        -1, 3).T.contiguous()
+    args = (wp, cam.position, dirs, cfg.whitted_depth, 4, cfg.t_min,
+            cfg.eps_offset)
+    fw._tree_kernel(*args)                                   # warm-up
+    ms = timed(lambda: [fw._tree_kernel(*args) for _ in range(n_iters)]
+               ) / n_iters
+    plain_ms = timed(lambda: fw._tree_plain(*args))
+    n_pix = cfg.width * cfg.height
+    ops = whitted_ops(wp.n_tri, wp.n_sph, wp.n_light, counts)
+    t_ops = ops / PEAK_F32_FLOPS
+    t_bytes = n_pix * (12 + 16) / PEAK_BYTES
+    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    emit(phase="whitted_speed", nvidia_smi=smi, pixels=n_pix,
+         frames_per_s=1e3 / ms, ops_per_frame=ops, work=counts, **res)
+    return res
+
+
+def packet_speed_phase(dev, cases, smi, n_iters=10) -> dict:
+    """ms per pass of the packet kernel alone (CUDA events) and of
+    nearest_plain, on the camera and the shadow rays; the bound counts the
+    (block, cluster) pairs whose vote passed."""
+    from cpu_based_ray_tracer_tpu_torch.ops import packet
+
+    res = {}
+    for name in ("camera", "shadow"):
+        cl, o, d, n_pass = cases[name]
+        packet._nearest_kernel(cl, o, d, 1e-3)                 # warm-up
+        ms = timed(lambda: [packet._nearest_kernel(cl, o, d, 1e-3)
+                            for _ in range(n_iters)]) / n_iters
+        plain_ms = timed(lambda: packet.nearest_plain(cl, o, d, 1e-3))
+        r, c, cs = o.shape[0], cl.n_clusters, cl.cs
+        ops = r * c * SLAB_OPS + n_pass * packet.BLOCK * cs * TRI_OPS
+        nbytes = r * (24 + 8) + c * (cs * (48 + 4) + 32)
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        res[name] = dict(ms=ms, plain_ms=plain_ms,
+                         bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_by="operations" if t_ops >= t_bytes
+                         else "bytes", ops=ops, bytes=nbytes,
+                         passing_pairs=n_pass)
+        emit(phase="packet_speed", case=name, nvidia_smi=smi, rays=r,
+             clusters=c, rays_per_s=r / (ms * 1e-3), **res[name])
+    return res
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -307,6 +703,17 @@ def main():
     launches = main_phase(dev, full)
     sp = speed_phase(dev, full, max_sm_mhz, smi)
 
+    wfull = RenderConfig(width=896, height=896, whitted_depth=5)
+    w_err, w_counts = whitted_parity_phase(dev, wfull)
+    whitted_golden_phase(dev)
+    p_launches, shadow = mesh_main_phase(dev, wfull)
+    p_err, p_cases = mesh_parity_phase(dev, wfull, shadow)
+    w_launches = whitted_main_phase(dev, wfull)
+    mesh_mc_phase(dev, RenderConfig(width=128, height=128, spp=4,
+                                    max_depth=16, rr_survival=0.8))
+    wsp = whitted_speed_phase(dev, wfull, w_counts, smi)
+    psp = packet_speed_phase(dev, p_cases, smi)
+
     r = full.width * full.height
     print(json.dumps({"kernels": [{
         "name": "fused_mc", "route": "cuda",
@@ -318,6 +725,29 @@ def main():
         "ms": sp["kernel_ms"], "ms_per_step": sp["kernel_ms"],
         "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
         "bound_ms_per_step": sp["bound_ms"], "bound_by": sp["bound_by"],
+        "library_ms": None}, {
+        "name": "fused_whitted", "route": "cuda",
+        "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_whitted.cu",
+        "replaces": "cpu_based_ray_tracer_tpu/ops/fused_whitted.py:131",
+        "tpu_kernel": "ops/fused_whitted.py::_kernel",
+        "unit": f"ms per {wfull.width}x{wfull.height} frame, depth "
+                f"{wfull.whitted_depth}, Q=4",
+        "launches": w_launches, "max_abs_err": w_err, "ms": wsp["ms"],
+        "plain_ms": wsp["plain_ms"], "bound_ms": wsp["bound_ms"],
+        "bound_by": wsp["bound_by"], "library_ms": None}, {
+        "name": "packet", "route": "cuda",
+        "source": "cpu_based_ray_tracer_tpu_torch/csrc/packet.cu",
+        "replaces": "cpu_based_ray_tracer_tpu/ops/packet.py:117",
+        "tpu_kernel": "ops/packet.py::_kernel",
+        "unit": f"ms per {r}-ray pass, bvh_stage_scene camera rays "
+                f"(shadow rays: shadow_ms)",
+        "launches": p_launches, "max_abs_err": p_err,
+        "ms": psp["camera"]["ms"], "plain_ms": psp["camera"]["plain_ms"],
+        "bound_ms": psp["camera"]["bound_ms"],
+        "bound_by": psp["camera"]["bound_by"],
+        "shadow_ms": psp["shadow"]["ms"],
+        "shadow_plain_ms": psp["shadow"]["plain_ms"],
+        "shadow_bound_ms": psp["shadow"]["bound_ms"],
         "library_ms": None}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,19 +4,25 @@ The JAX package is the reference; this package mirrors its module names so
 each counterpart is easy to find, and holds every piece against it in the
 ``tests/test_torch_*.py`` files.  It imports ``torch`` and numpy only.
 
-Entry points (``models.monte_carlo.render_turbo_exact`` and friends) run on
-the card unless the caller passes ``device="cpu"``; on a CUDA tensor every
+Entry points (``models.monte_carlo.render_turbo_exact``,
+``ops.fused_whitted.render_fused``, ``models.mesh.render`` and friends) run
+on the card unless the caller passes ``device="cpu"``; on a CUDA tensor every
 kernel wrapper launches its hand-written kernel (``csrc/*.cu``, built with
 ``nvcc`` at first use by ``utils.kernels``) and on a CPU tensor it runs the
 kernel's plain PyTorch version.
 
 Subpackages
 -----------
-- ``ops``:    vector math, intersection, light sampling, tonemap, the fused
-              wavefront kernel's wrapper
-- ``models``: the Monte Carlo path tracer
-- ``scenes``: the Cornell box
-- ``utils``:  RNG, image IO, kernel build and load
+- ``ops``:    vector math, intersection, light sampling, tonemap, the BVH
+              build, and the wrappers of the kernels: the fused MC
+              wavefront (``fused``), the fused Whitted tree
+              (``fused_whitted``) and the packet mesh intersector
+              (``packet``)
+- ``models``: the Monte Carlo path tracer, the Whitted ray tree, the BVH
+              mesh stage
+- ``scenes``: the Cornell box (and its mesh variant), the Whitted scene,
+              the procedural meshes and the BVH-stage scene
+- ``utils``:  RNG, image and OBJ IO, kernel build and load
 """
 
 __version__ = "0.1.0"

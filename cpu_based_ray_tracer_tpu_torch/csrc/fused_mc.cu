@@ -436,7 +436,6 @@ extern "C" int fused_mc_steps(const float* scene, int scene_words, int n_tri,
   p.aspect = aspect;
   p.max_depth = max_depth;
   p.stop_after = stop_after;
-  if (R <= 0) return (int)cudaSuccess;
   const size_t smem = (size_t)scene_words * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -1,0 +1,178 @@
+"""BVH mesh stage (port of ``cpu_based_ray_tracer_tpu.models.mesh``):
+Whitted shading, and the Monte Carlo estimator, over accelerated triangle
+meshes.  The renderers are ``models.whitted`` and ``models.monte_carlo``
+with the intersector swapped, for every ray including the shadow rays.
+
+Intersectors (all return the same nearest hit):
+
+- ``packet``: the packet-culled kernel (``ops.packet``, csrc/packet.cu on
+  the card);
+- ``brute``: the exact dense scan (``ops.intersect``), fastest below a few
+  hundred triangles.
+
+The ``fused`` (coherent shortlist) and ``sparse`` (per-lane BVH walk)
+methods of the JAX package wait for later slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cpu_based_ray_tracer_tpu_torch import camera as cam_mod
+from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+from cpu_based_ray_tracer_tpu_torch.models import monte_carlo, whitted
+from cpu_based_ray_tracer_tpu_torch.ops import intersect
+from cpu_based_ray_tracer_tpu_torch.ops import packet as packet_ops
+from cpu_based_ray_tracer_tpu_torch.scene import Scene
+from cpu_based_ray_tracer_tpu_torch.utils.kernels import resolve_device
+
+# Below this many triangles dense brute force beats the packet kernel.
+PACKET_MIN_TRIS = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshBundle:
+    """A scene and its acceleration structure (built on the host)."""
+
+    scene: Scene
+    clusters: Optional[packet_ops.Clusters]  # packet kernel (None: brute)
+    method: str                              # "packet" | "brute"
+    bounds: Optional[tuple] = None           # ((lo xyz), (hi xyz)) floats
+
+    def to(self, device) -> "MeshBundle":
+        return dataclasses.replace(
+            self, scene=self.scene.to(device),
+            clusters=(None if self.clusters is None
+                      else self.clusters.to(device)))
+
+
+def prepare(scene: Scene, method: str = "auto") -> MeshBundle:
+    """Host-side acceleration build over the scene's triangles.  ``auto``
+    picks ``packet`` from ``PACKET_MIN_TRIS`` triangles up, else
+    ``brute``.  The packet clusters hold ``packet.build_clusters``'s
+    default of 128 triangles."""
+    n = scene.triangles.count
+    if method == "auto":
+        method = "packet" if n >= PACKET_MIN_TRIS else "brute"
+    if method in ("fused", "sparse"):
+        raise NotImplementedError(
+            f"mesh method {method!r} is not ported yet: 'fused' waits for "
+            "the coherent-shortlist slice (queue 2 #8/#9), 'sparse' for the "
+            "BVH traversal oracle")
+    if method == "brute":
+        return MeshBundle(scene=scene, clusters=None, method="brute")
+    if method != "packet":
+        raise ValueError(f"unknown mesh method {method!r}")
+    tr = scene.triangles
+    v0 = tr.v0.cpu().numpy().astype(np.float64)
+    e1 = tr.e1.cpu().numpy().astype(np.float64)
+    e2 = tr.e2.cpu().numpy().astype(np.float64)
+    verts = np.stack([v0, v0 + e1, v0 + e2], axis=1)
+    clusters = packet_ops.build_clusters(verts, device=scene.device)
+    pts = verts.reshape(-1, 3)
+    bounds = (tuple(map(float, pts.min(0))), tuple(map(float, pts.max(0))))
+    return MeshBundle(scene=scene, clusters=clusters, method="packet",
+                      bounds=bounds)
+
+
+def _sort_order(bundle: MeshBundle, origin, direction):
+    """Coherence-restoring ray order: direction octant, then a 4x4x4 cell
+    of the origin over the mesh bounds.  Per-ray results do not depend on
+    the order; the packet kernel's per-block cull does."""
+    lo, hi = bundle.bounds
+    i32 = torch.int32
+    oct_ = ((direction[:, 0] > 0).to(i32) + 2 * (direction[:, 1] > 0).to(i32)
+            + 4 * (direction[:, 2] > 0).to(i32))
+    cell = 0
+    for a in range(3):
+        span = max(hi[a] - lo[a], 1e-6)
+        cell = cell * 4 + torch.clamp(
+            ((origin[:, a] - lo[a]) / torch.tensor(
+                span, dtype=origin.dtype, device=origin.device) * 4).to(i32),
+            0, 3)
+    return torch.argsort(oct_ * 64 + cell, stable=True)
+
+
+def _packet_nearest(bundle: MeshBundle, origin, direction, t_min,
+                    sort_rays: bool):
+    if not sort_rays:
+        return packet_ops.nearest(bundle.clusters, origin, direction, t_min)
+    order = _sort_order(bundle, origin, direction)
+    tt_s, idx_s = packet_ops.nearest(bundle.clusters, origin[order],
+                                     direction[order], t_min)
+    tt = torch.empty_like(tt_s).index_copy_(0, order, tt_s)
+    idx = torch.empty_like(idx_s).index_copy_(0, order, idx_s)
+    return tt, idx
+
+
+def make_intersect_fn(bundle: MeshBundle, sort_rays: bool = False):
+    """An ``intersect_fn(scene, o, d, t_min) -> Hit`` through the bundle's
+    intersector, plus the brute-force sphere pass of ``assemble_hit``.
+    ``sort_rays``: reorder the rays for block coherence first (for the
+    incoherent bounce rays of the MC path)."""
+    if bundle.method == "packet":
+        def fn(scene, origin, direction, t_min):
+            tt, idx = _packet_nearest(bundle, origin, direction, t_min,
+                                      sort_rays)
+            return intersect.assemble_hit(scene, origin, direction, tt, idx,
+                                          t_min)
+        return fn
+    return lambda scene, o, d, t_min: intersect.intersect_scene(
+        scene, o, d, t_min=t_min)
+
+
+def make_nearest_t_fn(bundle: MeshBundle, sort_rays: bool = False):
+    """A ``nearest_t_fn(scene, o, d, t_min) -> t (R,)`` shadow-ray path
+    through the bundle's intersector (triangles) and the brute sphere min."""
+    if bundle.method == "packet":
+        def fn(scene, origin, direction, t_min):
+            tt, _ = _packet_nearest(bundle, origin, direction, t_min,
+                                    sort_rays)
+            sp = scene.spheres
+            ts = torch.amin(intersect.intersect_spheres(
+                origin, direction, sp.center, sp.radius, t_min,
+                float("inf")), -1)
+            return torch.minimum(tt, ts)
+        return fn
+    return lambda scene, o, d, t_min: intersect.nearest_t(scene, o, d,
+                                                          t_min=t_min)
+
+
+def render(bundle: MeshBundle, camera: cam_mod.PerspectiveCamera,
+           cfg: RenderConfig, device=None) -> torch.Tensor:
+    """Whitted render of the mesh scene through the bundle's intersector,
+    (H, W, 3), on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    bundle = bundle.to(dev)
+    return whitted.render(bundle.scene, camera, cfg,
+                          intersect_fn=make_intersect_fn(bundle),
+                          nearest_t_fn=make_nearest_t_fn(bundle), device=dev)
+
+
+def render_mc(bundle: MeshBundle, camera: cam_mod.PerspectiveCamera,
+              cfg: RenderConfig, seed: int, device=None) -> torch.Tensor:
+    """Monte Carlo path trace (NEE + RR) through the bundle's intersector
+    for every path and shadow ray: the fixed-depth engine, mean linear
+    radiance (H, W, 3), on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    bundle = bundle.to(dev)
+    return monte_carlo.render(
+        bundle.scene, camera, cfg, seed, device=dev,
+        intersect_fn=make_intersect_fn(bundle, sort_rays=True),
+        nearest_t_fn=make_nearest_t_fn(bundle, sort_rays=True))
+
+
+def wavefront_mc_steps(bundle: MeshBundle, camera, cfg: RenderConfig,
+                       seed: int, state: monte_carlo.WavefrontState,
+                       n_steps: int) -> monte_carlo.WavefrontState:
+    """The persistent-wavefront MC stepper through the bundle's intersector,
+    on the device ``state`` lies on."""
+    bundle = bundle.to(state.s.device)
+    return monte_carlo.wavefront_steps(
+        bundle.scene, camera, cfg, seed, state, n_steps,
+        intersect_fn=make_intersect_fn(bundle, sort_rays=True),
+        nearest_t_fn=make_nearest_t_fn(bundle, sort_rays=True))

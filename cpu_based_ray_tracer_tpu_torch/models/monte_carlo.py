@@ -17,6 +17,8 @@ the counter-based pcg4d hash of (pixel, sample, bounce, stream):
   launch for ``n_steps`` steps — what ``render_turbo_exact`` and
   ``render_turbo`` run.
 
+``intersect_fn`` / ``nearest_t_fn`` swap in an accelerated intersector
+(``models.mesh``: the packet kernel) for the main and the shadow rays.
 The replay, soft-visibility and record branches of ``_bounce_step`` wait
 for the gradient slice.
 """
@@ -43,13 +45,22 @@ def _brdf_diffuse(albedo, cos_in):
 
 
 def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
-                 bounce, o, d, throughput, alive):
+                 bounce, o, d, throughput, alive, intersect_fn=None,
+                 nearest_t_fn=None):
     """One path-tracing bounce for a batch of lanes (hard shadows).
 
-    Returns ``(radiance_delta, o', d', throughput', continues, n_main,
-    n_shadow)``; the n_* are the ray counts of this step."""
+    ``intersect_fn(scene, o, d, t_min) -> Hit`` and ``nearest_t_fn(scene,
+    o, d, t_min) -> t`` default to exact brute force.  Returns
+    ``(radiance_delta, o', d', throughput', continues, n_main, n_shadow)``;
+    the n_* are the ray counts of this step."""
     mats = scene.materials
-    hit = intersect.intersect_scene(scene, o, d, t_min=cfg.t_min)
+    if intersect_fn is None:
+        intersect_fn = lambda s, oo, dd, tm: intersect.intersect_scene(  # noqa: E731
+            s, oo, dd, t_min=tm)
+    if nearest_t_fn is None:
+        nearest_t_fn = lambda s, oo, dd, tm: intersect.nearest_t(  # noqa: E731
+            s, oo, dd, t_min=tm)
+    hit = intersect_fn(scene, o, d, cfg.t_min)
     n_main = torch.sum(alive)
 
     m = hit.material.long()
@@ -75,7 +86,7 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
     dist = vec.norm(to_l)[:, 0]
     wi_l = to_l / torch.clamp(dist, min=1e-20)[:, None]
     ln = torch.where(vec.dot(ls.normal, -wi_l) < 0.0, -ls.normal, ls.normal)
-    occ_t = intersect.nearest_t(scene, p, wi_l, cfg.t_min)
+    occ_t = nearest_t_fn(scene, p, wi_l, cfg.t_min)
     visible = dist < occ_t + cfg.shadow_tolerance
     vis_w = visible.to(torch.float32)
     n_shadow = torch.sum(alive)
@@ -106,7 +117,8 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
 
 
 def trace(scene: Scene, origin, direction, cfg: RenderConfig, *, seed, pixel,
-          sample, count_rays: bool = False):
+          sample, count_rays: bool = False, intersect_fn=None,
+          nearest_t_fn=None):
     """Path radiance for a batch of primary rays, (R, 3): the fixed-depth
     engine (every lane runs all ``cfg.max_depth`` bounces, dead ones
     masked).  ``count_rays``: also return the rays traced (main + shadow)."""
@@ -119,7 +131,8 @@ def trace(scene: Scene, origin, direction, cfg: RenderConfig, *, seed, pixel,
     for bounce in range(cfg.max_depth):
         delta, o, d, tp, alive, n_main, n_shadow = _bounce_step(
             scene, cfg, seed=seed, pixel=pixel, sample=sample, bounce=bounce,
-            o=o, d=d, throughput=tp, alive=alive)
+            o=o, d=d, throughput=tp, alive=alive, intersect_fn=intersect_fn,
+            nearest_t_fn=nearest_t_fn)
         radiance = radiance + delta
         nrays = nrays + n_main + n_shadow
     return (radiance, fused._wrap_i32(nrays)) if count_rays else radiance
@@ -137,27 +150,32 @@ def _primary_rays(camera, cfg: RenderConfig, seed, sample):
 
 
 def render(scene: Scene, camera, cfg: RenderConfig, seed: int,
-           device=None) -> torch.Tensor:
+           device=None, *, intersect_fn=None,
+           nearest_t_fn=None) -> torch.Tensor:
     """Mean linear radiance, (H, W, 3), by the fixed-depth engine: one
     jittered frame per sample, ``cfg.spp`` samples, on ``device`` (default:
-    the card)."""
+    the card), through ``intersect_fn`` / ``nearest_t_fn`` (default: brute
+    force)."""
     dev = resolve_device(device)
     acc, _ = render_progressive(
         scene.to(dev), camera.to(dev), cfg, seed,
         torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
-                    device=dev), 0)
+                    device=dev), 0, intersect_fn=intersect_fn,
+        nearest_t_fn=nearest_t_fn)
     return acc / torch.tensor(float(cfg.spp), device=dev)
 
 
 def render_progressive(scene: Scene, camera, cfg: RenderConfig, seed: int,
-                       accum, start_sample: int):
+                       accum, start_sample: int, *, intersect_fn=None,
+                       nearest_t_fn=None):
     """Accumulate ``cfg.spp`` more samples (indices ``start_sample`` ..
     ``start_sample + spp``) on top of ``accum``; returns the checkpointable
     ``(accum', next_sample)`` pair."""
     h, w = cfg.height, cfg.width
     for s in range(start_sample, start_sample + cfg.spp):
         o, d, pixel = _primary_rays(camera, cfg, seed, s)
-        rad = trace(scene, o, d, cfg, seed=seed, pixel=pixel, sample=s)
+        rad = trace(scene, o, d, cfg, seed=seed, pixel=pixel, sample=s,
+                    intersect_fn=intersect_fn, nearest_t_fn=nearest_t_fn)
         accum = accum + rad.reshape(h, w, 3)
     return accum, start_sample + cfg.spp
 
@@ -216,7 +234,8 @@ def wavefront_init(scene: Scene, camera, cfg: RenderConfig, seed: int,
 
 
 def wavefront_steps(scene: Scene, camera, cfg: RenderConfig, seed: int,
-                    state: WavefrontState, n_steps: int) -> WavefrontState:
+                    state: WavefrontState, n_steps: int, intersect_fn=None,
+                    nearest_t_fn=None) -> WavefrontState:
     """Advance every lane by ``n_steps`` bounce steps, one ``_bounce_step``
     per step in plain PyTorch, on the device ``state`` lies on."""
     dev = state.s.device
@@ -229,7 +248,8 @@ def wavefront_steps(scene: Scene, camera, cfg: RenderConfig, seed: int,
     for _ in range(n_steps):
         delta, o2, d2, tp2, continues, n_main, n_shadow = _bounce_step(
             scene, cfg, seed=seed, pixel=pixel, sample=st.s, bounce=st.b,
-            o=st.o, d=st.d, throughput=st.tp, alive=alive)
+            o=st.o, d=st.d, throughput=st.tp, alive=alive,
+            intersect_fn=intersect_fn, nearest_t_fn=nearest_t_fn)
         cur = st.cur + delta
         cont = continues & (st.b + 1 < cfg.max_depth)
         done = ~cont

@@ -440,6 +440,8 @@ def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
     if sf.shape != (15, r) or si.shape != (4, r):
         raise ValueError(f"bad state plane shapes {tuple(sf.shape)}, "
                          f"{tuple(si.shape)}")
+    if r == 0:
+        return sf, si
     scene = torch.cat([fs.tri.reshape(-1), fs.sph.reshape(-1),
                        fs.light.reshape(-1), fs.sky.reshape(-1),
                        cam16.reshape(-1)]).to(device=sf.device,

@@ -1,5 +1,5 @@
 """Batched ray-primitive intersection (port of
-``cpu_based_ray_tracer_tpu.ops.intersect``, the forward MC subset).
+``cpu_based_ray_tracer_tpu.ops.intersect``, the forward subset).
 
 A dense (R rays x N primitives) t-matrix reduced with min/argmin, then the
 hit attributes recomputed per ray from the winning index.  Material and
@@ -26,8 +26,7 @@ _DET_EPS = 1e-12
 class Hit:
     """Hit record over a batch of rays.  ``geom_normal`` is the outward unit
     geometric normal; ``front`` is True when the ray arrived from the side it
-    points to.  (The texture ``uv`` of the JAX record waits for the Whitted
-    slice.)"""
+    points to; ``uv`` is the barycentric texture coordinate (0 on spheres)."""
 
     t: torch.Tensor            # (R,) distance, NO_HIT_T when miss
     hit: torch.Tensor          # (R,) bool
@@ -37,6 +36,7 @@ class Hit:
     point: torch.Tensor        # (R, 3) hit location
     geom_normal: torch.Tensor  # (R, 3)
     front: torch.Tensor        # (R,) bool
+    uv: torch.Tensor           # (R, 2) interpolated texture coords
 
     @property
     def facing_normal(self) -> torch.Tensor:
@@ -98,6 +98,22 @@ def triangle_t_matrix(origin, direction, v0, e1, e2, t_min, t_max):
     return torch.where(ok, t, NO_HIT_T)
 
 
+def moller_trumbore_single(origin, direction, v0, e1, e2):
+    """Moller-Trumbore for one (ray, triangle) pair per lane, all inputs
+    (R, 3): (t, b1, b2), each (R,).  Degenerate triangles give garbage that
+    callers mask."""
+    s1 = vec.cross(direction, e2)
+    det = vec.dot(s1, e1)[:, 0]
+    ok_det = torch.abs(det) > _DET_EPS
+    inv_det = 1.0 / torch.where(ok_det, det, 1.0)
+    s = origin - v0
+    s2 = vec.cross(s, e1)
+    t = vec.dot(s2, e2)[:, 0] * inv_det
+    b1 = vec.dot(s1, s)[:, 0] * inv_det
+    b2 = vec.dot(s2, direction)[:, 0] * inv_det
+    return t, b1, b2
+
+
 def nearest_triangle(scene: Scene, origin, direction, t_min, t_max):
     """(t, idx) of the nearest triangle per ray (first index on a tie)."""
     tr = scene.triangles
@@ -146,10 +162,16 @@ def _winner_hit(scene: Scene, origin, direction, best_t, best_s, is_tri, t,
     geom_n = vec.normalize(torch.where(is_tri[:, None], tr.normal[best_t],
                                        n_sphere))
     front = vec.dot(geom_n, direction)[:, 0] < 0.0
+    # Barycentric uv interpolation at the winning triangle.
+    _, b1, b2 = moller_trumbore_single(origin, direction, tr.v0[best_t],
+                                       tr.e1[best_t], tr.e2[best_t])
+    uv = (tr.uv0[best_t] * (1.0 - b1 - b2)[:, None]
+          + tr.uv1[best_t] * b1[:, None] + tr.uv2[best_t] * b2[:, None])
+    uv = torch.where(is_tri[:, None], uv, 0.0)
     mat = torch.where(is_tri, tr.material[best_t], sp.material[best_s])
     return Hit(t=torch.where(hit, t, NO_HIT_T), hit=hit, is_triangle=is_tri,
                prim=prim.to(torch.int32), material=mat.to(torch.int32),
-               point=point, geom_normal=geom_n, front=front)
+               point=point, geom_normal=geom_n, front=front, uv=uv)
 
 
 def nearest_t(scene: Scene, origin, direction,

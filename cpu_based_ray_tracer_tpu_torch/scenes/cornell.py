@@ -2,11 +2,13 @@
 
 The standard Cornell-box data set (graphics.cornell.edu/online/box/data.html),
 scaled by 0.01 like the reference mesh loader, with the reference MC
-renderer's materials and camera.  ``cornell_mesh_scene`` waits for the mesh
-slice of the port.
+renderer's materials and camera; ``cornell_mesh_scene`` puts a triangle
+mesh in place of the short box.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -14,6 +16,8 @@ from cpu_based_ray_tracer_tpu_torch import camera as cam_mod
 from cpu_based_ray_tracer_tpu_torch.scene import (DIFFUSE_GLOSSY,
                                                   MaterialBuilder, Scene,
                                                   make_scene, make_triangles)
+from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+from cpu_based_ray_tracer_tpu_torch.utils import objio
 
 MESH_SCALE = 0.01  # TriangleMesh.h:150
 
@@ -94,9 +98,8 @@ def cornell_triangles() -> tuple[np.ndarray, list[str]]:
     return np.asarray(tris, np.float64) * MESH_SCALE, tags
 
 
-def cornell_scene(device="cpu") -> Scene:
-    """32-triangle Cornell box with the reference's materials; the only light
-    is the emissive ceiling quad (area-light sampling targets it)."""
+def _materials():
+    """The reference MC renderer's materials, by surface tag."""
     mb = MaterialBuilder()
     ids = {
         "white": mb.add(DIFFUSE_GLOSSY, albedo=WHITE),
@@ -105,7 +108,54 @@ def cornell_scene(device="cpu") -> Scene:
         "light": mb.add(DIFFUSE_GLOSSY, albedo=WHITE,
                         emission=LIGHT_EMISSION),
     }
+    return mb, ids
+
+
+def cornell_scene(device="cpu") -> Scene:
+    """32-triangle Cornell box with the reference's materials; the only light
+    is the emissive ceiling quad (area-light sampling targets it)."""
+    mb, ids = _materials()
     verts, tags = cornell_triangles()
+    mats = np.array([ids[t] for t in tags], np.int32)
+    return make_scene(triangles=make_triangles(verts, mats, device=device),
+                      materials=mb.build(device),
+                      sky_bottom=NIGHT_SKY, sky_top=NIGHT_SKY, device=device)
+
+
+def cornell_mesh_scene(mesh_tris: np.ndarray | None = None,
+                       height: float = 1.8, device="cpu") -> Scene:
+    """The Cornell box with a triangle MESH in place of the short box: the
+    workload of the accelerated intersectors inside the MC estimator
+    (``models.mesh.render_mc``).
+
+    ``mesh_tris``: (T, 3, 3) triangle soup in any coordinates, scaled to
+    ``height`` and stood on the floor at the short box's footprint center.
+    Default: ``stanford_bunny.obj`` where ``$CRT_REFERENCE_DIR`` holds the
+    reference assets, else the icosphere stand-in (1,280 triangles)."""
+    if mesh_tris is None:
+        src = meshes.reference_asset_dir()
+        if src is not None:
+            mesh_tris, _ = objio.load_obj(
+                os.path.join(src, "stanford_bunny.obj"))
+        else:
+            mesh_tris = meshes.icosphere(3, radius=1.0)
+    mesh_tris = np.asarray(mesh_tris, np.float64)
+    lo = mesh_tris.reshape(-1, 3).min(0)
+    hi = mesh_tris.reshape(-1, 3).max(0)
+    scale = height / max(hi[1] - lo[1], 1e-9)
+    center = (lo + hi) / 2.0
+    # Short-box footprint center (scaled): x 1.86, z 1.685.
+    target = np.array([1.86, 0.0, 1.685])
+    offset = target - np.array([center[0], lo[1], center[2]]) * scale
+    mesh_tris = mesh_tris * scale + offset
+
+    mb, ids = _materials()
+    verts, tags = cornell_triangles()
+    # 12 wall/light triangles, the short box's 10, the tall box's 10: drop
+    # the short box.
+    keep = list(range(0, 12)) + list(range(22, 32))
+    verts = np.concatenate([verts[keep], mesh_tris])
+    tags = [tags[i] for i in keep] + ["white"] * len(mesh_tris)
     mats = np.array([ids[t] for t in tags], np.int32)
     return make_scene(triangles=make_triangles(verts, mats, device=device),
                       materials=mb.build(device),

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``requires_cuda``: each test skips (from a fixture) where there is
 no CUDA device.  The file imports nothing of JAX, so it also runs on a
@@ -9,11 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from cpu_based_ray_tracer_tpu_torch import camera
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+from cpu_based_ray_tracer_tpu_torch.models import mesh
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
-from cpu_based_ray_tracer_tpu_torch.ops import fused
+from cpu_based_ray_tracer_tpu_torch.ops import fused, fused_whitted, packet
 from cpu_based_ray_tracer_tpu_torch.scene import make_spheres
-from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+from cpu_based_ray_tracer_tpu_torch.scenes import (cornell, meshes,
+                                                   whitted_scene)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -64,3 +67,77 @@ def test_render_turbo_exact_on_card(cuda):
     plain = mc.render_turbo_exact(scene, cam, cfg, SEED, device="cpu")
     np.testing.assert_allclose(img.cpu().numpy(), plain.numpy(), rtol=2e-3,
                                atol=2e-3)
+
+
+@pytest.mark.parametrize("queue", [4, 2])
+def test_whitted_kernel_matches_plain(cuda, queue):
+    """Same algorithm, -fmad=false: the Fresnel, Snell and shading chains
+    agree to a few ulp; the gate of tests/test_fused_whitted.py."""
+    scene, cam = whitted_scene.whitted_scene(), whitted_scene.whitted_camera()
+    cfg = RenderConfig(width=96, height=80)
+    want, want_t = fused_whitted.render_fused_plain(scene, cam, cfg,
+                                                    queue=queue, device=cuda)
+    launches = fused_whitted.LAUNCHES
+    got, t = fused_whitted.render_fused(scene, cam, cfg, queue=queue)
+    torch.cuda.synchronize()
+    assert fused_whitted.LAUNCHES == launches + 1
+    diff = (got - want).abs().cpu().numpy()
+    assert float(np.percentile(diff, 99)) < 1e-4
+    assert (diff.max(-1) > 1e-3).mean() < 0.005
+    np.testing.assert_allclose(float(t), float(want_t), rtol=1e-5)
+    if queue == 4:
+        assert float(t) == 0.0
+
+
+def _rays(seed, n, lo, hi, device):
+    g = np.random.default_rng(seed)
+    o = g.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.as_tensor(o, device=device), torch.as_tensor(d, device=device)
+
+
+@pytest.mark.parametrize("case", ["icosphere", "camera", "streamed"])
+def test_packet_kernel_matches_plain(cuda, case):
+    if case == "icosphere":
+        tris, cs = meshes.icosphere(2), 32
+        o, d = _rays(0, 1000, -2.0, 2.0, cuda)
+    elif case == "camera":
+        tris, cs = None, 128
+        cam = meshes.bvh_stage_camera(cuda)
+        d = camera.perspective_rays(cam, 64, 48).reshape(-1, 3).contiguous()
+        o = cam.position.expand(d.shape).contiguous()
+    else:
+        tris = np.concatenate([meshes.icosphere(4),
+                               meshes.torus(1.5, 0.4, 48, 32)])
+        cs = 64
+        o, d = _rays(3, 4000, -3.0, 3.0, cuda)
+    if tris is None:
+        sc = meshes.bvh_stage_scene()
+        v0, e1, e2 = (x.numpy().astype(np.float64) for x in
+                      (sc.triangles.v0, sc.triangles.e1, sc.triangles.e2))
+        tris = np.stack([v0, v0 + e1, v0 + e2], 1)
+    cl = packet.build_clusters(tris, cs, device=cuda)
+    want_t, want_i = packet.nearest_plain(cl, o, d, 1e-3)
+    launches = packet.LAUNCHES
+    got_t, got_i = packet.nearest(cl, o, d, 1e-3)
+    torch.cuda.synchronize()
+    assert packet.LAUNCHES == launches + 1
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_t < packet.NO_HIT, want_t < packet.NO_HIT)
+    hit = want_t < packet.NO_HIT
+    assert hit.any()
+    torch.testing.assert_close(got_t[hit], want_t[hit], rtol=1e-6, atol=0)
+
+
+def test_mesh_render_on_card(cuda):
+    scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
+    cfg = RenderConfig(width=64, height=48)
+    bundle = mesh.prepare(scene)
+    packet.LAUNCHES = 0
+    img = mesh.render(bundle, cam, cfg)
+    assert img.is_cuda and packet.LAUNCHES > 0
+    plain = mesh.render(bundle, cam, cfg, device="cpu").numpy()
+    # rtol 1e-5, atol 1e-6 on all but knife-edge pixels (< 0.5%).
+    bad = (np.abs(img.cpu().numpy() - plain) > 1e-6 + 1e-5 * np.abs(plain))
+    assert bad.any(-1).mean() < 0.005
