@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU through its main paths — the
-Monte Carlo Cornell path tracer, the Whitted stage and the BVH mesh stage —
-and hold every kernel against its plain PyTorch version.
+Monte Carlo Cornell path tracer, the Whitted stage, the BVH mesh stage and
+the fused mesh Monte Carlo stage — and hold every kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py
 
@@ -41,9 +42,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (every pixel's radiance within 2e-3);
 13. whitted_speed, packet_speed  each new kernel alone with CUDA events
               beside its plain version: ms per 896x896 Whitted frame, ms per
-              802,816-ray packet pass on camera and on shadow rays.
+              802,816-ray packet pass on camera and on shadow rays;
+14. mesh_fused_parity  on cornell_mesh_scene at 896x896 from
+              wavefront_init: each of the five csrc/fused_mesh.cu entry
+              points against its plain version for one step (outputs bit
+              equal, packed lane sets equal, each block's slice in lane
+              order), then the whole stepper against
+              wavefront_steps_fused_mesh_plain for 16 steps, plain mode and
+              stop_after=4 (integer state, overflow 0, populations);
+15. mesh_fused_main  render_turbo_mesh_exact at 896x896, 4 spp, depth 16,
+              RR 0.8 (5 launches a step, no packet launch), the chunk and
+              cap-doubling trace, image to build/; then render_turbo_mesh,
+              the mesh-mc stage's call;
+16. mesh_fused_oracle  render_turbo_mesh_exact against mesh.render_mc
+              (packet) at 128x128, 4 spp, depth 16: rtol = atol = 2e-3 on
+              all but 1e-4 of the pixels;
+17. mesh_fused_speed  bench.py's mc_bunny_mesh_fused (896x896, caps rp//8
+              and rp//12, 16 steps a call, 3 calls after a warm-up) in
+              rays/s, and each entry point alone in ms per step beside its
+              plain version and its bound.
 
-Each main path (5, 9, 11, 12) runs with every launch counter set to 0
+Each main path (5, 9, 11, 12, 15) runs with every launch counter set to 0
 just before it and read just after.  Then the kernels line, the nvidia-smi
 line, and the last line {"ok": true, "device": {...}}.  Exits non-zero,
 printing no result, where CUDA is not available.
@@ -315,17 +334,22 @@ def speed_phase(dev, full: RenderConfig, max_sm_mhz: float, smi: str,
 # --- the Whitted and mesh stages --------------------------------------------
 
 def reset_counts():
-    from cpu_based_ray_tracer_tpu_torch.ops import fused, fused_whitted, packet
+    from cpu_based_ray_tracer_tpu_torch.ops import (fused, fused_mesh,
+                                                    fused_whitted, packet)
 
     fused.LAUNCHES = fused_whitted.LAUNCHES = packet.LAUNCHES = 0
+    for k in fused_mesh.LAUNCHES:
+        fused_mesh.LAUNCHES[k] = 0
 
 
 def read_counts() -> dict:
-    from cpu_based_ray_tracer_tpu_torch.ops import fused, fused_whitted, packet
+    from cpu_based_ray_tracer_tpu_torch.ops import (fused, fused_mesh,
+                                                    fused_whitted, packet)
 
     return {"fused_mc": fused.LAUNCHES,
             "fused_whitted": fused_whitted.LAUNCHES,
-            "packet": packet.LAUNCHES}
+            "packet": packet.LAUNCHES,
+            "fused_mesh": dict(fused_mesh.LAUNCHES)}
 
 
 def image_gate(got, want) -> dict:
@@ -663,6 +687,274 @@ def packet_speed_phase(dev, cases, smi, n_iters=10) -> dict:
     return res
 
 
+# --- the fused mesh MC stage -------------------------------------------------
+
+MESH_TPU = {"k1": ("_k1_kernel", 226), "nearest": ("_mesh_nearest_kernel", 915),
+            "k1b": ("_k1b_kernel", 1142), "occl": ("_mesh_occl_kernel", 943),
+            "k2": ("_k2_kernel", 388)}
+
+
+def mesh_setup(dev, cfg):
+    """The bench cell's pack, camera, fresh state and constants (caps
+    rp // 8 and rp // 12, as bench.py's mc_bunny_mesh_fused)."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_mesh_scene(device=dev), cornell.cornell_camera(dev)
+    mp = fm.pack_mesh_scene(scene)
+    st = mc.wavefront_init(scene, cam, cfg, SEED_KEY0, device=dev)
+    r = st.s.shape[0]
+    rp = -(-r // fm.LANES_PER_TILE) * fm.LANES_PER_TILE
+    caps = (rp // 8, rp // 12)
+    p = fm.params(cfg, r, *caps)
+    tb = fm._tables(mp, fused._camera_words(cam))
+    return scene, cam, mp, st, caps, p, tb
+
+
+def max_abs(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def pack_check(ids_k, ids_p, rays_k, rays_p, offs_k, offs_p) -> bool:
+    """The kernel's pack holds the plain pack's lanes, each block's slice
+    contiguous and in lane order (blocks land in any order)."""
+    order = torch.argsort(ids_k)
+    ok = (torch.equal(ids_k[order], ids_p)
+          and torch.equal(rays_k[:, order], rays_p)
+          and torch.equal(offs_k[:, 1], offs_p[:, 1]))
+    for (bk, c), (bp, _) in zip(offs_k.tolist(), offs_p.tolist()):
+        ok = ok and torch.equal(ids_k[bk:bk + c], ids_p[bp:bp + c])
+    return ok
+
+
+def mesh_fused_parity_phase(dev, cfg, n_steps=16) -> dict:
+    """(a) each of the five entry points against its plain version on the
+    same inputs, one step from wavefront_init; (b) the whole stepper,
+    kernels against plain, n_steps in plain mode and with stop_after=4.
+    Returns the max abs error of each entry point."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+
+    scene, cam, mp, st, caps, p, tb = mesh_setup(dev, cfg)
+    r = st.s.shape[0]
+    sf, si = fm.state_planes(st)
+    bp = fm.StepBuffers(*[torch.zeros_like(x)
+                          for x in fm.step_buffers(r, p, 1, dev)])
+    errs, res = {}, {}
+    for name in fm.OP_NAMES:
+        bk = fm.StepBuffers(*[x.clone() for x in bp])
+        sf_k, si_k = sf.clone(), si.clone()
+        fm.run_op(fm.KERNEL_OPS, name, tb, p, SEED_KEY0, sf_k, si_k, bk)
+        fm.run_op(fm.PLAIN_OPS, name, tb, p, SEED_KEY0, sf, si, bp)
+        sync(dev)
+        same = {"cnt": torch.equal(bk.cnt, bp.cnt),
+                "hf": torch.equal(bk.hf, bp.hf),
+                "kb": torch.equal(bk.kb, bp.kb),
+                "state": torch.equal(sf_k, sf) and torch.equal(si_k, si)}
+        errs[name] = max(max_abs(bk.hf, bp.hf), max_abs(bk.kb, bp.kb),
+                         max_abs(sf_k, sf))
+        if name in ("k1", "k1b"):
+            k = 0 if name == "k1" else 1
+            n = int(bp.cnt[0, k])
+            ids, rays, offs = (("mr_id", "mr", "offs1") if k == 0
+                               else ("sr_id", "sr", "offs2"))
+            same["pack"] = pack_check(
+                getattr(bk, ids)[:n], getattr(bp, ids)[:n],
+                getattr(bk, rays)[:, :n], getattr(bp, rays)[:, :n],
+                getattr(bk, offs), getattr(bp, offs))
+            res[f"packed_{name}"] = n
+        res[name] = same
+        if not all(same.values()):
+            raise RuntimeError(f"fused_mesh {name} disagrees with its plain "
+                               f"version: {same}, max abs err "
+                               f"{errs[name]}")
+    emit(phase="mesh_fused_parity", part="each_kernel", lanes=r,
+         caps=list(caps), max_abs_err=errs, **res)
+
+    for stop_after in (0, 4):
+        kw = dict(cap_main=caps[0], cap_shadow=caps[1],
+                  stop_after=stop_after)
+        want, of_p, np_p = fm.wavefront_steps_fused_mesh_plain(
+            mp, cam, cfg, SEED_KEY0, st, n_steps, **kw)
+        got, of_k, np_k = fm.wavefront_steps_fused_mesh(
+            mp, cam, cfg, SEED_KEY0, st, n_steps, device=dev, **kw)
+        sync(dev)
+        cmp = compare_states(got, want)
+        emit(phase="mesh_fused_parity", part="stepper", n_steps=n_steps,
+             stop_after=stop_after, overflow=[int(of_k), int(of_p)],
+             npred=[np_k.tolist(), np_p.tolist()], **cmp)
+        if (cmp["int_mismatch_share"] > MAX_INT_MISMATCH
+                or not cmp["float_within_tol"] or int(of_k) or int(of_p)
+                or not torch.equal(np_k, np_p)):
+            raise RuntimeError(f"the fused mesh stepper disagrees with its "
+                               f"plain version (stop_after={stop_after})")
+        for k in errs:
+            errs[k] = max(errs[k], cmp["max_abs_err"])
+    return errs
+
+
+def mesh_fused_main_phase(dev, cfg) -> dict:
+    """render_turbo_mesh_exact at full width (the main path), then one
+    render_turbo_mesh (the mesh-mc stage's call), each with the counters
+    set to 0 just before and read just after; returns the first's
+    fused_mesh launches."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_mesh_scene(), cornell.cornell_camera()
+    runs = {}
+    for name, fn in (("render_turbo_mesh_exact", fm.render_turbo_mesh_exact),
+                     ("render_turbo_mesh", fm.render_turbo_mesh)):
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        img = fn(scene, cam, cfg, SEED_KEY0, device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+        steps = sum(t["steps"] for t in fm.TRACE)
+        finite = bool(torch.isfinite(img).all())
+        emit(phase="mesh_fused_main", call=name, config=f"cornell_mesh_scene "
+             f"{cfg.width}x{cfg.height} {cfg.spp}spp depth{cfg.max_depth} "
+             f"rr{cfg.rr_survival}", tris=scene.triangles.count,
+             seconds=secs, steps=steps, launches=launches, trace=fm.TRACE,
+             finite=finite, mean_radiance=float(img.mean()),
+             png=save_png(img, f"mesh_fused_{name}_{cfg.width}.png", 2.0))
+        if (launches["packet"] != 0 or any(
+                v != steps or v <= 0 for v in launches["fused_mesh"].values())):
+            raise RuntimeError(f"{name}: launches {launches}, {steps} steps")
+        if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
+                or not float(img.mean()) > 0.0):
+            raise RuntimeError(f"{name}'s image is wrong")
+        runs[name] = launches["fused_mesh"]
+    return runs["render_turbo_mesh_exact"]
+
+
+def mesh_fused_oracle_phase(dev, cfg, tol=TOL):
+    """render_turbo_mesh_exact against mesh.render_mc through the packet
+    kernel: the same estimator through two exact intersectors; at most
+    MAX_INT_MISMATCH of the pixels may differ (knife-edge hits)."""
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_mesh_scene(), cornell.cornell_camera()
+    img = fm.render_turbo_mesh_exact(scene, cam, cfg, SEED_KEY0, device=dev)
+    oracle = mesh.render_mc(mesh.prepare(scene), cam, cfg, SEED_KEY0,
+                            device=dev)
+    res = pixels_off(img, oracle, tol, tol)
+    share = res["pixels_off"] / (cfg.width * cfg.height)
+    emit(phase="mesh_fused_oracle", config=f"{cfg.width}x{cfg.height} "
+         f"{cfg.spp}spp depth{cfg.max_depth}", vs_packet=res,
+         pixels_off_share=share, max_share=MAX_INT_MISMATCH)
+    if share > MAX_INT_MISMATCH:
+        raise RuntimeError(f"render_turbo_mesh_exact vs mesh.render_mc: {res}")
+
+
+# f32 operations counted in csrc/fused_mesh.cu (comparisons and selects not
+# counted): per lane of K1 47 per small triangle, 28 per sphere and
+# SLAB_OPS per predicate AABB; per lane of K1b K1B_OPS + SLAB_OPS per
+# AABB (normal, shading point, light sample, cos); per lane of K2 150 +
+# 50 per small triangle + 28 per sphere (as fused_mc's step); the sweeps
+# TRI_OPS per triangle test, with no AABB cull: the nearest sweep tests
+# every triangle for each packed ray, the occlusion sweep stops a ray at
+# its first accepted triangle (the plain version's tally of its tests).
+K1B_OPS = 75
+
+
+def mesh_bounds(mp, r, n_main, n_shadow, occl_tests) -> dict:
+    """(ops, bytes) of each entry point for one step with these packed
+    populations: each input read once, each output written once."""
+    n_pred = mp.pred_aabb.shape[0]
+    table = mp.n_clusters * mp.cs * 16 * 4
+    return {
+        "k1": (r * (47 * mp.n_stri + 28 * mp.n_sph + SLAB_OPS * n_pred),
+               r * (24 + 40) + n_main * 28),
+        "nearest": (n_main * mp.n_clusters * mp.cs * TRI_OPS,
+                    n_main * (28 + 20) + table),
+        "k1b": (r * (K1B_OPS + SLAB_OPS * n_pred),
+                r * (24 + 8 + 40 + 36) + n_shadow * 32),
+        "occl": (occl_tests * TRI_OPS, n_shadow * (32 + 4) + table),
+        "k2": (r * (150 + 50 * mp.n_stri + 28 * mp.n_sph), r * (100 + 76)),
+    }
+
+
+def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
+                           n_iters=20) -> dict:
+    """bench.py's mc_bunny_mesh_fused: n_steps per call, a warm-up, then
+    n_calls timed calls -> rays/s.  Then each entry point alone on the
+    state the calls left (CUDA events, ms per launch = per step), its
+    plain version once, and its bound from this step's populations."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+
+    scene, cam, mp, st, caps, p, tb = mesh_setup(dev, cfg)
+    kw = dict(cap_main=caps[0], cap_shadow=caps[1], device=dev)
+    st, of, _ = fm.wavefront_steps_fused_mesh(mp, cam, cfg, SEED_KEY0, st,
+                                              n_steps, **kw)   # warm-up
+    sync(dev)
+    st = dataclasses.replace(st, nrays=torch.zeros_like(st.nrays))
+    overflow = 0
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        st, of, npred = fm.wavefront_steps_fused_mesh(mp, cam, cfg, SEED_KEY0,
+                                                      st, n_steps, **kw)
+        overflow += int(of)     # one device read per call, as in _drive
+    sync(dev)
+    dt = time.perf_counter() - t0
+    rays = int(st.nrays)
+
+    # one real step fills the buffers; then each entry point alone
+    r = st.s.shape[0]
+    sf, si = fm.state_planes(st)
+    b = fm.step_buffers(r, p, 1, dev)
+    fm.run_steps(fm.KERNEL_OPS, tb, p, SEED_KEY0, sf.clone(), si.clone(), 1,
+                 b)
+    n_main, n_shadow = b.cnt[0].tolist()
+    sf2, si2 = sf.clone(), si.clone()
+    res, plain_out = {}, {}
+    for name in fm.OP_NAMES:
+        def counters(n):
+            """A step's populations: the packers add to 0s, the sweeps
+            read this step's."""
+            if name in ("nearest", "occl"):
+                return b.cnt[0:1].repeat(n, 1)
+            return torch.zeros((n, 2), dtype=torch.int32, device=dev)
+        bt = b._replace(cnt=counters(n_iters + 1))
+
+        def launch(i):
+            fm.run_op(fm.KERNEL_OPS, name, tb, p, SEED_KEY0, sf2, si2, bt, k=i)
+        launch(n_iters)                                         # warm-up
+        ms = timed(lambda: [launch(i) for i in range(n_iters)]) / n_iters
+        bp = fm.StepBuffers(*[x.clone() for x in b])._replace(cnt=counters(1))
+        plain_ms = timed(lambda: plain_out.update({name: fm.run_op(
+            fm.PLAIN_OPS, name, tb, p, SEED_KEY0, sf.clone(), si.clone(),
+            bp)}))
+        if name == "occl":
+            occl_tests = int(plain_out["occl"])
+            occluded = int(bp.kb[8].sum())
+        res[name] = dict(ms=ms, plain_ms=plain_ms)
+    bounds = mesh_bounds(mp, r, n_main, n_shadow, occl_tests)
+    for name in fm.OP_NAMES:
+        ops, nbytes = bounds[name]
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        res[name].update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_by="operations" if t_ops >= t_bytes
+                         else "bytes", ops=ops, bytes=nbytes)
+    emit(phase="mesh_fused_speed", nvidia_smi=smi, lanes=r,
+         n_steps=n_steps, n_calls=n_calls, caps=list(caps),
+         rays_per_s=rays / dt, ms_per_step=dt / (n_calls * n_steps) * 1e3,
+         overflow=overflow, packed_per_step=[n_main, n_shadow],
+         occl_triangle_tests=occl_tests,
+         occl_tests_per_shadow_ray=occl_tests / max(n_shadow, 1),
+         occl_tests_all_clusters=n_shadow * mp.n_clusters * mp.cs,
+         occluded_share=occluded / max(n_shadow, 1),
+         kernel_ms_per_step=sum(v["ms"] for v in res.values()),
+         bound_ms_per_step=sum(v["bound_ms"] for v in res.values()),
+         per_kernel=res)
+    return res
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -714,7 +1006,25 @@ def main():
     wsp = whitted_speed_phase(dev, wfull, w_counts, smi)
     psp = packet_speed_phase(dev, p_cases, smi)
 
+    m_err = mesh_fused_parity_phase(dev, full)
+    m_launches = mesh_fused_main_phase(dev, full)
+    mesh_fused_oracle_phase(dev, RenderConfig(width=128, height=128, spp=4,
+                                              max_depth=16, rr_survival=0.8))
+    msp = mesh_fused_speed_phase(dev, full, smi)
+
     r = full.width * full.height
+    mesh_kernels = [{
+        "name": f"fused_mesh_{k}", "route": "cuda",
+        "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_mesh.cu",
+        "replaces": f"cpu_based_ray_tracer_tpu/ops/fused_mesh.py:"
+                    f"{MESH_TPU[k][1]}",
+        "tpu_kernel": f"ops/fused_mesh.py::{MESH_TPU[k][0]}",
+        "unit": f"ms per bounce step, {r} lanes, cornell_mesh_scene "
+                f"(one launch per step)",
+        "launches": m_launches[k], "max_abs_err": m_err[k],
+        "ms": msp[k]["ms"], "plain_ms": msp[k]["plain_ms"],
+        "bound_ms": msp[k]["bound_ms"], "bound_by": msp[k]["bound_by"],
+        "library_ms": None} for k in MESH_TPU]
     print(json.dumps({"kernels": [{
         "name": "fused_mc", "route": "cuda",
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_mc.cu",
@@ -748,7 +1058,7 @@ def main():
         "shadow_ms": psp["shadow"]["ms"],
         "shadow_plain_ms": psp["shadow"]["plain_ms"],
         "shadow_bound_ms": psp["shadow"]["bound_ms"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}] + mesh_kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -73,3 +73,21 @@ def camera_from_arrays(d: dict, device="cpu") -> PerspectiveCamera:
 def camera_to_arrays(camera: PerspectiveCamera) -> dict:
     return {f.name: getattr(camera, f.name).cpu().numpy()
             for f in dataclasses.fields(camera)}
+
+
+def mesh_pack_from_arrays(d: dict, device="cpu"):
+    """An ``ops.fused_mesh.MeshPack`` on ``device`` from the fields of a
+    JAX-package ``MeshPack``: its arrays as numpy (``smc_tri`` in either
+    the JAX (C, CS*16/128, 128) layout or (C, CS, 16)), its ints and
+    tuples as they are."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh
+
+    kw = {f.name: d[f.name] for f in dataclasses.fields(fused_mesh.MeshPack)}
+    for name in ("stri", "ssph", "mat", "light", "sky", "smc_tri",
+                 "smc_aabb", "smc_box_aabb"):
+        kw[name] = torch.as_tensor(np.array(d[name], np.float32),
+                                   device=device)
+    kw["smc_tri"] = kw["smc_tri"].reshape(kw["smc_aabb"].shape[0], kw["cs"],
+                                          fused_mesh.MESH_NF)
+    kw["gate_mask"] = np.asarray(d["gate_mask"], bool)
+    return fused_mesh.MeshPack(**kw)

@@ -153,6 +153,210 @@ def _norm3(x, y, z, floor=1e-24):
     return x * inv, y * inv, z * inv
 
 
+def _light_sample(light, n_light: int, light_total, seed, pix, s, bb,
+                  px, py, pz):
+    """One area-light sample (LIGHT stream, CDF select, 1 - sqrt(u1)
+    barycentrics) seen from the points p -> (unit w_l, dist, the chosen
+    light row's 15 planes: v0 e1 e2 normal emission)."""
+    where = torch.where
+    ul0, ul1, ul2, _ = rng_mod.uniforms4(seed, pix, s, bb, rng_mod.LIGHT)
+    budget = ul0 * light_total
+    lgt = [list(light[e].unbind(0)) for e in range(n_light)]
+    row = lgt[0][:15]
+    for e in range(1, n_light):
+        take = lgt[e - 1][15] <= budget
+        row = [where(take, v, o) for v, o in zip(lgt[e][:15], row)]
+    (lv0x, lv0y, lv0z, le1x, le1y, le1z, le2x, le2y, le2z) = row[:9]
+    xw = 1.0 - torch.sqrt(ul1)
+    w1 = (1.0 - xw) * ul2
+    w2 = (1.0 - xw) * (1.0 - ul2)
+    lpx = lv0x + w1 * le1x + w2 * le2x
+    lpy = lv0y + w1 * le1y + w2 * le2y
+    lpz = lv0z + w1 * le1z + w2 * le2z
+    tlx, tly, tlz = lpx - px, lpy - py, lpz - pz
+    dist = torch.sqrt(torch.clamp(tlx * tlx + tly * tly + tlz * tlz, min=0.0))
+    invd = 1.0 / torch.clamp(dist, min=1e-20)
+    return (tlx * invd, tly * invd, tlz * invd), dist, row
+
+
+class Lanes(NamedTuple):
+    """Per-lane constants of a step: absolute pixel id, validity, (x, y)."""
+
+    pix: torch.Tensor
+    valid: torch.Tensor
+    pxf: torch.Tensor
+    pyf: torch.Tensor
+
+
+def lanes(r: int, width: int, n_pix: int, pixel_offset: int, device) -> Lanes:
+    pix = torch.arange(r, dtype=torch.int64, device=device) + pixel_offset
+    return Lanes(pix, pix < n_pix, (pix % width).to(torch.float32),
+                 (pix // width).to(torch.float32))
+
+
+def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
+                   ln: Lanes, planes, s, bb, nd, hit, mat, nrm, pt, occluded):
+    """A bounce step after its intersection, lane for lane as the kernels:
+    sky/emissive on primary bounces, NEE (the shadow ray tested against
+    the occluders ``occ`` = (tri rows, n_tri, sphere rows, n_sph), ORed
+    with ``occluded``), RR + hemisphere scatter, regeneration.
+
+    ``planes``: the 15 state planes [o d tp cur acc]; ``hit``: the main ray
+    hit something; ``mat``: the hit's (albedo 3, emission 3, emissive
+    flag); ``nrm``/``pt``: the facing unit normal and the shading point.
+    ``p`` carries width, height, t_min, shadow_tol, rr_survival, max_depth
+    and stop_after.  Returns (the 15 next planes, s, b, n_done, the lanes
+    that traced a shadow ray)."""
+    where = torch.where
+    dev = s.device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    c = cam16.unbind(0)
+    px_, py_, pz_ = c[0:3]
+    rx_, ry_, rz_ = c[3:6]
+    ux_, uy_, uz_ = c[6:9]
+    fx_, fy_, fz_ = c[9:12]
+    tan_half = c[12]
+    skyb, skyt = sky[0:3], sky[3:6]
+    light_total = sky[6]
+    light_valid = light_total > 0.0
+    light_pdf = where(light_valid, 1.0 / torch.clamp(light_total, min=1e-20),
+                      f32(0.0))
+    aspect = float(p.width) / float(p.height)
+    width_f, height_f = f32(p.width), f32(p.height)
+    two_pi, inv_pi = f32(2.0 * np.pi), f32(1.0 / np.pi)
+    inv_rr = 1.0 / p.rr_survival
+
+    (_, _, _, dx, dy, dz, tpx, tpy, tpz,
+     cux, cuy, cuz, axp, ayp, azp) = planes
+    bal, bem, bef = mat
+    nxp, nyp, nzp = nrm
+    hx, hy, hz = pt
+    gated = p.stop_after > 0
+    armed = nd < p.stop_after
+    alive0 = (ln.valid & armed) if gated else ln.valid
+    hit_emissive = hit & (bef > 0.5)
+    is_primary = bb == 0
+
+    # Primary miss -> sky; primary emissive hit -> emission.
+    dux, duy, duz = _norm3(dx, dy, dz)
+    skyw = 0.5 * (duy + 1.0)
+    add_sky = alive0 & ~hit & is_primary
+    add_emi = alive0 & hit_emissive & is_primary
+    dr = [where(add_sky, (1.0 - skyw) * skyb[k] + skyw * skyt[k], 0.0)
+          + where(add_emi, bem[k], 0.0) for k in range(3)]
+    cux, cuy, cuz = cux + tpx * dr[0], cuy + tpy * dr[1], cuz + tpz * dr[2]
+
+    alive = alive0 & hit & ~hit_emissive
+
+    # --- NEE: one area-light sample ------------------------------------------
+    (wlx, wly, wlz), dist, row = _light_sample(light, n_light, light_total,
+                                               seed, ln.pix, s, bb, hx, hy, hz)
+    lnx, lny, lnz, lemr, lemg, lemb = row[9:15]
+    flip_l = (lnx * -wlx + lny * -wly + lnz * -wlz) < 0.0
+    lnx2, lny2, lnz2 = where(flip_l, -lnx, lnx), where(flip_l, -lny, lny), where(flip_l, -lnz, lnz)
+
+    # Shadow ray: occluded iff any hit lands at t <= dist - tol, with the
+    # division-free accept (sign tests against |det|-scaled bounds).
+    tri, n_tri, sph, n_sph = occ
+    lim = dist - p.shadow_tol
+    for n in range(n_tri):
+        (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = tri[n, :9].unbind(0)
+        s1x = wly * e2z - wlz * e2y
+        s1y = wlz * e2x - wlx * e2z
+        s1z = wlx * e2y - wly * e2x
+        det = s1x * e1x + s1y * e1y + s1z * e1z
+        okd = torch.abs(det) > _DET_EPS
+        sd = where(det >= 0.0, 1.0, -1.0)
+        adet = det * sd
+        sx, sy, sz = hx - v0x, hy - v0y, hz - v0z
+        s2x = sy * e1z - sz * e1y
+        s2y = sz * e1x - sx * e1z
+        s2z = sx * e1y - sy * e1x
+        tn = s2x * e2x + s2y * e2y + s2z * e2z
+        b1n = s1x * sx + s1y * sy + s1z * sz
+        b2n = s2x * wlx + s2y * wly + s2z * wlz
+        tsd = tn * sd
+        occluded = occluded | (
+            okd & (tsd > p.t_min * adet) & (tsd <= lim * adet)
+            & (b1n * sd >= 0.0) & (b2n * sd >= 0.0)
+            & ((det - b1n - b2n) * sd >= 0.0))
+    for m in range(n_sph):
+        (cx, cy, cz, rad) = sph[m, :4].unbind(0)
+        ocx, ocy, ocz = hx - cx, hy - cy, hz - cz
+        a_q = wlx * wlx + wly * wly + wlz * wlz
+        hb = ocx * wlx + ocy * wly + ocz * wlz
+        c_q = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+        disc = hb * hb - a_q * c_q
+        okq = disc > 0.0
+        sq = torch.sqrt(where(okq, disc, 1.0))
+        t_near = (-hb - sq) / a_q
+        t_far = (-hb + sq) / a_q
+        ts = where(okq & (t_near > p.t_min), t_near,
+                   where(okq & (t_far > p.t_min), t_far, NO_HIT))
+        occluded = occluded | (ts <= lim)
+    vis = (~occluded).to(torch.float32)
+
+    cos_s = wlx * nxp + wly * nyp + wlz * nzp
+    cos_l = -(wlx * lnx2 + wly * lny2 + wlz * lnz2)
+    geom = cos_s * cos_l / torch.clamp(dist * dist, min=1e-20)
+    brdf_ok = (cos_s >= 0.0).to(torch.float32) * inv_pi
+    scale = (geom / torch.clamp(light_pdf, min=1e-20)) * vis * brdf_ok
+    use = alive & light_valid
+    cux = cux + where(use, tpx * (lemr * bal[0] * scale), 0.0)
+    cuy = cuy + where(use, tpy * (lemg * bal[1] * scale), 0.0)
+    cuz = cuz + where(use, tpz * (lemb * bal[2] * scale), 0.0)
+
+    # --- indirect: RR + uniform hemisphere -----------------------------------
+    us0, us1, us2, _ = rng_mod.uniforms4(seed, ln.pix, s, bb, rng_mod.SCATTER)
+    survive = us2 < p.rr_survival
+    use_x = torch.abs(nxp) > torch.abs(nyp)
+    yx = where(use_x, nzp, 0.0)
+    yy = where(use_x, 0.0, nzp)
+    yz = where(use_x, -nxp, -nyp)
+    yx, yy, yz = _norm3(yx, yy, yz)
+    xx = yy * nzp - yz * nyp
+    xy = yz * nxp - yx * nzp
+    xz = yx * nyp - yy * nxp
+    z = us0
+    r_xy = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = two_pi * us1
+    cp, sp_ = torch.cos(phi), torch.sin(phi)
+    wix = r_xy * cp * xx + r_xy * sp_ * yx + z * nxp
+    wiy = r_xy * cp * xy + r_xy * sp_ * yy + z * nyp
+    wiz = r_xy * cp * xz + r_xy * sp_ * yz + z * nzp
+    cos_i = wix * nxp + wiy * nyp + wiz * nzp
+    w_ok = (cos_i >= 0.0).to(torch.float32) * inv_pi
+    wt = cos_i * two_pi * inv_rr * w_ok
+    continues = alive & survive
+    tpx = where(continues, tpx * (bal[0] * wt), tpx)
+    tpy = where(continues, tpy * (bal[1] * wt), tpy)
+    tpz = where(continues, tpz * (bal[2] * wt), tpz)
+
+    # --- persistent-wavefront bookkeeping --------------------------------------
+    cont = continues & (bb + 1 < p.max_depth)
+    done = (~cont & armed) if gated else ~cont
+    axp = axp + where(done, cux, 0.0)
+    ayp = ayp + where(done, cuy, 0.0)
+    azp = azp + where(done, cuz, 0.0)
+    nd = nd + done.to(torch.int32)
+    s = s + done.to(torch.int32)
+    uj0, uj1, _, _ = rng_mod.uniforms4(seed, ln.pix, s, 0, rng_mod.JITTER)
+    ndc_x = (ln.pxf + uj0) / width_f * 2.0 - 1.0
+    ndc_y = -((ln.pyf + uj1) / height_f * 2.0 - 1.0)
+    a = ndc_x * (tan_half * aspect)
+    b = ndc_y * tan_half
+    pdx, pdy, pdz = _norm3(a * rx_ + b * ux_ + fx_, a * ry_ + b * uy_ + fy_,
+                           a * rz_ + b * uz_ + fz_)
+    planes = [
+        where(cont, hx, px_), where(cont, hy, py_), where(cont, hz, pz_),
+        where(cont, wix, pdx), where(cont, wiy, pdy), where(cont, wiz, pdz),
+        where(cont, tpx, 1.0), where(cont, tpy, 1.0), where(cont, tpz, 1.0),
+        where(done, 0.0, cux), where(done, 0.0, cuy), where(done, 0.0, cuz),
+        axp, ayp, azp]
+    bb = where(cont, bb + 1, 0).to(torch.int32)
+    return planes, s, bb, nd, alive
+
+
 def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
     """``n_steps`` bounces of every lane; sf (15, R) f32, si (4, R) i32 in
     the kernel's layout.  Returns new (sf, si) with si[3] = per-lane shadow
@@ -163,45 +367,14 @@ def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
     TRI = [[fs.tri[n, k] for k in range(9)] for n in range(fs.n_tri)]
     SPH = [[fs.sph[m, k] for k in range(11)] for m in range(fs.n_sph)]
-    LGT = [[fs.light[e, k] for k in range(16)] for e in range(fs.n_light)]
-    c = [cam16[k] for k in range(13)]
-    px_, py_, pz_ = c[0:3]
-    rx_, ry_, rz_ = c[3:6]
-    ux_, uy_, uz_ = c[6:9]
-    fx_, fy_, fz_ = c[9:12]
-    tan_half = c[12]
-    skyb, skyt = fs.sky[0:3], fs.sky[3:6]
-    light_total = fs.sky[6]
-    light_valid = light_total > 0.0
-    light_pdf = where(light_valid, 1.0 / torch.clamp(light_total, min=1e-20),
-                      f32(0.0))
-    aspect = float(p.width) / float(p.height)
-    width_f, height_f = f32(p.width), f32(p.height)
-    two_pi, inv_pi = f32(2.0 * np.pi), f32(1.0 / np.pi)
-    inv_rr = 1.0 / p.rr_survival
-
-    pix = torch.arange(r, dtype=torch.int64, device=dev)
-    valid = pix < p.n_pix
-    pxf = (pix % p.width).to(torch.float32)
-    pyf = (pix // p.width).to(torch.float32)
-
-    def cam_ray(jx, jy):
-        ndc_x = (pxf + jx) / width_f * 2.0 - 1.0
-        ndc_y = -((pyf + jy) / height_f * 2.0 - 1.0)
-        ta = tan_half * aspect
-        a = ndc_x * ta
-        b = ndc_y * tan_half
-        return _norm3(a * rx_ + b * ux_ + fx_, a * ry_ + b * uy_ + fy_,
-                      a * rz_ + b * uz_ + fz_)
+    occ = (fs.tri, fs.n_tri, fs.sph, fs.n_sph)
+    ln = lanes(r, p.width, p.n_pix, 0, dev)
 
     s, bb, nd = si[0], si[1], si[2]
     nsh = torch.zeros_like(s)
-    (ox, oy, oz, dx, dy, dz, tpx, tpy, tpz,
-     cux, cuy, cuz, axp, ayp, azp) = sf.unbind(0)
-    gated = p.stop_after > 0
+    planes = list(sf.unbind(0))
     for _ in range(p.n_steps):
-        armed = nd < p.stop_after
-        alive0 = (valid & armed) if gated else valid
+        ox, oy, oz, dx, dy, dz = planes[0:6]
 
         # --- main intersect: Moller-Trumbore over triangles, then spheres --
         # The winning triangle's index is tracked and its attributes read
@@ -256,22 +429,7 @@ def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
             bal = [where(ok, v, o) for v, o in zip((ar, ag, ab), bal)]
             bem = [where(ok, v, o) for v, o in zip((er, eg, eb), bem)]
             bef = where(ok, ef, bef)
-
         hit = best_t < NO_HIT
-        hit_emissive = hit & (bef > 0.5)
-        is_primary = bb == 0
-
-        # Primary miss -> sky; primary emissive hit -> emission.
-        dux, duy, duz = _norm3(dx, dy, dz)
-        skyw = 0.5 * (duy + 1.0)
-        add_sky = alive0 & ~hit & is_primary
-        add_emi = alive0 & hit_emissive & is_primary
-        dr = [where(add_sky, (1.0 - skyw) * skyb[k] + skyw * skyt[k], 0.0)
-              + where(add_emi, bem[k], 0.0) for k in range(3)]
-        cux, cuy, cuz = cux + tpx * dr[0], cuy + tpy * dr[1], cuz + tpz * dr[2]
-
-        alive = alive0 & hit & ~hit_emissive
-        nsh = nsh + alive.to(torch.int32)
 
         # Facing normal + epsilon-offset shading point.
         front = (bnx * dx + bny * dy + bnz * dz) < 0.0
@@ -282,125 +440,13 @@ def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
         hy = oy + t_pt * dy + nyp * p.eps_offset
         hz = oz + t_pt * dz + nzp * p.eps_offset
 
-        # --- NEE: one area-light sample --------------------------------------
-        ul0, ul1, ul2, _ = rng_mod.uniforms4(seed, pix, s, bb, rng_mod.LIGHT)
-        budget = ul0 * light_total
-        lrow = list(LGT[0][:15])
-        for e in range(1, fs.n_light):
-            take = LGT[e - 1][15] <= budget
-            lrow = [where(take, v, o) for v, o in zip(LGT[e][:15], lrow)]
-        (lv0x, lv0y, lv0z, le1x, le1y, le1z, le2x, le2y, le2z,
-         lnx, lny, lnz, lemr, lemg, lemb) = lrow
-        xw = 1.0 - torch.sqrt(ul1)
-        w1 = (1.0 - xw) * ul2
-        w2 = (1.0 - xw) * (1.0 - ul2)
-        lpx = lv0x + w1 * le1x + w2 * le2x
-        lpy = lv0y + w1 * le1y + w2 * le2y
-        lpz = lv0z + w1 * le1z + w2 * le2z
-        tlx, tly, tlz = lpx - hx, lpy - hy, lpz - hz
-        dist = torch.sqrt(torch.clamp(tlx * tlx + tly * tly + tlz * tlz,
-                                      min=0.0))
-        invd = 1.0 / torch.clamp(dist, min=1e-20)
-        wlx, wly, wlz = tlx * invd, tly * invd, tlz * invd
-        flip_l = (lnx * -wlx + lny * -wly + lnz * -wlz) < 0.0
-        lnx2, lny2, lnz2 = where(flip_l, -lnx, lnx), where(flip_l, -lny, lny), where(flip_l, -lnz, lnz)
+        planes, s, bb, nd, alive = _shade_advance(
+            occ, fs.light, fs.n_light, fs.sky, cam16, seed, p, ln, planes,
+            s, bb, nd, hit, (bal, bem, bef), (nxp, nyp, nzp), (hx, hy, hz),
+            torch.zeros((r,), dtype=torch.bool, device=dev))
+        nsh = nsh + alive.to(torch.int32)
 
-        # Shadow ray: occluded iff any hit lands at t <= dist - tol, with
-        # the division-free accept (sign tests against |det|-scaled bounds).
-        occluded = torch.zeros((r,), dtype=torch.bool, device=dev)
-        lim = dist - p.shadow_tol
-        for n in range(fs.n_tri):
-            (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = TRI[n]
-            s1x = wly * e2z - wlz * e2y
-            s1y = wlz * e2x - wlx * e2z
-            s1z = wlx * e2y - wly * e2x
-            det = s1x * e1x + s1y * e1y + s1z * e1z
-            okd = torch.abs(det) > _DET_EPS
-            sd = where(det >= 0.0, 1.0, -1.0)
-            adet = det * sd
-            sx, sy, sz = hx - v0x, hy - v0y, hz - v0z
-            s2x = sy * e1z - sz * e1y
-            s2y = sz * e1x - sx * e1z
-            s2z = sx * e1y - sy * e1x
-            tn = s2x * e2x + s2y * e2y + s2z * e2z
-            b1n = s1x * sx + s1y * sy + s1z * sz
-            b2n = s2x * wlx + s2y * wly + s2z * wlz
-            tsd = tn * sd
-            occluded = occluded | (
-                okd & (tsd > p.t_min * adet) & (tsd <= lim * adet)
-                & (b1n * sd >= 0.0) & (b2n * sd >= 0.0)
-                & ((det - b1n - b2n) * sd >= 0.0))
-        for m in range(fs.n_sph):
-            (cx, cy, cz, rad) = SPH[m][:4]
-            ocx, ocy, ocz = hx - cx, hy - cy, hz - cz
-            a_q = wlx * wlx + wly * wly + wlz * wlz
-            hb = ocx * wlx + ocy * wly + ocz * wlz
-            c_q = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-            disc = hb * hb - a_q * c_q
-            okq = disc > 0.0
-            sq = torch.sqrt(where(okq, disc, 1.0))
-            t_near = (-hb - sq) / a_q
-            t_far = (-hb + sq) / a_q
-            ts = where(okq & (t_near > p.t_min), t_near,
-                       where(okq & (t_far > p.t_min), t_far, NO_HIT))
-            occluded = occluded | (ts <= lim)
-        vis = (~occluded).to(torch.float32)
-
-        cos_s = wlx * nxp + wly * nyp + wlz * nzp
-        cos_l = -(wlx * lnx2 + wly * lny2 + wlz * lnz2)
-        geom = cos_s * cos_l / torch.clamp(dist * dist, min=1e-20)
-        brdf_ok = (cos_s >= 0.0).to(torch.float32) * inv_pi
-        scale = (geom / torch.clamp(light_pdf, min=1e-20)) * vis * brdf_ok
-        use = alive & light_valid
-        cux = cux + where(use, tpx * (lemr * bal[0] * scale), 0.0)
-        cuy = cuy + where(use, tpy * (lemg * bal[1] * scale), 0.0)
-        cuz = cuz + where(use, tpz * (lemb * bal[2] * scale), 0.0)
-
-        # --- indirect: RR + uniform hemisphere ------------------------------
-        us0, us1, us2, _ = rng_mod.uniforms4(seed, pix, s, bb,
-                                             rng_mod.SCATTER)
-        survive = us2 < p.rr_survival
-        use_x = torch.abs(nxp) > torch.abs(nyp)
-        yx = where(use_x, nzp, 0.0)
-        yy = where(use_x, 0.0, nzp)
-        yz = where(use_x, -nxp, -nyp)
-        yx, yy, yz = _norm3(yx, yy, yz)
-        xx = yy * nzp - yz * nyp
-        xy = yz * nxp - yx * nzp
-        xz = yx * nyp - yy * nxp
-        z = us0
-        r_xy = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
-        phi = two_pi * us1
-        cp, sp_ = torch.cos(phi), torch.sin(phi)
-        wix = r_xy * cp * xx + r_xy * sp_ * yx + z * nxp
-        wiy = r_xy * cp * xy + r_xy * sp_ * yy + z * nyp
-        wiz = r_xy * cp * xz + r_xy * sp_ * yz + z * nzp
-        cos_i = wix * nxp + wiy * nyp + wiz * nzp
-        w_ok = (cos_i >= 0.0).to(torch.float32) * inv_pi
-        wt = cos_i * two_pi * inv_rr * w_ok
-        continues = alive & survive
-        tpx = where(continues, tpx * (bal[0] * wt), tpx)
-        tpy = where(continues, tpy * (bal[1] * wt), tpy)
-        tpz = where(continues, tpz * (bal[2] * wt), tpz)
-
-        # --- persistent-wavefront bookkeeping ---------------------------------
-        cont = continues & (bb + 1 < p.max_depth)
-        done = (~cont & armed) if gated else ~cont
-        axp = axp + where(done, cux, 0.0)
-        ayp = ayp + where(done, cuy, 0.0)
-        azp = azp + where(done, cuz, 0.0)
-        nd = nd + done.to(torch.int32)
-        s = s + done.to(torch.int32)
-        uj0, uj1, _, _ = rng_mod.uniforms4(seed, pix, s, 0, rng_mod.JITTER)
-        pdx, pdy, pdz = cam_ray(uj0, uj1)
-        ox, oy, oz = where(cont, hx, px_), where(cont, hy, py_), where(cont, hz, pz_)
-        dx, dy, dz = where(cont, wix, pdx), where(cont, wiy, pdy), where(cont, wiz, pdz)
-        tpx, tpy, tpz = where(cont, tpx, 1.0), where(cont, tpy, 1.0), where(cont, tpz, 1.0)
-        cux, cuy, cuz = where(done, 0.0, cux), where(done, 0.0, cuy), where(done, 0.0, cuz)
-        bb = where(cont, bb + 1, 0).to(torch.int32)
-
-    sf_out = torch.stack([ox, oy, oz, dx, dy, dz, tpx, tpy, tpz,
-                          cux, cuy, cuz, axp, ayp, azp])
+    sf_out = torch.stack(planes)
     si_out = torch.stack([s, bb, nd, nsh]).to(torch.int32)
     return sf_out, si_out
 

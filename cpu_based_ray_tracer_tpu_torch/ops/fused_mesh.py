@@ -1,0 +1,1039 @@
+"""Fused wavefront Monte Carlo over clustered meshes (port of
+``cpu_based_ray_tracer_tpu.ops.fused_mesh``, without its shortlist mode).
+
+The reference's MC stage sends every path and shadow ray through a BVH.
+This engine keeps lanes in pixel order and compacts the work instead of
+walking a tree per lane.  One bounce step is five launches:
+
+  K1       smalls intersect (room walls, boxes, spheres: every primitive
+           that is not gated into the mesh) -> per-lane best (t, n,
+           material id); mesh predicate (does the segment cross a cluster
+           AABB before the smalls winner?); stable pack of the crossing
+           lanes' (o, d, lane id).
+  nearest  sweep of every cluster over the packed rays -> nearest mesh
+           (t, n, material id), written back to full planes by lane id.
+  K1b      merge (the smalls win ties) + facing normal + shading point +
+           NEE light sample + zero-weight pruning + shadow predicate +
+           stable pack of the shadow rays (p, w_l, lim, lane id).
+  occl     the same sweep, any-hit occlusion with the division-free accept
+           -> per-lane mesh-occlusion flag.
+  K2       sky/emissive accumulation, NEE with the smalls shadow test OR'd
+           with the mesh flag, RR + hemisphere scatter, regeneration: the
+           step of ``ops.fused`` without its intersection.
+
+Lane for lane the semantics of ``models.monte_carlo.wavefront_steps``
+through the packet intersector, and of the JAX package's Pallas engine.
+
+- ``csrc/fused_mesh.cu`` holds the four kernel bodies (K1, the templated
+  sweep, K1b, K2), CUDA C++ for sm_90a loaded with ``ctypes``;
+  ``wavefront_steps_fused_mesh`` launches them for CUDA tensors.
+- ``_k1_plain``, ``_sweep_plain``, ``_k1b_plain`` and ``_k2_plain`` are
+  the same arithmetic in PyTorch, with the same inputs and outputs as the
+  kernels; ``wavefront_steps_fused_mesh_plain`` steps with them on any
+  device.  The entry points run them only for CPU tensors.
+
+Capacity: the packed buffers have a fixed size per call.  A step whose
+predicate population exceeds one reports overflow (``render_turbo_mesh``
+and ``render_turbo_mesh_exact`` double the caps and rerun the chunk, so a
+result is never silently wrong).  The cluster table stays in device
+memory, so any mesh size runs; the JAX package's shortlist mode for tables
+past its SMEM budget (``resident=False``, TPU kernels #5 and #8) is not
+ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+from cpu_based_ray_tracer_tpu_torch.ops import bvh as bvh_ops
+from cpu_based_ray_tracer_tpu_torch.ops.fused import (
+    NO_HIT, _DET_EPS, _camera_words, _light_sample, _norm3, _shade_advance,
+    _wrap_i32, lanes)
+from cpu_based_ray_tracer_tpu_torch.scene import Scene
+from cpu_based_ray_tracer_tpu_torch.utils import kernels
+
+MESH_NF = 16            # floats per cluster triangle row: v0 e1 e2 n mid idx pad*2
+LANES_PER_TILE = 4096   # the caps are whole multiples of this many lanes
+PACK_BLOCK = 256        # lanes per K1/K1b block: one offsets-table row each
+SWEEP_BLOCK = 256       # packed rays per sweep block (csrc/fused_mesh.cu)
+_PLAIN_CHUNK = 65536    # packed rays per vectorized step of _sweep_plain
+
+# Launches of csrc/fused_mesh.cu since the last reset (callers set it to
+# 0), by entry point.
+LAUNCHES = {"k1": 0, "nearest": 0, "k1b": 0, "occl": 0, "k2": 0}
+
+# One record per chunk of the last render_turbo_mesh(_exact) call: the
+# steps, the caps, the overflow and the predicate populations.
+TRACE: list = []
+
+
+# --- host side ---------------------------------------------------------------
+
+class SmemClusters(NamedTuple):
+    """Cluster-major triangle table (the JAX package's name: there it is
+    SMEM-resident; here it stays in device memory)."""
+
+    tri: torch.Tensor       # (C, CS, MESH_NF) f32 rows: v0 e1 e2 n mid idx
+    aabb: torch.Tensor      # (C, 8) f32 min xyz / max xyz / pad
+    cs: int
+    box_aabb: torch.Tensor  # (B, 8) f32 union AABB per chunk of clusters
+    boxes: tuple            # ((c_start, c_end), ...) cluster ranges
+
+
+def build_smem_clusters(verts: np.ndarray, normals: np.ndarray,
+                        mids: np.ndarray, cluster_size: int = 128
+                        ) -> SmemClusters:
+    """Spatially ordered FULL clusters: the triangles in median-split BVH
+    preorder (leaves of at most ``max(8, cs // 8)``), the preorder stream
+    cut into exactly-``cluster_size`` clusters; only the last cluster pads,
+    with all-zero triangles (det == 0, never hit; index -1).  AABBs are
+    rounded outward to float32.  Up to 64 spatial boxes of contiguous
+    clusters serve as the predicate AABBs of meshes with more than 64
+    clusters.  Byte-equal to the JAX package's build."""
+    tris = np.asarray(verts, np.float64).reshape(-1, 3, 3)
+    n = len(tris)
+    cs = cluster_size
+    flat = bvh_ops.build_bvh(tris, leaf_size=max(8, cs // 8))
+    leaves = np.flatnonzero(flat.leaf_count > 0)
+    preorder = np.concatenate(
+        [flat.order[flat.leaf_first[lf]:flat.leaf_first[lf]
+                    + flat.leaf_count[lf]] for lf in leaves])
+    assert len(preorder) == n
+
+    c = -(-n // cs)
+    v0 = tris[:, 0]
+    e1 = tris[:, 1] - tris[:, 0]
+    e2 = tris[:, 2] - tris[:, 0]
+    rows = np.zeros((c, cs, MESH_NF), np.float32)
+    aabb = np.zeros((c, 8), np.float32)
+    for ci in range(c):
+        idx = preorder[ci * cs:(ci + 1) * cs]
+        k = len(idx)
+        rows[ci, :k, 0:3] = v0[idx]
+        rows[ci, :k, 3:6] = e1[idx]
+        rows[ci, :k, 6:9] = e2[idx]
+        rows[ci, :k, 9:12] = normals[idx]
+        rows[ci, :k, 12] = mids[idx]
+        rows[ci, :k, 13] = idx          # original triangle index (f32)
+        rows[ci, k:, 13] = -1.0
+        lo = tris[idx].reshape(-1, 3).min(0)
+        hi = tris[idx].reshape(-1, 3).max(0)
+        aabb[ci, 0:3] = np.nextafter(lo.astype(np.float32), -np.inf)
+        aabb[ci, 3:6] = np.nextafter(hi.astype(np.float32), np.inf)
+
+    n_box = int(min(64, c))
+    edges = np.linspace(0, c, n_box + 1).astype(int)
+    boxes = tuple((int(edges[b]), int(edges[b + 1])) for b in range(n_box))
+    box_aabb = np.zeros((n_box, 8), np.float32)
+    for b, (s0, s1) in enumerate(boxes):
+        box_aabb[b, 0:3] = aabb[s0:s1, 0:3].min(0)
+        box_aabb[b, 3:6] = aabb[s0:s1, 3:6].max(0)
+    return SmemClusters(tri=torch.as_tensor(rows), aabb=torch.as_tensor(aabb),
+                        cs=cs, box_aabb=torch.as_tensor(box_aabb),
+                        boxes=boxes)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPack:
+    """Kernel-ready split of a mesh scene: unrolled smalls + clustered
+    mesh, built by ``pack_mesh_scene``.  The ``light``/``sky`` rows equal
+    ``ops.fused.pack_scene``'s, so the NEE CDF is the plain engine's."""
+
+    stri: torch.Tensor      # (max(Ns,1), 16) f32 smalls: v0 e1 e2 n mid pad
+    ssph: torch.Tensor      # (max(S,1), 8) f32 spheres: center radius mid pad
+    mat: torch.Tensor       # (K, 8) f32 materials: albedo emission emissive pad
+    light: torch.Tensor     # (Le, 16) f32 emissive tris: v0 e1 e2 n emission cdf
+    sky: torch.Tensor       # (8,) f32: sky_bottom sky_top light_total pad
+    smc_tri: torch.Tensor   # (C, CS, MESH_NF) f32 cluster table
+    smc_aabb: torch.Tensor  # (C, 8) f32 cluster AABBs
+    smc_box_aabb: torch.Tensor  # (B, 8) f32 spatial box AABBs
+    boxes: tuple            # ((c_start, c_end), ...) cluster ranges
+    cs: int                 # triangles per cluster
+    gate_lo: tuple          # union AABB of the gated triangles
+    gate_hi: tuple
+    n_stri: int
+    n_sph: int
+    n_light: int
+    n_mat: int
+    gate_mask: np.ndarray   # (N,) bool over the scene's triangles
+
+    @property
+    def n_clusters(self) -> int:
+        return self.smc_aabb.shape[0]
+
+    @property
+    def pred_aabb(self) -> torch.Tensor:
+        """The predicate's AABBs: the clusters' while there are at most 64,
+        else the coarser spatial boxes."""
+        return self.smc_aabb if self.n_clusters <= 64 else self.smc_box_aabb
+
+    def to(self, device) -> "MeshPack":
+        kw = {f.name: getattr(self, f.name).to(device)
+              for f in dataclasses.fields(self)
+              if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, **kw)
+
+
+def pack_mesh_scene(scene: Scene, gate_mask: Optional[np.ndarray] = None,
+                    cluster_size: int = 128) -> MeshPack:
+    """Split the scene into unrolled smalls and the clustered (gated) mesh.
+
+    ``gate_mask``: (N,) bool, True = the triangle goes to the clusters.
+    Default: the non-emissive triangles whose AABB diagonal is below 15% of
+    the scene's (room walls and boxes span the room, mesh triangles are
+    tiny).  Emissive triangles are never gated: NEE samples them from the
+    light table.  A room tessellated into small triangles gates almost
+    everything; the predicate then fires for about every lane and the caps
+    overflow, which ``render_turbo_mesh(_exact)`` absorb by doubling
+    them."""
+    np_ = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    tr, sp, mats = scene.triangles, scene.spheres, scene.materials
+    v0 = np_(tr.v0).astype(np.float64)
+    e1 = np_(tr.e1).astype(np.float64)
+    e2 = np_(tr.e2).astype(np.float64)
+    nrm = np_(tr.normal).astype(np.float32)
+    tmat = np_(tr.material)
+    emissive = np_(mats.emissive)[tmat]
+
+    verts = np.stack([v0, v0 + e1, v0 + e2], 1)          # (N, 3, 3)
+    if gate_mask is None:
+        lo_all = verts.reshape(-1, 3).min(0)
+        hi_all = verts.reshape(-1, 3).max(0)
+        scene_diag = float(np.linalg.norm(hi_all - lo_all))
+        tri_diag = np.linalg.norm(verts.max(1) - verts.min(1), axis=-1)
+        gate_mask = (tri_diag < 0.15 * scene_diag) & ~emissive
+    gate_mask = np.asarray(gate_mask, bool)
+    if emissive[gate_mask].any():
+        raise ValueError("gated (clustered) triangles must be non-emissive")
+    gidx = np.flatnonzero(gate_mask)
+    sidx = np.flatnonzero(~gate_mask)
+
+    ns = len(sidx)
+    stri = np.zeros((max(ns, 1), 16), np.float32)
+    stri[:ns, 0:3] = v0[sidx]
+    stri[:ns, 3:6] = e1[sidx]
+    stri[:ns, 6:9] = e2[sidx]
+    stri[:ns, 9:12] = nrm[sidx]
+    stri[:ns, 12] = tmat[sidx]
+
+    c, r, smat = np_(sp.center), np_(sp.radius), np_(sp.material)
+    live = r != 0.0                       # drop never-hit placeholders
+    c, r, smat = c[live], r[live], smat[live]
+    s = c.shape[0]
+    ssph = np.zeros((max(s, 1), 8), np.float32)
+    ssph[:s, 0:3] = c
+    ssph[:s, 3] = r
+    ssph[:s, 4] = smat
+
+    m_alb, m_emi = np_(mats.albedo), np_(mats.emission)
+    k = m_alb.shape[0]
+    mat = np.zeros((k, 8), np.float32)
+    mat[:, 0:3] = m_alb
+    mat[:, 3:6] = m_emi
+    mat[:, 6] = np_(mats.emissive).astype(np.float32)
+
+    # Light table + sky: ops.fused.pack_scene's construction (full-scene
+    # masked cumsum, so the CDF is the plain engine's to the bit).
+    area = 0.5 * np.linalg.norm(
+        np.cross(e1.astype(np.float32), e2.astype(np.float32)), axis=-1
+    ).astype(np.float32)
+    emf = emissive.astype(np.float32)
+    lidx = np.flatnonzero(emf > 0.5)
+    if len(lidx) == 0:
+        lidx = np.array([0])
+        light_total = np.float32(0.0)
+        cdf = np.zeros((1,), np.float32)
+    else:
+        masked = np.where(emf > 0.5, area, np.float32(0.0)).astype(np.float32)
+        cdf_full = np.cumsum(masked, dtype=np.float32)
+        cdf = cdf_full[lidx].astype(np.float32)
+        light_total = cdf_full[-1]
+    le = len(lidx)
+    light = np.zeros((le, 16), np.float32)
+    light[:, 0:3] = v0[lidx]
+    light[:, 3:6] = e1[lidx]
+    light[:, 6:9] = e2[lidx]
+    light[:, 9:12] = nrm[lidx]
+    light[:, 12:15] = m_emi[tmat[lidx]]
+    light[:, 15] = cdf
+    sky = np.zeros((8,), np.float32)
+    sky[0:3] = np_(scene.sky_bottom)
+    sky[3:6] = np_(scene.sky_top)
+    sky[6] = light_total
+
+    if len(gidx) == 0:
+        raise ValueError("no gated triangles: use ops.fused for small "
+                         "scenes (every primitive unrolled)")
+    smc = build_smem_clusters(verts[gidx], nrm[gidx],
+                              tmat[gidx].astype(np.float32),
+                              cluster_size=cluster_size)
+    gpts = verts[gidx].reshape(-1, 3)
+    glo = np.nextafter(gpts.min(0).astype(np.float32), -np.inf)
+    ghi = np.nextafter(gpts.max(0).astype(np.float32), np.inf)
+    t = torch.as_tensor
+    return MeshPack(
+        stri=t(stri), ssph=t(ssph), mat=t(mat), light=t(light), sky=t(sky),
+        smc_tri=smc.tri, smc_aabb=smc.aabb, smc_box_aabb=smc.box_aabb,
+        boxes=smc.boxes, cs=smc.cs,
+        gate_lo=tuple(map(float, glo)), gate_hi=tuple(map(float, ghi)),
+        n_stri=ns, n_sph=s, n_light=le, n_mat=k,
+        gate_mask=gate_mask).to(scene.device)
+
+
+def _slab_crosses(o, d, lo, hi, t_lo, t_hi):
+    """Does the ray segment [t_lo, t_hi] cross the AABB (lo, hi)?  (R,)
+    bool.  The slack on the far bound absorbs rounding: the predicate must
+    be conservative (a missed lane would silently skip its mesh test)."""
+    tiny = torch.where(d < 0.0, -1e-20, 1e-20)
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-20, tiny, d)
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=o.device)
+    hi = torch.as_tensor(hi, dtype=torch.float32, device=o.device)
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    t_in = torch.amax(torch.minimum(t0, t1), -1)
+    t_out = torch.amin(torch.maximum(t0, t1), -1)
+    hi_bound = t_hi * 1.000001 + 1e-5
+    return ((t_out >= min(t_lo, 0.0)) & (t_in <= t_out)
+            & (t_in <= hi_bound))
+
+
+# --- per-call state ----------------------------------------------------------
+
+class _Params(NamedTuple):
+    width: int
+    height: int
+    n_pix: int
+    pixel_offset: int
+    t_min: float
+    eps_offset: float
+    rr_survival: float
+    shadow_tol: float
+    max_depth: int
+    stop_after: int
+    cap_main: int
+    cap_shadow: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _Tables:
+    """The pack and the camera words on the lanes' device, and for the
+    kernels all of it in one float buffer: stri | ssph | mat | light | sky
+    | pred_aabb | cam16, starting at ``offsets``."""
+
+    mp: MeshPack
+    cam16: torch.Tensor
+    words: torch.Tensor
+    offsets: tuple
+
+
+def _tables(mp: MeshPack, cam16: torch.Tensor) -> _Tables:
+    parts = [mp.stri, mp.ssph, mp.mat, mp.light, mp.sky, mp.pred_aabb, cam16]
+    offsets, n = [], 0
+    for x in parts:
+        offsets.append(n)
+        n += x.numel()
+    words = torch.cat([x.reshape(-1) for x in parts]).to(torch.float32)
+    return _Tables(mp=mp, cam16=cam16, words=words.contiguous(),
+                   offsets=tuple(offsets))
+
+
+def _lanes(r: int, p: _Params, device):
+    return lanes(r, p.width, p.n_pix, p.pixel_offset, device)
+
+
+def _pack_offsets(pred, offs):
+    """The offsets table of a stable pack in lane order: per PACK_BLOCK
+    lanes, (start, count)."""
+    nb = offs.shape[0]
+    m = torch.zeros((nb * PACK_BLOCK,), dtype=torch.int64, device=pred.device)
+    m[:pred.shape[0]] = pred.to(torch.int64)
+    counts = m.view(nb, PACK_BLOCK).sum(1)
+    offs[:, 0] = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    offs[:, 1] = counts.to(torch.int32)
+
+
+def _append(planes, pred, buf, buf_id, offs, cnt):
+    """The plain pack: the lanes where ``pred`` in lane order to the front
+    of ``buf`` (P, cap) / ``buf_id`` (cap,), as many as fit; ``cnt`` += the
+    population."""
+    idx = pred.nonzero()[:, 0]
+    n = min(idx.numel(), buf.shape[1])
+    for j, x in enumerate(planes):
+        buf[j, :n] = x[idx[:n]]
+    buf_id[:n] = idx[:n].to(torch.int32)
+    _pack_offsets(pred, offs)
+    cnt += idx.numel()
+
+
+# --- plain versions: the kernels' arithmetic in PyTorch ----------------------
+
+def _k1_plain(tb: _Tables, p: _Params, sf, hf, mr, mr_id, offs, cnt):
+    """K1.  Reads the rays sf[0:6] (15, R).  Writes hf (10, R): [0:5] the
+    smalls winner (t, n, material id), [5:10] the mesh winner's planes set
+    to "no hit" (NO_HIT, 0, 0, 0, -1) for the nearest sweep to fill; packs
+    the (o, d, lane) of the predicate lanes into mr (6, cap_main) / mr_id
+    (cap_main,) and offs (ceil(R / PACK_BLOCK), 2); cnt (1,) += their
+    number."""
+    mp, where = tb.mp, torch.where
+    ox, oy, oz, dx, dy, dz = sf[0:6].unbind(0)
+    r = ox.shape[0]
+    dev = ox.device
+    valid = _lanes(r, p, dev).valid
+    best_t = torch.full((r,), NO_HIT, dtype=torch.float32, device=dev)
+    bnx = torch.zeros_like(best_t)
+    bny = torch.zeros_like(best_t)
+    bnz = torch.zeros_like(best_t)
+    bmid = torch.full_like(best_t, -1.0)
+    for n in range(mp.n_stri):
+        (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
+         nx, ny, nz, mid) = mp.stri[n, :13].unbind(0)
+        s1x = dy * e2z - dz * e2y
+        s1y = dz * e2x - dx * e2z
+        s1z = dx * e2y - dy * e2x
+        det = s1x * e1x + s1y * e1y + s1z * e1z
+        okd = torch.abs(det) > _DET_EPS
+        inv = 1.0 / where(okd, det, 1.0)
+        sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+        s2x = sy * e1z - sz * e1y
+        s2y = sz * e1x - sx * e1z
+        s2z = sx * e1y - sy * e1x
+        t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv
+        b1 = (s1x * sx + s1y * sy + s1z * sz) * inv
+        b2 = (s2x * dx + s2y * dy + s2z * dz) * inv
+        ok = (okd & (t > p.t_min) & (b1 >= 0.0) & (b2 >= 0.0)
+              & (1.0 - b1 - b2 >= 0.0) & (t < best_t))
+        best_t = where(ok, t, best_t)
+        bnx, bny, bnz = where(ok, nx, bnx), where(ok, ny, bny), where(ok, nz, bnz)
+        bmid = where(ok, mid, bmid)
+    for m in range(mp.n_sph):
+        cx, cy, cz, rad, mid = mp.ssph[m, :5].unbind(0)
+        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+        a_q = dx * dx + dy * dy + dz * dz
+        hb = ocx * dx + ocy * dy + ocz * dz
+        c_q = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+        disc = hb * hb - a_q * c_q
+        okq = disc > 0.0
+        sq = torch.sqrt(where(okq, disc, 1.0))
+        t_near = (-hb - sq) / a_q
+        t_far = (-hb + sq) / a_q
+        near_ok = okq & (t_near > p.t_min)
+        far_ok = okq & (t_far > p.t_min)
+        ts = where(near_ok, t_near, where(far_ok, t_far, NO_HIT))
+        ok = ts < best_t
+        inv_r = 1.0 / where(rad == 0.0, 1.0, rad)
+        hpx, hpy, hpz = ox + ts * dx, oy + ts * dy, oz + ts * dz
+        best_t = where(ok, ts, best_t)
+        bnx = where(ok, (hpx - cx) * inv_r, bnx)
+        bny = where(ok, (hpy - cy) * inv_r, bny)
+        bnz = where(ok, (hpz - cz) * inv_r, bnz)
+        bmid = where(ok, mid, bmid)
+
+    o, d = sf[0:3].T, sf[3:6].T
+    crossed = torch.zeros((r,), dtype=torch.bool, device=dev)
+    for row in tb.mp.pred_aabb:
+        crossed |= _slab_crosses(o, d, row[0:3], row[3:6], p.t_min, best_t)
+    hf[0:5] = torch.stack([best_t, bnx, bny, bnz, bmid])
+    hf[5] = NO_HIT
+    hf[6:9] = 0.0
+    hf[9] = -1.0
+    _append((ox, oy, oz, dx, dy, dz), crossed & valid, mr, mr_id, offs, cnt)
+
+
+def _sweep_plain(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
+                 occl: bool):
+    """The cluster sweep over the first min(cnt, cap) packed rays, in
+    chunks.  Nearest (rays (6, cap) [o d]): every cluster's triangles in
+    order, the first triangle at the least t wins; writes (t, n, material
+    id) to out (5, R) at the rays' lanes.  Occlusion (rays (7, cap) [p w_l
+    lim]): any triangle within (t_min, lim] by the division-free accept;
+    writes 1.0 / 0.0 to out (1, R) at the rays' lanes.
+
+    Returns the triangle tests the kernel makes, for its speed bound only:
+    the nearest sweep tests every triangle, the occlusion sweep stops a ray
+    at its first accepted triangle in cluster order."""
+    where = torch.where
+    tri = tb.mp.smc_tri
+    n_cl, cs = tri.shape[0], tri.shape[1]
+    n = min(int(cnt), rays.shape[1])
+    rows = torch.arange(cs, device=rays.device)[:, None]
+    tests = torch.zeros((), dtype=torch.int64, device=rays.device)
+    for k in range(0, n, _PLAIN_CHUNK):
+        sl = slice(k, min(k + _PLAIN_CHUNK, n))
+        ox, oy, oz, dx, dy, dz = (x[None] for x in rays[0:6, sl])  # (1, m)
+        m = ox.shape[1]
+        if occl:
+            lim = rays[6, sl][None]
+            occ = torch.zeros((m,), dtype=torch.bool, device=rays.device)
+            first = torch.full((m,), n_cl * cs, dtype=torch.int64,
+                               device=rays.device)
+        else:
+            best_t = torch.full((m,), NO_HIT, dtype=torch.float32,
+                                device=rays.device)
+            best_slot = torch.full((m,), -1, dtype=torch.int64,
+                                   device=rays.device)
+        for c in range(n_cl):
+            tc = tri[c]
+            v0x, v0y, v0z = tc[:, 0:1], tc[:, 1:2], tc[:, 2:3]     # (CS, 1)
+            e1x, e1y, e1z = tc[:, 3:4], tc[:, 4:5], tc[:, 5:6]
+            e2x, e2y, e2z = tc[:, 6:7], tc[:, 7:8], tc[:, 8:9]
+            s1x = dy * e2z - dz * e2y
+            s1y = dz * e2x - dx * e2z
+            s1z = dx * e2y - dy * e2x
+            det = s1x * e1x + s1y * e1y + s1z * e1z
+            okd = torch.abs(det) > _DET_EPS
+            sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+            s2x = sy * e1z - sz * e1y
+            s2y = sz * e1x - sx * e1z
+            s2z = sx * e1y - sy * e1x
+            if occl:
+                sd = where(det >= 0.0, 1.0, -1.0)
+                adet = det * sd
+                tn = s2x * e2x + s2y * e2y + s2z * e2z
+                b1n = s1x * sx + s1y * sy + s1z * sz
+                b2n = s2x * dx + s2y * dy + s2z * dz
+                tsd = tn * sd
+                hit = (okd & (tsd > p.t_min * adet) & (tsd <= lim * adet)
+                       & (b1n * sd >= 0.0) & (b2n * sd >= 0.0)
+                       & ((det - b1n - b2n) * sd >= 0.0))
+                hit_c = hit.any(0)
+                # tests up to and including the first accepted row
+                first = where(~occ & hit_c, c * cs + 1 + torch.amin(
+                    where(hit, rows, cs), 0), first)
+                occ |= hit_c
+                continue
+            inv = 1.0 / where(okd, det, 1.0)
+            t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv
+            b1 = (s1x * sx + s1y * sy + s1z * sz) * inv
+            b2 = (s2x * dx + s2y * dy + s2z * dz) * inv
+            ok = (okd & (t > p.t_min) & (b1 >= 0.0) & (b2 >= 0.0)
+                  & (1.0 - b1 - b2 >= 0.0))
+            tm = where(ok, t, NO_HIT)                              # (CS, m)
+            t_c = torch.amin(tm, 0)
+            # the strict t < best_t chain keeps the first row at the least t
+            i_c = torch.amin(where(tm == t_c[None], rows, cs), 0)
+            better = t_c < best_t
+            best_t = where(better, t_c, best_t)
+            best_slot = where(better, c * cs + i_c, best_slot)
+        ids = ray_id[sl].to(torch.int64)
+        if occl:
+            out[0, ids] = occ.to(torch.float32)
+            tests += first.sum()
+            continue
+        tests += m * n_cl * cs
+        attrs = tri.reshape(-1, MESH_NF)[best_slot.clamp(min=0), 9:13]
+        attrs = where((best_slot >= 0)[:, None], attrs,
+                      torch.tensor([0.0, 0.0, 0.0, -1.0], device=rays.device))
+        out[:, ids] = torch.cat([best_t[None], attrs.T])
+    return tests
+
+
+def _k1b_plain(tb: _Tables, p: _Params, seed, sf, si, hf, kb, sr, sr_id,
+               offs, cnt):
+    """K1b.  Reads the rays sf[0:6], (s, b) si[0:2] and hf (10, R).
+    Writes kb (9, R): [0] t, [1:4] facing unit normal, [4] material id,
+    [5:8] shading point, [8] the mesh-occlusion flag set to 0 for the
+    occlusion sweep to fill; packs the (p, w_l, lim, lane) of the shadow
+    rays that cross a predicate AABB into sr (7, cap_shadow) / sr_id and
+    offs; cnt (1,) += their number."""
+    mp, where = tb.mp, torch.where
+    ox, oy, oz, dx, dy, dz = sf[0:6].unbind(0)
+    r = ox.shape[0]
+    ln = _lanes(r, p, ox.device)
+    ts, snx, sny, snz, smid, tm, mnx, mny, mnz, mmid = hf.unbind(0)
+    s, bb = si[0], si[1]
+
+    is_mesh = tm < ts                     # the smalls win ties
+    t = where(is_mesh, tm, ts)
+    nx, ny, nz = (where(is_mesh, m, sm) for m, sm in
+                  ((mnx, snx), (mny, sny), (mnz, snz)))
+    mid = where(is_mesh, mmid, smid)
+    nx, ny, nz = _norm3(nx, ny, nz)
+    front = (nx * dx + ny * dy + nz * dz) < 0.0
+    nx, ny, nz = where(front, nx, -nx), where(front, ny, -ny), where(front, nz, -nz)
+    hit = t < NO_HIT
+    t_pt = where(hit, t, 1.0)
+    px = ox + t_pt * dx + nx * p.eps_offset
+    py = oy + t_pt * dy + ny * p.eps_offset
+    pz = oz + t_pt * dz + nz * p.eps_offset
+
+    ef = torch.zeros_like(t)
+    for k in range(mp.n_mat):
+        ef = where(mid == float(k), mp.mat[k, 6], ef)
+    alive_sh = ln.valid & hit & (ef < 0.5) & (mid >= 0.0)
+
+    (wlx, wly, wlz), dist, _ = _light_sample(mp.light, mp.n_light, mp.sky[6],
+                                             seed, ln.pix, s, bb, px, py, pz)
+    lim = dist - p.shadow_tol
+    # Zero-weight pruning: K2 scales NEE by (cos_s >= 0), so a sample at or
+    # below the horizon contributes nothing whatever its visibility.
+    cos_s = wlx * nx + wly * ny + wlz * nz
+    alive_sh = alive_sh & (cos_s > 0.0) & (mp.sky[6] > 0.0)
+
+    pt, wl = torch.stack([px, py, pz], 1), torch.stack([wlx, wly, wlz], 1)
+    crossed = torch.zeros((r,), dtype=torch.bool, device=ox.device)
+    for row in mp.pred_aabb:
+        crossed |= _slab_crosses(pt, wl, row[0:3], row[3:6], p.t_min, lim)
+    kb[0:8] = torch.stack([t, nx, ny, nz, mid, px, py, pz])
+    kb[8] = 0.0
+    _append((px, py, pz, wlx, wly, wlz, lim), alive_sh & crossed, sr, sr_id,
+            offs, cnt)
+
+
+def _k2_plain(tb: _Tables, p: _Params, seed, kb, sf, si):
+    """K2, in place: reads kb (9, R) and the state; writes the next state
+    sf (15, R) / si[0:3] and adds this step's shadow rays to si[3].  The
+    step of ``ops.fused`` after its intersection: the smalls are the
+    occluders, ORed with the mesh flag."""
+    mp, where = tb.mp, torch.where
+    t_hit, nxp, nyp, nzp, midp, hx, hy, hz, occ_f = kb.unbind(0)
+    mat = [list(mp.mat[k, :7].unbind(0)) for k in range(mp.n_mat)]
+    z = torch.zeros_like(t_hit)
+    bal, bem, bef = [z, z, z], [z, z, z], z
+    for k in range(mp.n_mat):
+        take = midp == float(k)
+        bal = [where(take, v, o) for v, o in zip(mat[k][0:3], bal)]
+        bem = [where(take, v, o) for v, o in zip(mat[k][3:6], bem)]
+        bef = where(take, mat[k][6], bef)
+    planes, s, bb, nd, alive = _shade_advance(
+        (mp.stri, mp.n_stri, mp.ssph, mp.n_sph), mp.light, mp.n_light,
+        mp.sky, tb.cam16, seed, p, _lanes(sf.shape[1], p, sf.device),
+        list(sf.unbind(0)), si[0], si[1], si[2], t_hit < NO_HIT,
+        (bal, bem, bef), (nxp, nyp, nzp), (hx, hy, hz), occ_f > 0.5)
+    sf.copy_(torch.stack(planes))
+    si[0] = s
+    si[1] = bb
+    si[2] = nd
+    si[3] += alive.to(torch.int32)
+
+
+def _nearest_plain(tb, p, rays, ray_id, cnt, out):
+    return _sweep_plain(tb, p, rays, ray_id, cnt, out, occl=False)
+
+
+def _occl_plain(tb, p, rays, ray_id, cnt, out):
+    return _sweep_plain(tb, p, rays, ray_id, cnt, out, occl=True)
+
+
+# --- the kernels -------------------------------------------------------------
+
+class _CParams(ctypes.Structure):
+    """``Params`` of csrc/fused_mesh.cu, field for field."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "R", "n_pix", "pixel_offset", "width", "height", "n_stri", "n_sph",
+        "n_light", "n_mat", "n_pred", "n_clusters", "cs", "cap_main",
+        "cap_shadow", "max_depth", "stop_after", "off_ssph", "off_mat",
+        "off_light", "off_sky", "off_pred", "off_cam", "n_words")] + [
+        ("seed", ctypes.c_uint32)] + [(n, ctypes.c_float) for n in (
+            "t_min", "eps_offset", "rr_survival", "inv_rr", "shadow_tol",
+            "aspect")]
+
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (params, tables, sf, hf, mr, mr_id, offs, cnt, stream)
+    "fused_mesh_k1": [_P] * 9,
+    # (params, tri, rays, ray_id, cap, cnt, out, stream)
+    "fused_mesh_nearest": [_P] * 4 + [ctypes.c_int] + [_P] * 3,
+    "fused_mesh_occl": [_P] * 4 + [ctypes.c_int] + [_P] * 3,
+    # (params, tables, sf, si, hf, kb, sr, sr_id, offs, cnt, stream)
+    "fused_mesh_k1b": [_P] * 11,
+    # (params, tables, kb, sf, si, stream)
+    "fused_mesh_k2": [_P] * 6,
+}
+
+
+def _fn(name: str):
+    fn = getattr(kernels.load("fused_mesh"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _cparams(tb: _Tables, p: _Params, seed: int, r: int) -> _CParams:
+    mp, o = tb.mp, tb.offsets
+    return _CParams(
+        R=r, n_pix=p.n_pix, pixel_offset=p.pixel_offset, width=p.width,
+        height=p.height, n_stri=mp.n_stri, n_sph=mp.n_sph,
+        n_light=mp.n_light, n_mat=mp.n_mat, n_pred=mp.pred_aabb.shape[0],
+        n_clusters=mp.n_clusters, cs=mp.cs, cap_main=p.cap_main,
+        cap_shadow=p.cap_shadow, max_depth=p.max_depth,
+        stop_after=p.stop_after, off_ssph=o[1], off_mat=o[2], off_light=o[3],
+        off_sky=o[4], off_pred=o[5], off_cam=o[6],
+        n_words=tb.words.numel(), seed=int(seed) & 0xFFFFFFFF,
+        t_min=p.t_min, eps_offset=p.eps_offset, rr_survival=p.rr_survival,
+        inv_rr=1.0 / p.rr_survival, shadow_tol=p.shadow_tol,
+        aspect=float(p.width) / float(p.height))
+
+
+def _check(name: str, tensors: dict):
+    """Every tensor a contiguous CUDA tensor of its dtype, or ValueError."""
+    for what, (x, dt) in tensors.items():
+        if not (isinstance(x, torch.Tensor) and x.is_cuda and x.dtype == dt
+                and x.is_contiguous()):
+            raise ValueError(f"{name} takes contiguous CUDA {dt} tensors; "
+                             f"{what} is not one")
+
+
+def _launch(name: str, key: str, *args):
+    rc = _fn(name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    LAUNCHES[key] += 1
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _plane_rows(x, rows: int, r: int, what: str):
+    if x.dim() != 2 or x.shape[0] != rows or x.shape[1] != r:
+        raise ValueError(f"{what} must be ({rows}, {r}), not "
+                         f"{tuple(x.shape)}")
+
+
+_F, _I = torch.float32, torch.int32
+
+
+def _k1_kernel(tb: _Tables, p: _Params, sf, hf, mr, mr_id, offs, cnt):
+    """Launch K1 (csrc/fused_mesh.cu) on CUDA tensors; as ``_k1_plain``."""
+    _check("fused_mesh K1", dict(words=(tb.words, _F), sf=(sf, _F),
+                                 hf=(hf, _F), mr=(mr, _F), mr_id=(mr_id, _I),
+                                 offs=(offs, _I), cnt=(cnt, _I)))
+    r = sf.shape[1]
+    _plane_rows(sf, 15, r, "sf")
+    _plane_rows(hf, 10, r, "hf")
+    _plane_rows(mr, 6, p.cap_main, "mr")
+    if offs.shape != (-(-r // PACK_BLOCK), 2) or mr_id.shape != (p.cap_main,):
+        raise ValueError("bad offsets table or id buffer shape")
+    cp = _cparams(tb, p, 0, r)
+    _launch("fused_mesh_k1", "k1", ctypes.byref(cp), tb.words.data_ptr(),
+            sf.data_ptr(), hf.data_ptr(), mr.data_ptr(), mr_id.data_ptr(),
+            offs.data_ptr(), cnt.data_ptr(), _stream(sf))
+
+
+def _sweep_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
+                  occl: bool):
+    name = "fused_mesh_occl" if occl else "fused_mesh_nearest"
+    _check(name, dict(tri=(tb.mp.smc_tri, _F), rays=(rays, _F),
+                      ray_id=(ray_id, _I), cnt=(cnt, _I), out=(out, _F)))
+    cap = rays.shape[1]
+    _plane_rows(rays, 7 if occl else 6, cap, "rays")
+    _plane_rows(out, 1 if occl else 5, out.shape[1], "out")
+    if (ray_id.shape != (cap,) or tb.mp.smc_tri.shape
+            != (tb.mp.n_clusters, tb.mp.cs, MESH_NF)):
+        raise ValueError("bad id buffer or cluster table shape")
+    cp = _cparams(tb, p, 0, out.shape[1])
+    _launch(name, "occl" if occl else "nearest", ctypes.byref(cp),
+            tb.mp.smc_tri.data_ptr(), rays.data_ptr(), ray_id.data_ptr(),
+            cap, cnt.data_ptr(), out.data_ptr(), _stream(rays))
+
+
+def _nearest_kernel(tb, p, rays, ray_id, cnt, out):
+    """Launch the nearest sweep on CUDA tensors; as ``_sweep_plain``."""
+    _sweep_kernel(tb, p, rays, ray_id, cnt, out, occl=False)
+
+
+def _occl_kernel(tb, p, rays, ray_id, cnt, out):
+    """Launch the occlusion sweep on CUDA tensors; as ``_sweep_plain``."""
+    _sweep_kernel(tb, p, rays, ray_id, cnt, out, occl=True)
+
+
+def _k1b_kernel(tb: _Tables, p: _Params, seed, sf, si, hf, kb, sr, sr_id,
+                offs, cnt):
+    """Launch K1b on CUDA tensors; as ``_k1b_plain``."""
+    _check("fused_mesh K1b", dict(words=(tb.words, _F), sf=(sf, _F),
+                                  si=(si, _I), hf=(hf, _F), kb=(kb, _F),
+                                  sr=(sr, _F), sr_id=(sr_id, _I),
+                                  offs=(offs, _I), cnt=(cnt, _I)))
+    r = sf.shape[1]
+    _plane_rows(sf, 15, r, "sf")
+    _plane_rows(si, 4, r, "si")
+    _plane_rows(hf, 10, r, "hf")
+    _plane_rows(kb, 9, r, "kb")
+    _plane_rows(sr, 7, p.cap_shadow, "sr")
+    if (offs.shape != (-(-r // PACK_BLOCK), 2)
+            or sr_id.shape != (p.cap_shadow,)):
+        raise ValueError("bad offsets table or id buffer shape")
+    cp = _cparams(tb, p, seed, r)
+    _launch("fused_mesh_k1b", "k1b", ctypes.byref(cp), tb.words.data_ptr(),
+            sf.data_ptr(), si.data_ptr(), hf.data_ptr(), kb.data_ptr(),
+            sr.data_ptr(), sr_id.data_ptr(), offs.data_ptr(), cnt.data_ptr(),
+            _stream(sf))
+
+
+def _k2_kernel(tb: _Tables, p: _Params, seed, kb, sf, si):
+    """Launch K2 on CUDA tensors; as ``_k2_plain``."""
+    _check("fused_mesh K2", dict(words=(tb.words, _F), kb=(kb, _F),
+                                 sf=(sf, _F), si=(si, _I)))
+    r = sf.shape[1]
+    _plane_rows(sf, 15, r, "sf")
+    _plane_rows(si, 4, r, "si")
+    _plane_rows(kb, 9, r, "kb")
+    cp = _cparams(tb, p, seed, r)
+    _launch("fused_mesh_k2", "k2", ctypes.byref(cp), tb.words.data_ptr(),
+            kb.data_ptr(), sf.data_ptr(), si.data_ptr(), _stream(sf))
+
+
+class _Ops(NamedTuple):
+    k1: object
+    nearest: object
+    k1b: object
+    occl: object
+    k2: object
+
+
+KERNEL_OPS = _Ops(_k1_kernel, _nearest_kernel, _k1b_kernel, _occl_kernel,
+                  _k2_kernel)
+PLAIN_OPS = _Ops(_k1_plain, _nearest_plain, _k1b_plain, _occl_plain,
+                 _k2_plain)
+
+
+# --- the stepper -------------------------------------------------------------
+
+class StepBuffers(NamedTuple):
+    """Per-call scratch of the stepper (reused by every step)."""
+
+    hf: torch.Tensor     # (10, R) f32 smalls + mesh winner planes
+    kb: torch.Tensor     # (9, R) f32 merged hit, shading point, mesh flag
+    mr: torch.Tensor     # (6, cap_main) f32 packed main rays
+    mr_id: torch.Tensor  # (cap_main,) i32 their lanes
+    sr: torch.Tensor     # (7, cap_shadow) f32 packed shadow rays
+    sr_id: torch.Tensor  # (cap_shadow,) i32 their lanes
+    offs1: torch.Tensor  # (ceil(R / PACK_BLOCK), 2) i32 K1's offsets table
+    offs2: torch.Tensor  # the same for K1b
+    cnt: torch.Tensor    # (n_steps, 2) i32 packed populations per step
+
+
+def step_buffers(r: int, p: _Params, n_steps: int, device) -> StepBuffers:
+    e = lambda *s, dt=_F: torch.empty(s, dtype=dt, device=device)  # noqa: E731
+    nb = -(-r // PACK_BLOCK)
+    return StepBuffers(
+        hf=e(10, r), kb=e(9, r), mr=e(6, p.cap_main),
+        mr_id=e(p.cap_main, dt=_I), sr=e(7, p.cap_shadow),
+        sr_id=e(p.cap_shadow, dt=_I), offs1=e(nb, 2, dt=_I),
+        offs2=e(nb, 2, dt=_I),
+        cnt=torch.zeros((n_steps, 2), dtype=_I, device=device))
+
+
+OP_NAMES = _Ops._fields    # one step's entry points, in launch order
+
+
+def run_op(ops: _Ops, name: str, tb: _Tables, p: _Params, seed: int, sf, si,
+           buf: StepBuffers, k: int = 0):
+    """Entry point ``name`` of bounce step ``k`` on the step buffers; the
+    packers add to, and the sweeps read, the populations buf.cnt[k].
+    Returns what the entry point returns."""
+    c1, c2 = buf.cnt[k, 0:1], buf.cnt[k, 1:2]
+    if name == "k1":
+        return ops.k1(tb, p, sf, buf.hf, buf.mr, buf.mr_id, buf.offs1, c1)
+    if name == "nearest":
+        return ops.nearest(tb, p, buf.mr, buf.mr_id, c1, buf.hf[5:10])
+    if name == "k1b":
+        return ops.k1b(tb, p, seed, sf, si, buf.hf, buf.kb, buf.sr,
+                       buf.sr_id, buf.offs2, c2)
+    if name == "occl":
+        return ops.occl(tb, p, buf.sr, buf.sr_id, c2, buf.kb[8:9])
+    return ops.k2(tb, p, seed, buf.kb, sf, si)
+
+
+def run_steps(ops: _Ops, tb: _Tables, p: _Params, seed: int, sf, si,
+              n_steps: int, buf: StepBuffers):
+    """``n_steps`` bounce steps of every lane, in place on sf (15, R) / si
+    (4, R), five launches a step and no host sync."""
+    for k in range(n_steps):
+        for name in OP_NAMES:
+            run_op(ops, name, tb, p, seed, sf, si, buf, k)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-int(x) // m) * m
+
+
+def params(cfg: RenderConfig, r: int, cap_main=None, cap_shadow=None,
+           pixel_offset: int = 0, stop_after: int = 0) -> _Params:
+    """The stepper's constants for ``r`` lanes; the caps (default a quarter
+    of the lanes) rounded up to whole multiples of 4,096 lanes."""
+    quarter = max(LANES_PER_TILE, _ceil_to(r, LANES_PER_TILE) // 4)
+    return _Params(
+        width=cfg.width, height=cfg.height, n_pix=cfg.height * cfg.width,
+        pixel_offset=int(pixel_offset), t_min=float(cfg.t_min),
+        eps_offset=float(cfg.eps_offset), rr_survival=float(cfg.rr_survival),
+        shadow_tol=float(cfg.shadow_tolerance), max_depth=int(cfg.max_depth),
+        stop_after=int(stop_after),
+        cap_main=_ceil_to(quarter if cap_main is None else cap_main,
+                          LANES_PER_TILE),
+        cap_shadow=_ceil_to(quarter if cap_shadow is None else cap_shadow,
+                            LANES_PER_TILE))
+
+
+def state_planes(state):
+    """A ``WavefrontState`` as the kernels' contiguous planes: sf (15, R)
+    f32 [o d tp cur acc], si (4, R) i32 [s b n_done shadow-ray tally=0]."""
+    sf = torch.cat([x.T for x in (state.o, state.d, state.tp, state.cur,
+                                  state.acc)], 0).to(torch.float32)
+    si = torch.stack([state.s, state.b, state.n_done,
+                      torch.zeros_like(state.s)]).to(torch.int32)
+    return sf.contiguous(), si.contiguous()
+
+
+def _run(ops: _Ops, mp: MeshPack, camera, cfg: RenderConfig, seed: int,
+         state, n_steps: int, cap_main, cap_shadow, pixel_offset: int,
+         resident, stop_after: int):
+    from cpu_based_ray_tracer_tpu_torch.models.monte_carlo import (
+        WavefrontState)
+
+    if cfg.soft_shadow_beta > 0.0:
+        raise NotImplementedError("the fused mesh stepper implements the "
+                                  "reference's hard shadow test only")
+    if resident is False:
+        raise NotImplementedError(
+            "resident=False is the JAX package's shortlist-streaming sweep "
+            "(TPU kernels #5 and #8, ROADMAP queue 2), not ported; the "
+            "all-cluster sweep runs any table size")
+    dev = state.s.device
+    r = state.s.shape[0]
+    p = params(cfg, r, cap_main, cap_shadow, pixel_offset, stop_after)
+    tb = _tables(mp.to(dev), _camera_words(camera.to(dev)))
+    sf, si = state_planes(state)
+    buf = step_buffers(r, p, int(n_steps), dev)
+    run_steps(ops, tb, p, int(seed) & 0xFFFFFFFF, sf, si, int(n_steps), buf)
+
+    caps = torch.tensor([p.cap_main, p.cap_shadow], dtype=_I, device=dev)
+    overflow = torch.clamp(buf.cnt - caps, min=0).sum()
+    npred = buf.cnt.sum(0)
+    v3 = lambda k: sf[3 * k:3 * k + 3].T                         # noqa: E731
+    # Every lane traces a main ray each step, plus the shadow rays K2
+    # counted; the counter wraps as the JAX package's int32 counter.
+    nrays = _wrap_i32(state.nrays.to(torch.int64)
+                      + (int(n_steps) * r) % (1 << 31)
+                      + si[3].to(torch.int64).sum())
+    new = WavefrontState(s=si[0], b=si[1], o=v3(0), d=v3(1), tp=v3(2),
+                         cur=v3(3), acc=v3(4), n_done=si[2], nrays=nrays)
+    return new, overflow, npred
+
+
+def wavefront_steps_fused_mesh(mp: MeshPack, camera, cfg: RenderConfig,
+                               seed: int, state, n_steps: int, *,
+                               cap_main: int | None = None,
+                               cap_shadow: int | None = None,
+                               pixel_offset: int = 0,
+                               resident: bool | None = None,
+                               stop_after: int = 0, device=None):
+    """Advance every lane of ``state`` (a ``models.monte_carlo``
+    ``WavefrontState``) by ``n_steps`` bounce steps over the mesh pack.
+    Returns ``(state', overflow, npred)``: overflow 0 means every mesh
+    crossing lane was tested (> 0: raise the caps and rerun, the state is
+    invalid); npred (2,) the main and shadow predicate populations summed
+    over the steps.  Both stay on the device.
+
+    ``cap_main`` / ``cap_shadow``: packed-buffer sizes, rounded up to whole
+    multiples of 4,096 lanes (default a quarter of the lanes).
+    ``pixel_offset``: the absolute pixel of the state's first lane, so a
+    row-major slab steps exactly like the same lanes of the full image.
+    ``stop_after > 0``: equal-spp mode.  ``device`` (default: the card)
+    must be where ``state`` lies; CUDA tensors launch csrc/fused_mesh.cu,
+    CPU tensors run the plain versions."""
+    dev = kernels.resolve_device(device)
+    if state.s.device.type != dev.type:
+        raise ValueError(f"state lies on {state.s.device}, not on {dev}")
+    ops = KERNEL_OPS if state.s.is_cuda else PLAIN_OPS
+    return _run(ops, mp, camera, cfg, seed, state, n_steps, cap_main,
+                cap_shadow, pixel_offset, resident, stop_after)
+
+
+def wavefront_steps_fused_mesh_plain(mp: MeshPack, camera, cfg: RenderConfig,
+                                     seed: int, state, n_steps: int, *,
+                                     cap_main: int | None = None,
+                                     cap_shadow: int | None = None,
+                                     pixel_offset: int = 0,
+                                     resident: bool | None = None,
+                                     stop_after: int = 0):
+    """The plain PyTorch version of ``wavefront_steps_fused_mesh`` on any
+    device (the kernels' arithmetic, vectorized over lanes)."""
+    return _run(PLAIN_OPS, mp, camera, cfg, seed, state, n_steps, cap_main,
+                cap_shadow, pixel_offset, resident, stop_after)
+
+
+# --- renderers ---------------------------------------------------------------
+
+def _drive(scene: Scene, camera, cfg: RenderConfig, seed: int, *,
+           target: int, stop_after: int, gate_mask, cluster_size: int,
+           device):
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+
+    dev = kernels.resolve_device(device)
+    scene = scene.to(dev)
+    mp = pack_mesh_scene(scene, gate_mask=gate_mask,
+                         cluster_size=cluster_size)
+    state = mc.wavefront_init(scene, camera, cfg, seed, device=dev)
+    rp = _ceil_to(state.s.shape[0], LANES_PER_TILE)
+    cap_main = cap_shadow = max(LANES_PER_TILE, rp // 8)
+    chunk = max(32, cfg.max_depth)
+    TRACE.clear()
+    for _ in range(target * cfg.max_depth):
+        nxt, overflow, npred = wavefront_steps_fused_mesh(
+            mp, camera, cfg, seed, state, chunk, cap_main=cap_main,
+            cap_shadow=cap_shadow, stop_after=stop_after, device=dev)
+        # the one read of the device per chunk
+        over, least, n_main, n_shadow = torch.stack(
+            [overflow.to(torch.int64), nxt.n_done.min().to(torch.int64),
+             npred[0].to(torch.int64), npred[1].to(torch.int64)]).tolist()
+        TRACE.append(dict(steps=chunk, cap_main=cap_main,
+                          cap_shadow=cap_shadow, overflow=over,
+                          npred=[n_main, n_shadow]))
+        if over > 0:
+            # rerun the chunk with doubled caps (state untouched on purpose)
+            cap_main = min(2 * cap_main, rp)
+            cap_shadow = min(2 * cap_shadow, rp)
+            continue
+        state = nxt
+        if least >= target:
+            break
+        if stop_after:
+            chunk = min(2 * chunk, 4096)
+    return state
+
+
+def render_turbo_mesh_exact(scene: Scene, camera, cfg: RenderConfig,
+                            seed: int, *,
+                            gate_mask: Optional[np.ndarray] = None,
+                            cluster_size: int = 128,
+                            device=None) -> torch.Tensor:
+    """Mean linear radiance, (H, W, 3), over a mesh scene by the fused mesh
+    engine in equal-spp mode: every pixel completes exactly ``cfg.spp``
+    samples and idles (the reference's fixed-spp estimator).  The packed
+    buffers start at an eighth of the lanes; a chunk that overflows reruns
+    with both caps doubled.  Runs on ``device`` (default: the card);
+    ``TRACE`` records the chunks."""
+    state = _drive(scene, camera, cfg, seed, target=cfg.spp,
+                   stop_after=int(cfg.spp), gate_mask=gate_mask,
+                   cluster_size=cluster_size, device=device)
+    spp = torch.tensor(float(cfg.spp), dtype=torch.float32,
+                       device=state.acc.device)
+    return (state.acc / spp).reshape(cfg.height, cfg.width, 3)
+
+
+def render_turbo_mesh(scene: Scene, camera, cfg: RenderConfig, seed: int, *,
+                      min_spp: int | None = None,
+                      gate_mask: Optional[np.ndarray] = None,
+                      cluster_size: int = 128,
+                      device=None) -> torch.Tensor:
+    """Mean linear radiance over a mesh scene by the fused mesh engine,
+    equal-time progressive (``monte_carlo.render_turbo``'s semantics): steps
+    until every pixel has ``min_spp`` (default ``cfg.spp``) samples, with
+    the caps doubled on overflow as in ``render_turbo_mesh_exact``."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+
+    target = cfg.spp if min_spp is None else min_spp
+    state = _drive(scene, camera, cfg, seed, target=target, stop_after=0,
+                   gate_mask=gate_mask, cluster_size=cluster_size,
+                   device=device)
+    return mc.wavefront_image(state, cfg)

@@ -13,7 +13,8 @@ from cpu_based_ray_tracer_tpu_torch import camera
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import mesh
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
-from cpu_based_ray_tracer_tpu_torch.ops import fused, fused_whitted, packet
+from cpu_based_ray_tracer_tpu_torch.ops import (fused, fused_mesh,
+                                                fused_whitted, packet)
 from cpu_based_ray_tracer_tpu_torch.scene import make_spheres
 from cpu_based_ray_tracer_tpu_torch.scenes import (cornell, meshes,
                                                    whitted_scene)
@@ -128,6 +129,115 @@ def test_packet_kernel_matches_plain(cuda, case):
     hit = want_t < packet.NO_HIT
     assert hit.any()
     torch.testing.assert_close(got_t[hit], want_t[hit], rtol=1e-6, atol=0)
+
+
+def _mesh_step_inputs(device, steps_before=3):
+    """A fused-mesh pack, its tables and one step's input state on
+    ``device``: the 64x64 Cornell mesh scene after a few plain steps."""
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(2), device=device)
+    cam = cornell.cornell_camera(device)
+    cfg = RenderConfig(width=64, height=64, spp=4, max_depth=6)
+    mp = fused_mesh.pack_mesh_scene(scene, cluster_size=64)
+    st = mc.wavefront_init(scene, cam, cfg, SEED, device=device)
+    st, _, _ = fused_mesh.wavefront_steps_fused_mesh_plain(
+        mp, cam, cfg, SEED, st, steps_before, cap_main=4096 * 2,
+        cap_shadow=4096 * 2)
+    p = fused_mesh.params(cfg, 4096)
+    tb = fused_mesh._tables(mp, fused._camera_words(cam))
+    return (tb, p) + fused_mesh.state_planes(st)
+
+
+@pytest.mark.parametrize("op", ["k1", "nearest", "k1b", "occl", "k2"])
+def test_fused_mesh_kernel_matches_plain(cuda, op):
+    """Each of the five entry points of csrc/fused_mesh.cu against its plain
+    version on the same inputs: outputs bit-equal (-fmad=false, the same
+    operations in the same order), packed lanes as sets (blocks land in
+    any order), packed populations equal."""
+    tb, p, sf, si = _mesh_step_inputs(cuda)
+    r = sf.shape[1]
+    fm = fused_mesh
+    bp = fm.StepBuffers(*[torch.zeros_like(x) for x in
+                          fm.step_buffers(r, p, 1, cuda)])
+    # the plain version's step up to this op supplies the op's inputs
+    order = ["k1", "nearest", "k1b", "occl"]
+    for name in order[:order.index(op) if op in order else 4]:
+        fm.run_op(fm.PLAIN_OPS, name, tb, p, SEED, sf, si, bp)
+    bk = fm.StepBuffers(*[x.clone() for x in bp])
+    sf_k, si_k = sf.clone(), si.clone()
+    launches = fm.LAUNCHES[op]
+    fm.run_op(fm.KERNEL_OPS, op, tb, p, SEED, sf_k, si_k, bk)
+    fm.run_op(fm.PLAIN_OPS, op, tb, p, SEED, sf, si, bp)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES[op] == launches + 1
+    assert torch.equal(bk.cnt, bp.cnt)
+    if op in ("k1", "k1b"):
+        n = int(bp.cnt[0, 0 if op == "k1" else 1])
+        assert n > 0
+        ids_k = (bk.mr_id if op == "k1" else bk.sr_id)[:n]
+        ids_p = (bp.mr_id if op == "k1" else bp.sr_id)[:n]
+        order_k = torch.argsort(ids_k)
+        assert torch.equal(ids_k[order_k], ids_p)
+        rays_k = (bk.mr if op == "k1" else bk.sr)[:, :n]
+        rays_p = (bp.mr if op == "k1" else bp.sr)[:, :n]
+        assert torch.equal(rays_k[:, order_k], rays_p)
+        offs_k, offs_p = (bk.offs1, bp.offs1) if op == "k1" else (
+            bk.offs2, bp.offs2)
+        assert torch.equal(offs_k[:, 1], offs_p[:, 1])
+        # each block's slice is contiguous and in lane order
+        for (bk0, c), (bp0, _) in zip(offs_k.tolist(), offs_p.tolist()):
+            assert torch.equal(ids_k[bk0:bk0 + c], ids_p[bp0:bp0 + c])
+    assert torch.equal(bk.hf, bp.hf) and torch.equal(bk.kb, bp.kb)
+    assert torch.equal(sf_k, sf) and torch.equal(si_k, si)
+
+
+@pytest.mark.parametrize("stop_after", [0, 2])
+def test_fused_mesh_stepper_matches_plain_ragged_slab(cuda, stop_after):
+    """A slab of 917 lanes (no whole number of blocks) at pixel_offset 600
+    of a 41x37 image, with a sphere among the smalls: the five kernels'
+    stepper against the plain one, integer state and populations exact,
+    floats 2e-3."""
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(2), device=cuda)
+    scene = scene.replace(spheres=make_spheres((1.0, 3.0, 2.0), 0.5, 0,
+                                               cuda))
+    cam = cornell.cornell_camera(cuda)
+    cfg = RenderConfig(width=41, height=37, spp=4, max_depth=5)
+    mp = fused_mesh.pack_mesh_scene(scene, cluster_size=64)
+    assert mp.n_sph == 1
+    full = mc.wavefront_init(scene, cam, cfg, SEED, device=cuda)
+    st = mc.WavefrontState(**{
+        f: (getattr(full, f) if f == "nrays" else getattr(full, f)[600:])
+        for f in ("s", "b", "o", "d", "tp", "cur", "acc", "n_done",
+                  "nrays")})
+    kw = dict(pixel_offset=600, stop_after=stop_after)
+    want, of_p, np_p = fused_mesh.wavefront_steps_fused_mesh_plain(
+        mp, cam, cfg, SEED, st, 8, **kw)
+    got, of_k, np_k = fused_mesh.wavefront_steps_fused_mesh(
+        mp, cam, cfg, SEED, st, 8, **kw)
+    torch.cuda.synchronize()
+    assert int(of_k) == int(of_p) == 0 and torch.equal(np_k, np_p)
+    for f in ("s", "b", "n_done", "nrays"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("o", "d", "tp", "cur", "acc"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=2e-3, atol=2e-3)
+
+
+def test_render_turbo_mesh_exact_on_card(cuda):
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(2))
+    cam = cornell.cornell_camera()
+    cfg = RenderConfig(width=64, height=64, spp=2, max_depth=5)
+    for k in fused_mesh.LAUNCHES:
+        fused_mesh.LAUNCHES[k] = 0
+    packet.LAUNCHES = 0
+    img = fused_mesh.render_turbo_mesh_exact(scene, cam, cfg, SEED,
+                                             cluster_size=64)
+    steps = sum(t["steps"] for t in fused_mesh.TRACE)
+    assert img.is_cuda and packet.LAUNCHES == 0
+    assert all(v == steps for v in fused_mesh.LAUNCHES.values())
+    plain = fused_mesh.render_turbo_mesh_exact(scene, cam, cfg, SEED,
+                                               cluster_size=64, device="cpu")
+    np.testing.assert_allclose(img.cpu().numpy(), plain.numpy(), rtol=2e-3,
+                               atol=2e-3)
 
 
 def test_mesh_render_on_card(cuda):

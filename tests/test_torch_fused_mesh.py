@@ -1,0 +1,403 @@
+"""The port's fused mesh-MC engine (``ops.fused_mesh``) against the JAX
+package: the host-side packs byte for byte, the plain compaction against
+the JAX ``ops.compact`` helpers (Pallas interpreter), and the plain stepper
+against the JAX Pallas engine in interpret mode and against the JAX XLA
+wavefront through the packet intersector.
+
+Tolerances (``tests/test_fused_mesh.py``): integer lane state, ``nrays``,
+the overflow and the predicate populations exactly; float lane state and
+images rtol = atol = 2e-3; the slab composition bit for bit.  The scene is
+the Cornell box with an 80-triangle icosphere in 64-triangle clusters."""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+
+from cpu_based_ray_tracer_tpu import scene as jscene_mod
+from cpu_based_ray_tracer_tpu.config import RenderConfig as JConfig
+from cpu_based_ray_tracer_tpu.models import mesh as jmesh
+from cpu_based_ray_tracer_tpu.models import monte_carlo as jmc
+from cpu_based_ray_tracer_tpu.ops import compact as jcompact
+from cpu_based_ray_tracer_tpu.ops import fused_mesh as jfm
+from cpu_based_ray_tracer_tpu.scenes import cornell as jcornell
+from cpu_based_ray_tracer_tpu.utils import rng as jrng
+
+from cpu_based_ray_tracer_tpu_torch import interop
+from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+from cpu_based_ray_tracer_tpu_torch.ops import compact, fused
+from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+from cpu_based_ray_tracer_tpu_torch.scene import make_spheres
+from cpu_based_ray_tracer_tpu_torch.scenes import cornell, meshes
+
+import torch_ref as ref
+
+N_SMALLS = 22      # walls, light and tall box of cornell_mesh_scene
+SPHERE = ((1.0, 3.0, 2.0), 0.5, 0)    # a white sphere left of the mesh
+
+
+@functools.lru_cache(maxsize=None)
+def _scenes(sub: int = 1, sphere: bool = False):
+    ico = meshes.icosphere(sub, radius=1.0)
+    scene = cornell.cornell_mesh_scene(ico)
+    jscene = jcornell.cornell_mesh_scene(ico)
+    if sphere:
+        scene = scene.replace(spheres=make_spheres(*SPHERE))
+        jscene = jscene.replace(spheres=jscene_mod.make_spheres(*SPHERE))
+    return scene, jscene
+
+
+def _gate(scene):
+    return np.arange(scene.triangles.count) >= N_SMALLS
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs in parallel workers, where the
+    plain stepper's thread pool on 65,536-lane tensors only oversubscribes
+    the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _port_pack(scene=None):
+    scene = scene if scene is not None else _scenes()[0]
+    return fm.pack_mesh_scene(scene, gate_mask=_gate(scene), cluster_size=64)
+
+
+def _jax_pack_arrays(jmp) -> dict:
+    return {k: (np.asarray(v) if hasattr(v, "shape") else v)
+            for k, v in jmp._asdict().items()}
+
+
+# --- host-side packs, byte for byte ------------------------------------------
+
+@pytest.mark.parametrize("case", ["default_gate", "explicit_gate",
+                                  "icosphere3"])
+def test_pack_mesh_scene_byte_equal(case):
+    """Every array of the pack byte-equal to JAX's, the ints and tuples
+    equal; the light and sky rows equal the port's ``pack_scene``."""
+    sub, kw = {"default_gate": (1, dict(cluster_size=64)),
+               "explicit_gate": (1, dict(cluster_size=64, gate=True)),
+               "icosphere3": (3, {})}[case]
+    scene, jscene = _scenes(sub)
+    gate = _gate(scene) if kw.pop("gate", False) else None
+    got = fm.pack_mesh_scene(scene, gate_mask=gate, **kw)
+    want = _jax_pack_arrays(jfm.pack_mesh_scene(jscene, gate_mask=gate, **kw))
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), want[f.name]
+        if isinstance(a, torch.Tensor):
+            a = a.numpy()
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f.name
+        elif isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+    assert got.gate_mask.sum() == scene.triangles.count - N_SMALLS
+    if case == "icosphere3":
+        assert got.n_clusters == 10 and got.cs == 128
+    fs = fused.pack_scene(scene)
+    assert torch.equal(got.light, fs.light) and torch.equal(got.sky, fs.sky)
+    # the JAX pack carried across gives the same pack
+    back = interop.mesh_pack_from_arrays(want)
+    for f in ("stri", "smc_tri", "smc_aabb", "light"):
+        assert torch.equal(getattr(back, f), getattr(got, f)), f
+
+
+def test_build_smem_clusters_byte_equal():
+    """A mesh with a padded last cluster (2,580 triangles, cs 128)."""
+    tris = np.concatenate([meshes.icosphere(3), meshes.torus(1.6, 0.6, 24,
+                                                             10)])
+    rng = np.random.default_rng(1)
+    nrm = rng.normal(size=(len(tris), 3)).astype(np.float32)
+    mids = rng.integers(0, 4, len(tris)).astype(np.float32)
+    got = fm.build_smem_clusters(tris, nrm, mids, 128)
+    want = jfm.build_smem_clusters(tris, nrm, mids, 128)
+    for f in ("tri", "aabb", "box_aabb"):
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+    assert got.boxes == want.boxes and got.cs == want.cs
+    assert (got.tri[-1, :, 13] == -1.0).any()           # padded tail
+
+
+# --- compaction against the JAX helpers (Pallas interpreter) -----------------
+
+SUB = 8
+
+
+def _jax_pack_unpack(x, pred):
+    """JAX funnel_pack + funnel_unpack of (P, SUB, 128) planes, in a
+    Pallas kernel under the interpreter -> (packed, count, unpacked,
+    landed, prefix)."""
+    n_planes = x.shape[0]
+
+    def kern(x_ref, p_ref, pk_ref, un_ref, m_ref, pos_ref, c_ref):
+        planes = [x_ref[j] for j in range(n_planes)]
+        packed, count = jcompact.funnel_pack(planes, p_ref[:, :])
+        tgt = packed[-1].astype(jnp.int32)   # the last plane: lane ids
+        si = jax.lax.broadcasted_iota(jnp.int32, tgt.shape, 0)
+        li = jax.lax.broadcasted_iota(jnp.int32, tgt.shape, 1)
+        un, landed = jcompact.funnel_unpack(
+            packed, tgt, (si * 128 + li < count).astype(jnp.int32))
+        for j in range(n_planes):
+            pk_ref[j] = packed[j]
+            un_ref[j] = un[j]
+        m_ref[:, :] = landed
+        pos_ref[:, :] = jcompact.tile_prefix_pos(p_ref[:, :])
+        c_ref[:, :] = jnp.full((SUB, 128), count, jnp.int32)
+
+    shp = jax.ShapeDtypeStruct
+    out = pl.pallas_call(kern, out_shape=[
+        shp((n_planes, SUB, 128), jnp.float32),
+        shp((n_planes, SUB, 128), jnp.float32),
+        shp((SUB, 128), jnp.int32), shp((SUB, 128), jnp.int32),
+        shp((SUB, 128), jnp.int32)], interpret=True)(jnp.asarray(x),
+                                                    jnp.asarray(pred))
+    pk, un, m, pos, c = (np.asarray(o) for o in out)
+    return pk, int(c[0, 0]), un, m, pos
+
+
+@pytest.mark.parametrize("density", [0.0, 0.05, 0.3, 1.0])
+def test_compaction_matches_jax(density):
+    """Prefix, packed lanes and count exact; the unpack inverts the pack
+    (landed mask = predicate, values back in place) in both packages."""
+    rng = np.random.default_rng(int(density * 100))
+    x = rng.standard_normal((3, SUB, 128)).astype(np.float32)
+    x[-1] = np.arange(SUB * 128, dtype=np.float32).reshape(SUB, 128)
+    pred = (rng.random((SUB, 128)) < density).astype(np.int32)
+    j_pk, j_cnt, j_un, j_landed, j_pos = _jax_pack_unpack(x, pred)
+
+    tx, tp = torch.as_tensor(x), torch.as_tensor(pred)
+    np.testing.assert_array_equal(compact.tile_prefix_pos(tp).numpy(), j_pos)
+    packed, count = compact.funnel_pack(list(tx), tp)
+    assert count == j_cnt == int(pred.sum())
+    for j in range(3):
+        np.testing.assert_array_equal(packed[j].reshape(-1)[:count].numpy(),
+                                      j_pk[j].reshape(-1)[:count])
+    valid = (torch.arange(SUB * 128) < count).reshape(SUB, 128)
+    un, landed = compact.funnel_unpack(packed, packed[-1].to(torch.int32),
+                                       valid)
+    np.testing.assert_array_equal(landed.numpy() != 0, pred != 0)
+    np.testing.assert_array_equal(j_landed != 0, pred != 0)
+    for j in range(3):
+        np.testing.assert_array_equal(un[j].numpy()[pred != 0],
+                                      x[j][pred != 0])
+        np.testing.assert_array_equal(j_un[j][pred != 0], x[j][pred != 0])
+
+
+# --- the slice against the JAX engines ---------------------------------------
+
+def _port_steps(cfg_kw, seed_k, n_steps, mp=None, sphere=False, **kw):
+    scene, _ = _scenes(sphere=sphere)
+    cfg, seed = RenderConfig(**cfg_kw), ref.seed_word(seed_k)
+    cam = cornell.cornell_camera()
+    st = mc.wavefront_init(scene, cam, cfg, seed, device="cpu")
+    return fm.wavefront_steps_fused_mesh(mp or _port_pack(scene), cam, cfg,
+                                         seed, st, n_steps, device="cpu",
+                                         **kw)
+
+
+def test_plain_stepper_matches_jax_pallas_interpret():
+    """Against JAX ``wavefront_steps_fused_mesh`` (its five Pallas kernels
+    in interpret mode) fed the same pack: integer state, nrays, overflow (0)
+    and the predicate populations exact, floats 2e-3."""
+    kw = dict(width=32, height=32, spp=4, max_depth=4, rr_survival=0.8)
+    _, jscene = _scenes()
+    jmp = jfm.pack_mesh_scene(jscene, gate_mask=_gate(jscene),
+                              cluster_size=64)
+    key = jrng.render_key(7)
+    st0 = jmc.wavefront_init(jscene, jcornell.cornell_camera(),
+                             JConfig(**kw), key)
+    want, j_of, j_npred = jfm.wavefront_steps_fused_mesh(
+        jmp, jcornell.cornell_camera(), JConfig(**kw), key, st0, 4,
+        interpret=True)
+    mp = interop.mesh_pack_from_arrays(_jax_pack_arrays(jmp))
+    got, of, npred = _port_steps(kw, 7, 4, mp=mp)
+    assert int(j_of) == 0 and int(of) == 0
+    np.testing.assert_array_equal(npred.numpy(), np.asarray(j_npred))
+    assert int(npred[0]) > 0 and int(npred[1]) > 0
+    ref.assert_states_match(ref.state_numpy(want), ref.state_numpy(got))
+
+
+def _xla_reference(cfg_kw, seed_k, n_steps, sphere=False):
+    _, jscene = _scenes(sphere=sphere)
+    cam, key = jcornell.cornell_camera(), jrng.render_key(seed_k)
+    st0 = jmc.wavefront_init(jscene, cam, JConfig(**cfg_kw), key)
+    b = jmesh.prepare(jscene, method="packet", cluster_size=64)
+    return jmc.wavefront_steps(jscene, cam, JConfig(**cfg_kw), key, st0,
+                               n_steps, intersect_fn=jmesh.make_intersect_fn(b),
+                               nearest_t_fn=jmesh.make_nearest_t_fn(b))
+
+
+@pytest.mark.parametrize("w,h,n_steps,rr,sphere", [
+    (48, 48, 6, 0.8, False), (41, 37, 4, 0.5, False),
+    (32, 32, 5, 0.8, True)])
+def test_plain_stepper_matches_jax_xla_packet(w, h, n_steps, rr, sphere):
+    """Against the JAX XLA wavefront through the packet intersector
+    (``tests/test_fused_mesh.py:31-36``), also on a lane count that is no
+    multiple of 4,096 and with a sphere among the smalls: integer state
+    and nrays exact, floats 2e-3."""
+    kw = dict(width=w, height=h, spp=4, max_depth=4, rr_survival=rr)
+    want = _xla_reference(kw, 7, n_steps, sphere)
+    got, of, _ = _port_steps(kw, 7, n_steps, sphere=sphere)
+    assert int(of) == 0
+    ref.assert_states_match(ref.state_numpy(want), ref.state_numpy(got))
+
+
+def test_overflow_reported():
+    """A 4,096-lane cap at 256x256 overflows on the primary step (far more
+    primary rays cross the mesh AABBs), and the population is still
+    counted in full."""
+    kw = dict(width=256, height=256, spp=2, max_depth=3)
+    _, of, npred = _port_steps(kw, 3, 1, cap_main=4096, cap_shadow=4096)
+    n_main, n_shadow = npred.tolist()
+    assert n_main > 4096
+    assert int(of) == n_main - 4096 + max(n_shadow - 4096, 0)
+
+
+def test_render_turbo_mesh_tight_caps_equal_full_caps():
+    """``render_turbo_mesh`` starts from the smallest cap (4,096 lanes at
+    80x80), doubles on overflow and reruns the chunk: the image is
+    bit-equal to the same steps with full caps, which never overflow.
+    Every non-emissive triangle is gated, walls included, so the predicate
+    fires for nearly every lane (the JAX package's adversarial gate,
+    ``tests/test_fused_mesh.py:158-212``)."""
+    scene, _ = _scenes()
+    cam = cornell.cornell_camera()
+    cfg = RenderConfig(width=80, height=80, spp=1, max_depth=2,
+                       rr_survival=0.8)
+    gate = ~np.asarray(scene.materials.emissive)[
+        scene.triangles.material.numpy()]
+    tight = fm.render_turbo_mesh(scene, cam, cfg, 4, gate_mask=gate,
+                                 cluster_size=64, device="cpu")
+    trace = list(fm.TRACE)
+    assert trace[0]["cap_main"] == 4096 and trace[0]["overflow"] > 0
+    assert trace[-1]["overflow"] == 0 and trace[-1]["cap_main"] > 4096
+    steps = sum(t["steps"] for t in trace if t["overflow"] == 0)
+    rp = 2 * 4096                                  # 6,400 lanes, whole tiles
+    st = mc.wavefront_init(scene, cam, cfg, 4, device="cpu")
+    st, of, _ = fm.wavefront_steps_fused_mesh(
+        fm.pack_mesh_scene(scene, gate_mask=gate, cluster_size=64), cam, cfg,
+        4, st, steps, cap_main=rp, cap_shadow=rp, device="cpu")
+    assert int(of) == 0
+    full = mc.wavefront_image(st, cfg)
+    assert torch.equal(tight, full) and float(full.mean()) > 0.0
+
+
+def test_render_turbo_mesh_exact_matches_jax_render():
+    """The equal-spp renderer against JAX ``mc.render`` (fixed depth) through
+    the packet intersector (``tests/test_fused_mesh.py:216-234``): the
+    same paths, rtol = atol = 2e-3."""
+    scene, jscene = _scenes()
+    kw = dict(width=24, height=24, spp=3, max_depth=4, rr_survival=0.8)
+    got = fm.render_turbo_mesh_exact(scene, cornell.cornell_camera(),
+                                     RenderConfig(**kw), ref.seed_word(12),
+                                     gate_mask=_gate(scene), cluster_size=64,
+                                     device="cpu")
+    b = jmesh.prepare(jscene, method="packet", cluster_size=64)
+    want = np.asarray(jmc.render(
+        jscene, jcornell.cornell_camera(), JConfig(**kw), jrng.render_key(12),
+        intersect_fn=jmesh.make_intersect_fn(b),
+        nearest_t_fn=jmesh.make_nearest_t_fn(b)))
+    assert got.shape == (24, 24, 3) and float(got.mean()) > 0.0
+    np.testing.assert_allclose(got.numpy(), want, rtol=ref.RTOL,
+                               atol=ref.ATOL)
+
+
+def test_slab_composition_bit_exact():
+    """A row slab stepped with ``pixel_offset`` equals the same lanes of
+    the full image, bit for bit (``tests/test_fused_mesh.py:252-287``)."""
+    scene, _ = _scenes()
+    cam = cornell.cornell_camera()
+    cfg = RenderConfig(width=48, height=48, spp=2, max_depth=3,
+                       rr_survival=0.8)
+    seed, mp = ref.seed_word(6), _port_pack()
+    st = mc.wavefront_init(scene, cam, cfg, seed, device="cpu")
+    full, of, _ = fm.wavefront_steps_fused_mesh(mp, cam, cfg, seed, st, 3,
+                                                device="cpu")
+    assert int(of) == 0
+    half = st.s.shape[0] // 2
+    parts = []
+    for k, sl in enumerate((slice(0, half), slice(half, None))):
+        sub = dataclasses.replace(
+            st, s=st.s[sl], b=st.b[sl], o=st.o[sl], d=st.d[sl],
+            tp=st.tp[sl], cur=st.cur[sl], acc=st.acc[sl],
+            n_done=st.n_done[sl])
+        out, of2, _ = fm.wavefront_steps_fused_mesh(
+            mp, cam, cfg, seed, sub, 3, pixel_offset=k * half, device="cpu")
+        assert int(of2) == 0
+        parts.append(out)
+    for f in ("acc", "n_done", "s", "b", "o", "d", "tp", "cur"):
+        assert torch.equal(getattr(full, f),
+                           torch.cat([getattr(p, f) for p in parts])), f
+
+
+# --- entry points and wrappers -----------------------------------------------
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without CUDA, the entry points called without ``device`` raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene, _ = _scenes()
+    cam = cornell.cornell_camera()
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=2)
+    st = mc.wavefront_init(scene, cam, cfg, 0, device="cpu")
+    for call in (
+            lambda: fm.render_turbo_mesh_exact(scene, cam, cfg, 0),
+            lambda: fm.render_turbo_mesh(scene, cam, cfg, 0),
+            lambda: fm.wavefront_steps_fused_mesh(_port_pack(), cam, cfg, 0,
+                                                  st, 1)):
+        with pytest.raises(RuntimeError):
+            call()
+
+
+@pytest.mark.parametrize("op", ["k1", "nearest", "k1b", "occl", "k2"])
+def test_kernel_wrappers_refuse_cpu_tensors(op):
+    """Each kernel wrapper raises ValueError on CPU tensors, before its
+    launch counter moves."""
+    mp = _port_pack()
+    p = fm.params(RenderConfig(width=16, height=16), 256)
+    tb = fm._tables(mp, fused._camera_words(cornell.cornell_camera()))
+    b = fm.step_buffers(256, p, 1, "cpu")
+    sf = torch.zeros((15, 256))
+    si = torch.zeros((4, 256), dtype=torch.int32)
+    c1, c2 = b.cnt[0, 0:1], b.cnt[0, 1:2]
+    call = {
+        "k1": lambda: fm._k1_kernel(tb, p, sf, b.hf, b.mr, b.mr_id, b.offs1,
+                                    c1),
+        "nearest": lambda: fm._nearest_kernel(tb, p, b.mr, b.mr_id, c1,
+                                              b.hf[5:10]),
+        "k1b": lambda: fm._k1b_kernel(tb, p, 0, sf, si, b.hf, b.kb, b.sr,
+                                      b.sr_id, b.offs2, c2),
+        "occl": lambda: fm._occl_kernel(tb, p, b.sr, b.sr_id, c2,
+                                        b.kb[8:9]),
+        "k2": lambda: fm._k2_kernel(tb, p, 0, b.kb, sf, si)}[op]
+    launches = fm.LAUNCHES[op]
+    with pytest.raises(ValueError):
+        call()
+    assert fm.LAUNCHES[op] == launches
+
+
+@pytest.mark.parametrize("what", ["resident_false", "soft_shadows"])
+def test_unported_modes_raise(what):
+    """The shortlist sweep and soft shadows are refused, not emulated."""
+    scene, _ = _scenes()
+    cam = cornell.cornell_camera()
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=2)
+    kw = {}
+    if what == "resident_false":
+        kw["resident"] = False
+    else:
+        cfg = cfg.replace(soft_shadow_beta=0.05)
+    st = mc.wavefront_init(scene, cam, cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        fm.wavefront_steps_fused_mesh(_port_pack(), cam, cfg, 0, st, 1,
+                                      device="cpu", **kw)
