@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU through its main paths — the
-Monte Carlo Cornell path tracer, the Whitted stage, the BVH mesh stage and
-the fused mesh Monte Carlo stage — and hold every kernel against its plain
-PyTorch version.
+Monte Carlo Cornell path tracer, the Whitted stage, the BVH mesh stage
+(packet and fused shortlist intersectors) and the fused mesh Monte Carlo
+stage (resident and shortlist-streaming sweeps) — and hold every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -60,17 +61,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 17. mesh_fused_speed  bench.py's mc_bunny_mesh_fused (896x896, caps rp//8
               and rp//12, 16 steps a call, 3 calls after a warm-up) in
               rays/s, and each entry point alone in ms per step beside its
-              plain version and its bound.
+              plain version and its bound;
+18. mesh_fused_whitted_main  mesh.render(prepare(bvh_stage_scene(4),
+              method="fused")) at 896x896, depth 5 (7,424 triangles, 58
+              clusters; no packet launch), against method="packet" at rtol
+              1e-4, atol 1e-5 on every pixel but exact-t ties, each listed;
+              image to build/; its light-0 shadow rays are kept;
+19. coherent_parity  csrc/coherent.cu's mask and sweep kernels against
+              mask_plain / sweep_plain (masks, tile words, ids, counts, t
+              and indices equal) on the camera rays, those shadow rays, and
+              the hit pixels' shadow rays compacted (strip tiles);
+20. coherent_speed  the two kernels alone per 896x896 camera pass beside
+              packet.cu on the same rays, the plain versions, the bounds;
+21. mesh_fused_164k  tools/bench_passes.py's mc_mesh_fused_164k (two
+              icospheres(6), 163,862 triangles, 1,280 clusters: past the
+              SMEM budget, so resident=None takes the shortlists):
+              render_turbo_mesh_exact 896x896 8 spp; 16 steps with
+              resident=False against resident=True (integer state,
+              populations, overflow 0); one step of each shortlist sweep
+              against its plain version, with the list lengths;
+22. sl_speed  the 164k cell timed as bench_passes' scale_case (caps rp//8
+              and rp//16, 16 steps a call, 3 calls after a warm-up) in both
+              modes; each shortlist sweep and the mask pass alone beside the
+              all-cluster sweep on the same packed rays, and the bounds.
 
-Each main path (5, 9, 11, 12, 15) runs with every launch counter set to 0
-just before it and read just after.  Then the kernels line, the nvidia-smi
+Each main path (5, 9, 11, 12, 15, 18, 21) runs with every launch counter
+set to 0 just before it and read just after.  Then the kernels line, the nvidia-smi
 line, and the last line {"ok": true, "device": {...}}.  Exits non-zero,
 printing no result, where CUDA is not available.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -334,22 +359,26 @@ def speed_phase(dev, full: RenderConfig, max_sm_mhz: float, smi: str,
 # --- the Whitted and mesh stages --------------------------------------------
 
 def reset_counts():
-    from cpu_based_ray_tracer_tpu_torch.ops import (fused, fused_mesh,
-                                                    fused_whitted, packet)
+    from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused,
+                                                    fused_mesh, fused_whitted,
+                                                    packet)
 
     fused.LAUNCHES = fused_whitted.LAUNCHES = packet.LAUNCHES = 0
-    for k in fused_mesh.LAUNCHES:
-        fused_mesh.LAUNCHES[k] = 0
+    for counts in (fused_mesh.LAUNCHES, coherent.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_counts() -> dict:
-    from cpu_based_ray_tracer_tpu_torch.ops import (fused, fused_mesh,
-                                                    fused_whitted, packet)
+    from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused,
+                                                    fused_mesh, fused_whitted,
+                                                    packet)
 
     return {"fused_mc": fused.LAUNCHES,
             "fused_whitted": fused_whitted.LAUNCHES,
             "packet": packet.LAUNCHES,
-            "fused_mesh": dict(fused_mesh.LAUNCHES)}
+            "fused_mesh": dict(fused_mesh.LAUNCHES),
+            "coherent": dict(coherent.LAUNCHES)}
 
 
 def image_gate(got, want) -> dict:
@@ -511,6 +540,44 @@ def save_png(img, name, gamma=1.0) -> str:
     return os.path.relpath(png, ROOT)
 
 
+@contextlib.contextmanager
+def recording_shadow_rays(sent: list):
+    """Within the block, the shadow rays (o, d) that models.mesh's
+    nearest_t_fn is called with are appended to ``sent``."""
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+
+    make = mesh.make_nearest_t_fn
+
+    def recording(b, sort_rays=False, hw=None):
+        fn = make(b, sort_rays, hw)
+
+        def rec(sc, o, d, t_min):
+            sent.append((o, d))
+            return fn(sc, o, d, t_min)
+        return rec
+
+    mesh.make_nearest_t_fn = recording
+    try:
+        yield
+    finally:
+        mesh.make_nearest_t_fn = make
+
+
+def light0_rays(sent: list, scene, cfg) -> tuple:
+    """The shadow rays toward light 0 of a mesh.render frame, all chunks
+    concatenated: bvh_stage_scene has no specular surface, so each chunk's
+    ray tree is its level 0 alone, one shadow pass of the chunk's rays per
+    light, light 0 first."""
+    light0 = sent[0::scene.lights.count]
+    so = torch.cat([o for o, _ in light0]).contiguous()
+    sd = torch.cat([d for _, d in light0]).contiguous()
+    if (len(sent) % scene.lights.count or len({o.shape[0] for o, _ in sent})
+            != 1 or so.shape[0] != cfg.width * cfg.height):
+        raise RuntimeError(f"mesh.render sent {len(sent)} shadow passes, "
+                           f"{so.shape[0]} light-0 rays in all")
+    return so, sd
+
+
 def mesh_main_phase(dev, cfg) -> tuple:
     """The mesh Whitted main path once, counters set to 0 just before and
     read just after; then method="brute", which must agree on every pixel.
@@ -521,18 +588,8 @@ def mesh_main_phase(dev, cfg) -> tuple:
 
     scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
     bundle = mesh.prepare(scene)
-    sent, make = [], mesh.make_nearest_t_fn
-
-    def recording(b, sort_rays=False):
-        fn = make(b, sort_rays)
-
-        def rec(sc, o, d, t_min):
-            sent.append((o, d))
-            return fn(sc, o, d, t_min)
-        return rec
-
-    mesh.make_nearest_t_fn = recording
-    try:
+    sent = []
+    with recording_shadow_rays(sent):
         sync(dev)
         reset_counts()
         t0 = time.perf_counter()
@@ -540,18 +597,7 @@ def mesh_main_phase(dev, cfg) -> tuple:
         sync(dev)
         secs = time.perf_counter() - t0
         launches = read_counts()
-    finally:
-        mesh.make_nearest_t_fn = make
-    # bvh_stage_scene has no specular surface, so each chunk's ray tree is
-    # its level 0 alone: one shadow pass of the chunk's rays per light,
-    # light 0 first.
-    light0 = sent[0::scene.lights.count]
-    so = torch.cat([o for o, _ in light0]).contiguous()
-    sd = torch.cat([d for _, d in light0]).contiguous()
-    if (len(sent) % scene.lights.count or len({o.shape[0] for o, _ in sent})
-            != 1 or so.shape[0] != cfg.width * cfg.height):
-        raise RuntimeError(f"mesh.render sent {len(sent)} shadow passes, "
-                           f"{so.shape[0]} light-0 rays in all")
+    so, sd = light0_rays(sent, scene, cfg)
     brute = mesh.render(mesh.prepare(scene, method="brute"), cam, cfg,
                         device=dev)
     vs_brute = pixels_off(img, brute, WHITTED_RTOL, WHITTED_ATOL)
@@ -821,8 +867,9 @@ def mesh_fused_main_phase(dev, cfg) -> dict:
              seconds=secs, steps=steps, launches=launches, trace=fm.TRACE,
              finite=finite, mean_radiance=float(img.mean()),
              png=save_png(img, f"mesh_fused_{name}_{cfg.width}.png", 2.0))
-        if (launches["packet"] != 0 or any(
-                v != steps or v <= 0 for v in launches["fused_mesh"].values())):
+        fmesh = launches["fused_mesh"]
+        if (launches["packet"] != 0 or fmesh["nearest_sl"] or fmesh["occl_sl"]
+                or any(fmesh[k] != steps or fmesh[k] <= 0 for k in MESH_TPU)):
             raise RuntimeError(f"{name}: launches {launches}, {steps} steps")
         if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
                 or not float(img.mean()) > 0.0):
@@ -955,6 +1002,418 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
     return res
 
 
+# --- the coherent shortlist intersector and the shortlist sweep --------------
+
+COHERENT_TPU = {"mask": ("ops/coherent.py::_mask_kernel",
+                         "cpu_based_ray_tracer_tpu/ops/coherent.py:86"),
+                "sweep": ("ops/coherent.py::_sweep_kernel",
+                          "cpu_based_ray_tracer_tpu/ops/coherent.py:165")}
+SL_TPU = ("ops/fused_mesh.py::_mesh_sl_kernel",
+          "cpu_based_ray_tracer_tpu/ops/fused_mesh.py:984")
+BVH_SUBDIVISIONS = 4     # bvh_stage_scene(4): 7,424 triangles, 58 clusters
+
+
+def list_stats(cnts, n_tiles=None) -> dict:
+    """Mean and max list length over the first n_tiles tiles (default
+    all)."""
+    c = cnts[:n_tiles].double() if n_tiles is not None else cnts.double()
+    return dict(tiles=int(c.numel()), mean=float(c.mean()) if c.numel()
+                else 0.0, max=int(c.max()) if c.numel() else 0)
+
+
+def listed_clusters(ids, cnts, n_cl: int, n_tiles: int) -> int:
+    """How many clusters the first n_tiles tiles' lists name, together."""
+    listed = torch.zeros(n_cl, dtype=torch.bool, device=ids.device)
+    flat = ids.view(-1, n_cl)
+    for t, c in enumerate(cnts[:n_tiles].tolist()):
+        listed[flat[t, :c].long()] = True
+    return int(listed.sum())
+
+
+def coherent_bounds(rays, n_cl: int, cs: int, cnts, ids) -> dict:
+    """(ops, bytes) of the mask pass and of the shortlist sweep over these
+    ray planes: the mask SLAB_OPS per lane and cluster against the rays,
+    AABBs and tile words (the lists' pass writes no mask planes); the
+    sweep TRI_OPS per lane and listed triangle against the rays, the lists, the clusters listed
+    anywhere and the (t, index) planes."""
+    p, hp, wp = rays.shape
+    lanes, n_tiles, b32 = hp * wp, cnts.numel(), -(-n_cl // 32)
+    return {
+        "mask": (lanes * n_cl * SLAB_OPS,
+                 lanes * p * 4 + n_cl * 32 + n_tiles * b32 * 4),
+        "sweep": (int(cnts.long().sum()) * 4096 * cs * TRI_OPS,
+                  lanes * (24 + 8) + n_tiles * (n_cl + 1) * 4
+                  + listed_clusters(ids, cnts, n_cl, n_tiles) * cs * 64)}
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                ops=ops, bytes=nbytes)
+
+
+def camera_rays(cam, cfg):
+    from cpu_based_ray_tracer_tpu_torch import camera
+
+    d = camera.perspective_rays(cam, cfg.width, cfg.height).reshape(-1, 3)
+    return cam.position.expand(d.shape).contiguous(), d.contiguous()
+
+
+def mesh_fused_whitted_main_phase(dev, cfg) -> tuple:
+    """mesh.render(prepare(bvh_stage_scene(4), method="fused")) once,
+    counters set to 0 just before and read just after; then the packet
+    oracle, which must agree on every pixel but those whose camera ray
+    hits two triangles at the same t (the two intersectors' clusters order
+    ties differently); each such pixel is listed.  Returns (coherent
+    launches, the light-0 shadow rays the frame sent, its seconds)."""
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent, packet
+    from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+
+    scene = meshes.bvh_stage_scene(BVH_SUBDIVISIONS, device=dev)
+    cam = meshes.bvh_stage_camera(dev)
+    bundle = mesh.prepare(scene, method="fused")
+    sent = []
+    with recording_shadow_rays(sent):
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        img = mesh.render(bundle, cam, cfg, device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = read_counts()
+    shadow = light0_rays(sent, scene, cfg)
+    pbundle = mesh.prepare(scene)
+    t0 = time.perf_counter()
+    oracle = mesh.render(pbundle, cam, cfg, device=dev)
+    sync(dev)
+    packet_secs = time.perf_counter() - t0
+    res = pixels_off(img, oracle, 1e-4, 1e-5)
+    d = (img - oracle).abs()
+    off = (d > 1e-5 + 1e-4 * oracle.abs()).any(-1).reshape(-1)
+    o, dd = camera_rays(cam, cfg)
+    t_f, i_f = coherent.nearest(bundle.coherent, o, dd, cfg.t_min,
+                                hw=(cfg.height, cfg.width))
+    t_p, i_p = packet.nearest(pbundle.clusters, o, dd, cfg.t_min)
+    tie = (t_f == t_p) & (i_f != i_p)
+    listed = [dict(pixel=[k // cfg.width, k % cfg.width],
+                   fused=img.reshape(-1, 3)[k].tolist(),
+                   packet=oracle.reshape(-1, 3)[k].tolist(),
+                   t=float(t_f[k]), tris=[int(i_f[k]), int(i_p[k])],
+                   exact_t_tie=bool(tie[k]))
+              for k in torch.nonzero(off)[:, 0].tolist()]
+    finite = bool(torch.isfinite(img).all())
+    emit(phase="mesh_fused_whitted_main", config=f"bvh_stage_scene"
+         f"({BVH_SUBDIVISIONS}) {cfg.width}x{cfg.height} depth"
+         f"{cfg.whitted_depth} method=fused", tris=scene.triangles.count,
+         clusters=bundle.coherent.n_clusters, seconds=secs,
+         packet_seconds=packet_secs, launches=launches, vs_packet=res,
+         camera_t_bit_equal_share=float((t_f == t_p).float().mean()),
+         camera_index_ties=int(tie.sum()), pixels_off_listed=listed[:64],
+         finite=finite, mean_radiance=float(img.mean()),
+         png=save_png(img, f"mesh_fused_{cfg.width}.png"))
+    if (launches["packet"] != 0 or launches["coherent"]["mask"] <= 0
+            or launches["coherent"]["sweep"] <= 0):
+        raise RuntimeError(f"mesh.render(fused) launches {launches}")
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
+            or not float(img.mean()) > 0.0):
+        raise RuntimeError("the fused mesh Whitted image is wrong")
+    if not all(p["exact_t_tie"] for p in listed):
+        raise RuntimeError(f"mesh.render fused vs packet: {res}, pixels off "
+                           f"that are no exact-t tie: "
+                           f"{[p for p in listed if not p['exact_t_tie']]}")
+    return launches["coherent"], shadow, secs
+
+
+def coherent_parity_phase(dev, cfg, shadow) -> tuple:
+    """The mask and the sweep kernels against mask_plain and sweep_plain
+    on bvh_stage_scene(4)'s camera rays and the fused frame's light-0
+    shadow rays (pixel tiles), and on the shadow rays of the pixels whose
+    camera ray hits the mesh, compacted (a flat set: strip tiles).
+    Returns ({kernel: max abs error}, the pack, the camera rays)."""
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+    from cpu_based_ray_tracer_tpu_torch.ops.intersect import NO_HIT_T
+    from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+
+    scene = meshes.bvh_stage_scene(BVH_SUBDIVISIONS, device=dev)
+    pack = coherent.pack_coherent(scene)
+    o, d = camera_rays(meshes.bvh_stage_camera(dev), cfg)
+    hw = (cfg.height, cfg.width)
+    t_cam, _ = coherent.nearest(pack, o, d, cfg.t_min, hw=hw)
+    hit = t_cam < NO_HIT_T
+    cases = {"camera": (o, d, hw), "shadow": (*shadow, hw),
+             "shadow_compacted": (shadow[0][hit].contiguous(),
+                                  shadow[1][hit].contiguous(), None)}
+    errs = {"mask": 0.0, "sweep": 0.0}
+    for name, (oo, dd, hw_) in cases.items():
+        rays, _ = coherent._to_planes(oo, dd, hw_)
+        mk, wk = coherent._mask_kernel(pack.aabb, rays, cfg.t_min)
+        _, wk0 = coherent._mask_kernel(pack.aabb, rays, cfg.t_min,
+                                       planes=False)   # as the lists run it
+        mp_, wp_ = coherent.mask_plain(pack.aabb, rays, cfg.t_min)
+        ids_k, cnts_k = coherent._lists(wk, pack.n_clusters)
+        ids, cnts = coherent._lists(wp_, pack.n_clusters)
+        out_k = coherent._sweep_kernel(pack.tri, rays, ids, cnts, cfg.t_min)
+        out_p = coherent.sweep_plain(pack.tri, rays, ids, cnts, cfg.t_min)
+        sync(dev)
+        same = {"masks": torch.equal(mk, mp_), "tile_words": torch.equal(wk, wp_),
+                "tile_words_no_planes": torch.equal(wk0, wp_),
+                "ids": torch.equal(ids_k, ids), "cnts": torch.equal(cnts_k, cnts),
+                "t": torch.equal(out_k[0], out_p[0]),
+                "index": torch.equal(out_k[1], out_p[1])}
+        hits = out_p[0] < NO_HIT_T
+        err = max_abs(out_k[0][hits], out_p[0][hits])
+        emit(phase="coherent_parity", case=name, rays=oo.shape[0],
+             planes=list(rays.shape), tiling="pixel" if hw_ else "strip",
+             clusters=pack.n_clusters, lists=list_stats(cnts),
+             hits=int((out_p[1] >= 0).sum()), equal=same, max_abs_err=err)
+        if not all(same.values()):
+            raise RuntimeError(f"csrc/coherent.cu disagrees with its plain "
+                               f"version on {name}: {same}")
+        errs["mask"] = max(errs["mask"], max_abs(wk, wp_), max_abs(mk, mp_))
+        errs["sweep"] = max(errs["sweep"], err)
+    return errs, pack, (o, d)
+
+
+def coherent_speed_phase(dev, cfg, pack, cam_rays, smi, n_iters=20) -> dict:
+    """The mask and the sweep kernels alone (CUDA events) in ms per 896x896
+    camera pass of bvh_stage_scene(4), beside packet.cu on the same rays
+    and the plain versions; the bounds from this pass's lists."""
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent, packet
+    from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+
+    o, d = cam_rays
+    rays, _ = coherent._to_planes(o, d, (cfg.height, cfg.width))
+    t_min = cfg.t_min
+    mask = functools.partial(coherent._mask_kernel, pack.aabb, rays, t_min,
+                             planes=False)         # as the lists' pass runs
+    mask()                                                      # warm-up
+    mask_ms = timed(lambda: [mask() for _ in range(n_iters)]) / n_iters
+    ids, cnts = coherent._shortlists(pack.aabb, rays, t_min)
+    coherent._sweep_kernel(pack.tri, rays, ids, cnts, t_min)     # warm-up
+    sweep_ms = timed(lambda: [coherent._sweep_kernel(pack.tri, rays, ids,
+                                                     cnts, t_min)
+                              for _ in range(n_iters)]) / n_iters
+    mask_plain_ms = timed(lambda: coherent.mask_plain(pack.aabb, rays, t_min,
+                                                      planes=False))
+    sweep_plain_ms = timed(lambda: coherent.sweep_plain(pack.tri, rays, ids,
+                                                        cnts, t_min))
+    cl = mesh.prepare(meshes.bvh_stage_scene(BVH_SUBDIVISIONS,
+                                             device=dev)).clusters
+    packet._nearest_kernel(cl, o, d, t_min)                      # warm-up
+    packet_ms = timed(lambda: [packet._nearest_kernel(cl, o, d, t_min)
+                               for _ in range(n_iters)]) / n_iters
+    bounds = coherent_bounds(rays, pack.n_clusters, pack.cs, cnts, ids)
+    res = {"mask": dict(ms=mask_ms, plain_ms=mask_plain_ms,
+                        **bound(*bounds["mask"])),
+           "sweep": dict(ms=sweep_ms, plain_ms=sweep_plain_ms,
+                         **bound(*bounds["sweep"]))}
+    emit(phase="coherent_speed", nvidia_smi=smi, rays=o.shape[0],
+         clusters=pack.n_clusters, lists=list_stats(cnts),
+         mask_plus_sweep_ms=mask_ms + sweep_ms, packet_ms=packet_ms,
+         packet_clusters=cl.n_clusters, per_kernel=res)
+    return res
+
+
+def mesh_164k_setup(dev, cfg):
+    """tools/bench_passes.py's mc_mesh_fused_164k: two icospheres(6) in the
+    Cornell box (163,862 triangles, 1,280 clusters), caps rp//8 and
+    rp//16."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell, meshes
+
+    ico = meshes.icosphere(6)
+    scene = cornell.cornell_mesh_scene(
+        np.concatenate([ico, ico * 0.6 + [1.2, 0.9, 0.3]]), device=dev)
+    cam = cornell.cornell_camera(dev)
+    mp = fm.pack_mesh_scene(scene)
+    st = mc.wavefront_init(scene, cam, cfg, SEED_KEY0, device=dev)
+    rp = -(-st.s.shape[0] // fm.LANES_PER_TILE) * fm.LANES_PER_TILE
+    caps = (rp // 8, rp // 16)
+    p = fm.params(cfg, st.s.shape[0], *caps)
+    tb = fm._tables(mp, fused._camera_words(cam))
+    return scene, cam, mp, st, caps, p, tb
+
+
+def mesh_fused_164k_phase(dev, cfg, n_steps=16) -> dict:
+    """The 164k cell: the auto rule; render_turbo_mesh_exact (the main path,
+    counters set to 0 just before and read just after); n_steps from
+    wavefront_init with resident=False against resident=True; then one
+    step of each shortlist sweep against its plain version, with the list
+    lengths.  Returns the main path's launches and the sweeps' max abs
+    errors."""
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+
+    scene, cam, mp, st, caps, p, tb = mesh_164k_setup(dev, cfg)
+    if fm.fits_resident(mp.n_clusters, mp.cs):
+        raise RuntimeError("the 164k table fits the SMEM budget: the auto "
+                           "rule would not take the shortlists")
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    img = fm.render_turbo_mesh_exact(scene, cam, cfg, SEED_KEY0, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    steps = sum(t["steps"] for t in fm.TRACE)    # overflowed chunks included
+    finite = bool(torch.isfinite(img).all())
+    emit(phase="mesh_fused_164k", part="main", config=f"two icospheres(6) "
+         f"{cfg.width}x{cfg.height} {cfg.spp}spp depth{cfg.max_depth} "
+         f"rr{cfg.rr_survival}", tris=scene.triangles.count,
+         clusters=mp.n_clusters, resident=False, seconds=secs, steps=steps,
+         launches=launches, trace=fm.TRACE, finite=finite,
+         mean_radiance=float(img.mean()),
+         png=save_png(img, f"mesh_fused_164k_{cfg.width}.png", 2.0))
+    fmesh = launches["fused_mesh"]
+    if (launches["packet"] != 0 or fmesh["nearest"] or fmesh["occl"]
+            or any(fmesh[k] != steps for k in ("k1", "k1b", "k2",
+                                              "nearest_sl", "occl_sl"))
+            or launches["coherent"]["mask"] != 2 * steps or steps <= 0):
+        raise RuntimeError(f"164k main path: launches {launches}, {steps} "
+                           f"steps run")
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
+            or not float(img.mean()) > 0.0):
+        raise RuntimeError("the 164k image is wrong")
+
+    kw = dict(cap_main=caps[0], cap_shadow=caps[1], device=dev)
+    a, of_a, np_a = fm.wavefront_steps_fused_mesh(
+        mp, cam, cfg, SEED_KEY0, st, n_steps, resident=True, **kw)
+    b, of_b, np_b = fm.wavefront_steps_fused_mesh(mp, cam, cfg, SEED_KEY0,
+                                                  st, n_steps, **kw)
+    sync(dev)
+    cmp = compare_states(b, a)
+    bits = {f: torch.equal(getattr(a, f), getattr(b, f))
+            for f in ("s", "b", "n_done", "nrays", "o", "d", "tp", "cur",
+                      "acc")}
+    lanes_off = torch.zeros_like(a.s, dtype=torch.bool)
+    for f in ("o", "d", "tp", "cur", "acc"):
+        lanes_off |= (getattr(a, f) != getattr(b, f)).any(-1)
+    emit(phase="mesh_fused_164k", part="shortlist_vs_resident",
+         n_steps=n_steps, caps=list(caps), overflow=[int(of_b), int(of_a)],
+         npred=[np_b.tolist(), np_a.tolist()], bit_equal=bits,
+         float_lanes_off=torch.nonzero(lanes_off)[:64, 0].tolist(), **cmp)
+    if (cmp["int_mismatch_lanes"] or not torch.equal(np_a, np_b)
+            or not bits["nrays"] or int(of_a) or int(of_b)):
+        raise RuntimeError("resident=False disagrees with resident=True on "
+                           "the 164k cell")
+
+    # one step of each shortlist sweep against its plain version, from the
+    # state three kernel steps in (primary and bounce rays mixed)
+    st3, _, _ = fm.wavefront_steps_fused_mesh(mp, cam, cfg, SEED_KEY0, st, 3,
+                                              **kw)
+    sf, si = fm.state_planes(st3)
+    bp = fm.StepBuffers(*[torch.zeros_like(x) for x in
+                          fm.step_buffers(sf.shape[1], p, 1, dev)])
+    fm.run_op(fm.PLAIN_OPS, "k1", tb, p, SEED_KEY0, sf, si, bp)
+    errs, same, lists = {}, {}, {}
+    for name, prep in (("nearest", None), ("occl", "k1b")):
+        if prep:
+            fm.run_op(fm.PLAIN_OPS, prep, tb, p, SEED_KEY0, sf, si, bp)
+        bk = fm.StepBuffers(*[x.clone() for x in bp])
+        fm.run_op(fm.KERNEL_SL_OPS, name, tb, p, SEED_KEY0, sf, si, bk)
+        fm.run_op(fm.PLAIN_SL_OPS, name, tb, p, SEED_KEY0, sf, si, bp)
+        sync(dev)
+        out_k, out_p = (bk.hf, bp.hf) if name == "nearest" else (bk.kb, bp.kb)
+        same[name] = torch.equal(out_k, out_p)
+        errs[name] = max_abs(out_k, out_p)
+        k = 0 if name == "nearest" else 1
+        n = min(int(bp.cnt[0, k]), bp.mr.shape[1] if k == 0
+                else bp.sr.shape[1])
+        rays = bp.mr if k == 0 else bp.sr
+        _, cnts = fm._lists(tb, p, rays, bp.cnt[0, k:k + 1], kernel=True)
+        lists[name] = dict(packed=n, **list_stats(cnts, -(-n // 4096)))
+    emit(phase="mesh_fused_164k", part="shortlist_sweeps_vs_plain",
+         equal=same, max_abs_err=errs, lists=lists)
+    if not all(same.values()):
+        raise RuntimeError(f"the shortlist sweeps disagree with their plain "
+                           f"versions: {same}")
+    return launches, errs
+
+
+def sl_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16, n_iters=10) -> dict:
+    """The 164k cell timed as tools/bench_passes.py's scale_case (a warm-up,
+    then n_calls of n_steps) in both modes -> rays/s; then, on a real
+    step's buffers, the shortlist sweeps and the mask pass alone (CUDA
+    events) beside the all-cluster sweeps on the same packed rays, the
+    plain versions, and the bounds from this step's lists."""
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+
+    scene, cam, mp, st0, caps, p, tb = mesh_164k_setup(dev, cfg)
+    modes = {}
+    for resident in (False, True):
+        kw = dict(cap_main=caps[0], cap_shadow=caps[1], resident=resident,
+                  device=dev)
+        st, _, _ = fm.wavefront_steps_fused_mesh(mp, cam, cfg, SEED_KEY0, st0,
+                                                 n_steps, **kw)   # warm-up
+        sync(dev)
+        st = dataclasses.replace(st, nrays=torch.zeros_like(st.nrays))
+        overflow = 0
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            st, of, _ = fm.wavefront_steps_fused_mesh(mp, cam, cfg, SEED_KEY0,
+                                                      st, n_steps, **kw)
+            overflow += int(of)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        modes["shortlists" if not resident else "all_clusters"] = dict(
+            rays_per_s=int(st.nrays) / dt,
+            ms_per_step=dt / (n_calls * n_steps) * 1e3, overflow=overflow)
+        if not resident:
+            st_sl = st
+    # one real step fills the buffers
+    r = st_sl.s.shape[0]
+    sf, si = fm.state_planes(st_sl)
+    b = fm.step_buffers(r, p, 1, dev)
+    fm.run_steps(fm.KERNEL_SL_OPS, tb, p, SEED_KEY0, sf.clone(), si.clone(),
+                 1, b)
+    n_main, n_shadow = b.cnt[0].tolist()
+    res, lists = {}, {}
+    for occl in (False, True):
+        rays, ids_, out = ((b.sr, b.sr_id, b.kb[8:9].clone()) if occl
+                           else (b.mr, b.mr_id, b.hf[5:10].clone()))
+        cnt = b.cnt[0, 1:2] if occl else b.cnt[0, 0:1]
+        n = min(int(cnt), rays.shape[1])
+        lst = fm._lists(tb, p, rays, cnt, kernel=True)
+
+        def run(lists):
+            fm._sweep_kernel(tb, p, rays, ids_, cnt, out, occl=occl,
+                             lists=lists)
+        run(lst)                                                # warm-up
+        ms = timed(lambda: [run(lst) for _ in range(n_iters)]) / n_iters
+        run(None)
+        all_ms = timed(lambda: [run(None) for _ in range(n_iters)]) / n_iters
+        mask = functools.partial(coherent._mask_kernel, mp.smc_aabb,
+                                 rays.view(rays.shape[0], -1, 128), p.t_min,
+                                 cnt, planes=False)
+        mask()                                                  # warm-up
+        mask_ms = timed(lambda: [mask() for _ in range(n_iters)]) / n_iters
+        outp = out.clone()
+        tests = {}
+        plain_ms = timed(lambda: tests.update(t=fm._sweep_plain(
+            tb, p, rays, ids_, cnt, outp, occl=occl, lists=lst)))
+        n_tiles = -(-n // 4096)
+        per_ray = 32 + 4 if occl else 28 + 20
+        ops = int(tests["t"]) * TRI_OPS
+        nbytes = (n * per_ray + n_tiles * (mp.n_clusters + 1) * 4
+                  + listed_clusters(*lst, mp.n_clusters, n_tiles) * mp.cs
+                  * 64)
+        key = "occl_sl" if occl else "nearest_sl"
+        res[key] = dict(ms=ms, plain_ms=plain_ms, all_clusters_ms=all_ms,
+                        mask_ms=mask_ms, packed=n, triangle_tests=int(
+                            tests["t"]), **bound(ops, nbytes))
+        lists[key] = list_stats(lst[1], n_tiles)
+    emit(phase="sl_speed", nvidia_smi=smi, lanes=r, n_steps=n_steps,
+         n_calls=n_calls, caps=list(caps), modes=modes,
+         packed_per_step=[n_main, n_shadow], lists=lists, per_kernel=res)
+    return res
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -1012,6 +1471,14 @@ def main():
                                               max_depth=16, rr_survival=0.8))
     msp = mesh_fused_speed_phase(dev, full, smi)
 
+    c_launches, f_shadow, _ = mesh_fused_whitted_main_phase(dev, wfull)
+    c_err, c_pack, c_rays = coherent_parity_phase(dev, wfull, f_shadow)
+    csp = coherent_speed_phase(dev, wfull, c_pack, c_rays, smi)
+    cfg164 = RenderConfig(width=896, height=896, spp=8, max_depth=16,
+                          rr_survival=0.8)
+    sl_launches, sl_err = mesh_fused_164k_phase(dev, cfg164)
+    ssp = sl_speed_phase(dev, cfg164, smi)
+
     r = full.width * full.height
     mesh_kernels = [{
         "name": f"fused_mesh_{k}", "route": "cuda",
@@ -1025,6 +1492,30 @@ def main():
         "ms": msp[k]["ms"], "plain_ms": msp[k]["plain_ms"],
         "bound_ms": msp[k]["bound_ms"], "bound_by": msp[k]["bound_by"],
         "library_ms": None} for k in MESH_TPU]
+    coherent_src = "cpu_based_ray_tracer_tpu_torch/csrc/coherent.cu"
+    coherent_kernels = [{
+        "name": f"coherent_{k}", "route": "cuda", "source": coherent_src,
+        "replaces": COHERENT_TPU[k][1], "tpu_kernel": COHERENT_TPU[k][0],
+        "unit": f"ms per {r}-ray camera pass of bvh_stage_scene"
+                f"({BVH_SUBDIVISIONS}), {c_pack.n_clusters} clusters",
+        "launches": c_launches[k],
+        "launches_mc_164k": sl_launches["coherent"][k],
+        "max_abs_err": c_err[k], "ms": csp[k]["ms"],
+        "plain_ms": csp[k]["plain_ms"], "bound_ms": csp[k]["bound_ms"],
+        "bound_by": csp[k]["bound_by"], "library_ms": None}
+        for k in COHERENT_TPU]
+    sl_kernels = [{
+        "name": f"fused_mesh_{k}", "route": "cuda",
+        "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_mesh.cu",
+        "replaces": SL_TPU[1], "tpu_kernel": SL_TPU[0],
+        "unit": f"ms per bounce step, {r} lanes, the 164k-triangle cell "
+                f"(one launch per step, lists given)",
+        "launches": sl_launches["fused_mesh"][k],
+        "max_abs_err": sl_err[k[:-3]], "ms": ssp[k]["ms"],
+        "plain_ms": ssp[k]["plain_ms"], "bound_ms": ssp[k]["bound_ms"],
+        "bound_by": ssp[k]["bound_by"],
+        "all_clusters_ms": ssp[k]["all_clusters_ms"], "library_ms": None}
+        for k in ("nearest_sl", "occl_sl")]
     print(json.dumps({"kernels": [{
         "name": "fused_mc", "route": "cuda",
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_mc.cu",
@@ -1058,7 +1549,8 @@ def main():
         "shadow_ms": psp["shadow"]["ms"],
         "shadow_plain_ms": psp["shadow"]["plain_ms"],
         "shadow_bound_ms": psp["shadow"]["bound_ms"],
-        "library_ms": None}] + mesh_kernels}), flush=True)
+        "library_ms": None}] + mesh_kernels + coherent_kernels
+        + sl_kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

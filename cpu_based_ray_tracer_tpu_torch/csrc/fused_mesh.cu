@@ -9,8 +9,10 @@
 //   k1b_kernel         <- _k1b_kernel (:1142)
 //   sweep_kernel<true>  <- _mesh_occl_kernel (:943, _tri_loop_occl)
 //   k2_kernel          <- _k2_kernel (:388)
-// The shortlist sweep _mesh_sl_kernel (:984) is not ported: the cluster
-// table is read from device memory here, so one sweep serves any size.
+//   sweep_kernel<occl> with lists <- _mesh_sl_kernel (:984), the
+//                       shortlist-streaming sweep: each 4,096-ray tile
+//                       sweeps only the clusters its list names (the lists
+//                       come from the mask pass of csrc/coherent.cu).
 //
 // What bounds them on this card, and what the design does about it:
 //   - K1, K1b and K2 are one thread per lane over a few dozen unrolled
@@ -22,10 +24,12 @@
 //     row at the same time, so each read is a broadcast.
 //   - The sweep is arithmetic: packed rays x clusters x triangles x ~48
 //     f32 operations of Moller-Trumbore, with no culling (as the TPU
-//     kernel).  One thread per packed ray; each cluster's CS x 16 floats
-//     are staged in shared memory by a cooperative float4 load and read as
-//     broadcasts.  The occlusion sweep stops testing a ray once it is
-//     occluded (an any-hit OR: the result is the same).
+//     kernel) or, with lists, over the listed clusters only.  One thread
+//     per packed ray; each cluster's CS x 16 floats are staged in shared
+//     memory by a cooperative float4 load and read as broadcasts
+//     (csrc/cluster_tri.cuh).  The occlusion sweep stops testing a ray once
+//     it is occluded (an any-hit OR: the result is the same).  The TPU's
+//     double-buffered per-cluster DMA is a plain load and barrier here.
 //   - The pack (K1, K1b) is stable inside a block and contiguous per
 //     block: a warp ballot + popcount gives each lane its rank, a scan of
 //     the 8 warp counts in shared memory the block's count, and one
@@ -41,6 +45,8 @@
 #include <cfloat>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "cluster_tri.cuh"
 
 // Field for field the _CParams structure of ops/fused_mesh.py.  At file
 // scope: the extern "C" entry points take it, and a type of an unnamed
@@ -59,6 +65,7 @@ namespace {
 constexpr int NF = 16;            // floats per cluster triangle row (MESH_NF)
 constexpr int PACK_BLOCK = 256;   // lanes per K1/K1b block (ops/fused_mesh.py)
 constexpr int SWEEP_BLOCK = 256;  // packed rays per sweep block
+constexpr int LIST_TILE = 4096;   // packed rays per shortlist tile
 constexpr int LANE_BLOCK = 256;   // lanes per K2 block
 constexpr int STRI_W = 16, SSPH_W = 8, MAT_W = 8, LGT_W = 16, AABB_W = 8;
 constexpr float NO_HIT = FLT_MAX;
@@ -275,12 +282,19 @@ k1_kernel(const Params p, const float* __restrict__ tables,
 }
 
 // --- the cluster sweep: nearest hit or any-hit occlusion of packed rays ----
+//
+// Without lists (ids == nullptr) every block sweeps every cluster.  With
+// lists (the shortlist-streaming mode) the block sweeps only the clusters
+// that its 4,096-ray tile's list names: ids[tile * n_clusters + j] for
+// j < cnts[tile], in list order; the triangle loops are the same.
 
 template <bool OCCL>
 __global__ void __launch_bounds__(SWEEP_BLOCK)
 sweep_kernel(const Params p, const float* __restrict__ tri,
              const float* __restrict__ rays, const int* __restrict__ ray_id,
-             int cap, const int* __restrict__ cnt, float* __restrict__ out) {
+             int cap, const int* __restrict__ cnt,
+             const int* __restrict__ ids, const int* __restrict__ cnts,
+             float* __restrict__ out) {
   extern __shared__ float4 tile4[];
   const int n = min(*cnt, cap);
   const int i0 = blockIdx.x * SWEEP_BLOCK;
@@ -296,56 +310,28 @@ sweep_kernel(const Params p, const float* __restrict__ tri,
     dx = rays[3 * cap + i]; dy = rays[4 * cap + i]; dz = rays[5 * cap + i];
     if (OCCL) lim = rays[6 * cap + i];
   }
+  const int tile_i = i0 / LIST_TILE;
+  const int* list = ids ? ids + (size_t)tile_i * p.n_clusters : nullptr;
+  const int n_list = ids ? cnts[tile_i] : p.n_clusters;
   float best_t = NO_HIT, bnx = 0.f, bny = 0.f, bnz = 0.f, bmid = -1.f;
   bool occ = false;
   const int words4 = p.cs * NF / 4;
   const float* tile = reinterpret_cast<const float*>(tile4);
-  for (int c = 0; c < p.n_clusters; ++c) {
+  for (int j = 0; j < n_list; ++j) {
     __syncthreads();  // the previous cluster is no longer read
-    const float4* src = reinterpret_cast<const float4*>(tri) +
-                        (size_t)c * words4;
-    for (int w = threadIdx.x; w < words4; w += SWEEP_BLOCK) tile4[w] = src[w];
+    cluster_tri::stage_cluster(tile4, tri, list ? list[j] : j, words4);
     __syncthreads();
     if (!live || (OCCL && occ)) continue;
-    for (int k = 0; k < p.cs; ++k) {
-      const float* T = tile + k * NF;
-      const float v0x = T[0], v0y = T[1], v0z = T[2];
-      const float e1x = T[3], e1y = T[4], e1z = T[5];
-      const float e2x = T[6], e2y = T[7], e2z = T[8];
-      const float s1x = dy * e2z - dz * e2y;
-      const float s1y = dz * e2x - dx * e2z;
-      const float s1z = dx * e2y - dy * e2x;
-      const float det = s1x * e1x + s1y * e1y + s1z * e1z;
-      const bool okd = fabsf(det) > DET_EPS;
-      const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-      const float s2x = sy * e1z - sz * e1y;
-      const float s2y = sz * e1x - sx * e1z;
-      const float s2z = sx * e1y - sy * e1x;
-      if (OCCL) {
-        // division-free accept: numerators against |det|-scaled bounds
-        const float sd = det >= 0.0f ? 1.0f : -1.0f;
-        const float adet = det * sd;
-        const float tn = s2x * e2x + s2y * e2y + s2z * e2z;
-        const float b1n = s1x * sx + s1y * sy + s1z * sz;
-        const float b2n = s2x * dx + s2y * dy + s2z * dz;
-        const float tsd = tn * sd;
-        if (okd && (tsd > p.t_min * adet) && (tsd <= lim * adet) &&
-            (b1n * sd >= 0.0f) && (b2n * sd >= 0.0f) &&
-            ((det - b1n - b2n) * sd >= 0.0f)) {
-          occ = true;
-          break;
-        }
-      } else {
-        const float inv = 1.0f / (okd ? det : 1.0f);
-        const float t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv;
-        const float b1 = (s1x * sx + s1y * sy + s1z * sz) * inv;
-        const float b2 = (s2x * dx + s2y * dy + s2z * dz) * inv;
-        if (okd && (t > p.t_min) && (b1 >= 0.0f) && (b2 >= 0.0f) &&
-            (1.0f - b1 - b2 >= 0.0f) && (t < best_t)) {
-          best_t = t;
-          bnx = T[9]; bny = T[10]; bnz = T[11];
-          bmid = T[12];
-        }
+    if (OCCL) {
+      occ = cluster_tri::occluded_rows(tile, p.cs, ox, oy, oz, dx, dy, dz,
+                                       lim, p.t_min);
+    } else {
+      const int k = cluster_tri::nearest_rows(tile, p.cs, ox, oy, oz, dx, dy,
+                                              dz, p.t_min, best_t);
+      if (k >= 0) {
+        const float* T = tile + k * NF;
+        bnx = T[9]; bny = T[10]; bnz = T[11];
+        bmid = T[12];
       }
     }
   }
@@ -710,16 +696,17 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 
 template <bool OCCL>
 int sweep(const Params* p, const float* tri, const float* rays,
-          const int* ray_id, int cap, const int* cnt, float* out,
-          void* stream) {
-  if (cap <= 0 || p->cs <= 0 || p->cs * NF % 4 != 0)
+          const int* ray_id, int cap, const int* cnt, const int* ids,
+          const int* cnts, float* out, void* stream) {
+  if (cap <= 0 || p->cs <= 0 || p->cs * NF % 4 != 0 ||
+      (ids != nullptr && cap % LIST_TILE != 0))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)p->cs * NF * sizeof(float);
   const cudaError_t e = allow_smem(sweep_kernel<OCCL>, smem);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (cap + SWEEP_BLOCK - 1) / SWEEP_BLOCK;
   sweep_kernel<OCCL><<<blocks, SWEEP_BLOCK, smem, (cudaStream_t)stream>>>(
-      *p, tri, rays, ray_id, cap, cnt, out);
+      *p, tri, rays, ray_id, cap, cnt, ids, cnts, out);
   return (int)cudaGetLastError();
 }
 
@@ -752,7 +739,8 @@ extern "C" int fused_mesh_nearest(const Params* p, const float* tri,
                                   const float* rays, const int* ray_id,
                                   int cap, const int* cnt, float* out,
                                   void* stream) {
-  return sweep<false>(p, tri, rays, ray_id, cap, cnt, out, stream);
+  return sweep<false>(p, tri, rays, ray_id, cap, cnt, nullptr, nullptr, out,
+                      stream);
 }
 
 // The occlusion sweep: rays (7, cap) [p w_l lim] -> 1.0 / 0.0 into
@@ -760,7 +748,26 @@ extern "C" int fused_mesh_nearest(const Params* p, const float* tri,
 extern "C" int fused_mesh_occl(const Params* p, const float* tri,
                                const float* rays, const int* ray_id, int cap,
                                const int* cnt, float* out, void* stream) {
-  return sweep<true>(p, tri, rays, ray_id, cap, cnt, out, stream);
+  return sweep<true>(p, tri, rays, ray_id, cap, cnt, nullptr, nullptr, out,
+                     stream);
+}
+
+// The shortlist-streaming sweeps: as the two above, each 4,096-ray tile over
+// the clusters of its list, ids (cap / 4096, n_clusters) and cnts
+// (cap / 4096,); cap a whole number of tiles.
+extern "C" int fused_mesh_nearest_sl(const Params* p, const float* tri,
+                                     const float* rays, const int* ray_id,
+                                     int cap, const int* cnt, const int* ids,
+                                     const int* cnts, float* out,
+                                     void* stream) {
+  return sweep<false>(p, tri, rays, ray_id, cap, cnt, ids, cnts, out, stream);
+}
+
+extern "C" int fused_mesh_occl_sl(const Params* p, const float* tri,
+                                  const float* rays, const int* ray_id,
+                                  int cap, const int* cnt, const int* ids,
+                                  const int* cnts, float* out, void* stream) {
+  return sweep<true>(p, tri, rays, ray_id, cap, cnt, ids, cnts, out, stream);
 }
 
 // K1b: reads sf rows 0-5, si (4, R) rows 0-1 and hf; writes kb (9, R),

@@ -15,6 +15,8 @@ arrays, nested as the dataclasses are::
 and ``camera_from_arrays`` the camera's ``position``, ``forward``, ``up``
 and ``vfov_degrees``.  Fed the same arrays, both packages compute the same
 image.  ``scene_to_arrays`` / ``camera_to_arrays`` go the other way.
+``mesh_pack_from_arrays`` and ``coherent_pack_from_arrays`` carry the
+fused mesh engine's and the shortlist intersector's packs across.
 """
 
 from __future__ import annotations
@@ -91,3 +93,17 @@ def mesh_pack_from_arrays(d: dict, device="cpu"):
                                           fused_mesh.MESH_NF)
     kw["gate_mask"] = np.asarray(d["gate_mask"], bool)
     return fused_mesh.MeshPack(**kw)
+
+
+def coherent_pack_from_arrays(d: dict, device="cpu"):
+    """An ``ops.coherent.CoherentPack`` on ``device`` from the fields of a
+    JAX-package ``CoherentPack``: ``tri`` in either the JAX (C,
+    CS*16/128, 128) layout or (C, CS, 16), ``aabb``, ``cs`` and ``n_tri``."""
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent, fused_mesh
+
+    aabb = torch.as_tensor(np.array(d["aabb"], np.float32), device=device)
+    tri = torch.as_tensor(np.array(d["tri"], np.float32), device=device)
+    cs = int(d["cs"])
+    return coherent.CoherentPack(
+        tri=tri.reshape(aabb.shape[0], cs, fused_mesh.MESH_NF), aabb=aabb,
+        cs=cs, n_tri=int(d["n_tri"]))

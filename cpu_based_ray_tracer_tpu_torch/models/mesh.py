@@ -7,11 +7,16 @@ Intersectors (all return the same nearest hit):
 
 - ``packet``: the packet-culled kernel (``ops.packet``, csrc/packet.cu on
   the card);
+- ``fused``: the shortlist intersector for coherent ray sets
+  (``ops.coherent``, csrc/coherent.cu on the card): per-tile exact cluster
+  work lists over 32 x 128 pixel tiles, the BVH stage's real-time path;
+  its table must fit the JAX package's SMEM budget
+  (``ops.fused_mesh.fits_resident``);
 - ``brute``: the exact dense scan (``ops.intersect``), fastest below a few
-  hundred triangles.
-
-The ``fused`` (coherent shortlist) and ``sparse`` (per-lane BVH walk)
-methods of the JAX package wait for later slices of the port.
+  hundred triangles;
+- ``sparse``: the per-lane skip-link BVH walk (``ops.bvh.traverse``), the
+  literal translation of the reference's traversal; a correctness oracle,
+  plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ import torch
 from cpu_based_ray_tracer_tpu_torch import camera as cam_mod
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo, whitted
+from cpu_based_ray_tracer_tpu_torch.ops import bvh as bvh_ops
+from cpu_based_ray_tracer_tpu_torch.ops import coherent as coherent_ops
+from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh
 from cpu_based_ray_tracer_tpu_torch.ops import intersect
 from cpu_based_ray_tracer_tpu_torch.ops import packet as packet_ops
 from cpu_based_ray_tracer_tpu_torch.scene import Scene
@@ -40,38 +48,59 @@ class MeshBundle:
 
     scene: Scene
     clusters: Optional[packet_ops.Clusters]  # packet kernel (None: brute)
-    method: str                              # "packet" | "brute"
+    method: str                    # "packet" | "brute" | "sparse" | "fused"
     bounds: Optional[tuple] = None           # ((lo xyz), (hi xyz)) floats
+    coherent: Optional[coherent_ops.CoherentPack] = None   # fused
+    bvh: Optional[bvh_ops.FlatBVH] = None    # sparse: the walked BVH (numpy)
+    pv0: Optional[torch.Tensor] = None       # sparse: triangles in leaf order
+    pe1: Optional[torch.Tensor] = None
+    pe2: Optional[torch.Tensor] = None
 
     def to(self, device) -> "MeshBundle":
+        move = lambda x: None if x is None else x.to(device)  # noqa: E731
         return dataclasses.replace(
-            self, scene=self.scene.to(device),
-            clusters=(None if self.clusters is None
-                      else self.clusters.to(device)))
+            self, scene=self.scene.to(device), clusters=move(self.clusters),
+            coherent=move(self.coherent), pv0=move(self.pv0),
+            pe1=move(self.pe1), pe2=move(self.pe2))
+
+
+def _verts(scene: Scene) -> np.ndarray:
+    tr = scene.triangles
+    v0, e1, e2 = (x.cpu().numpy().astype(np.float64)
+                  for x in (tr.v0, tr.e1, tr.e2))
+    return np.stack([v0, v0 + e1, v0 + e2], axis=1)
 
 
 def prepare(scene: Scene, method: str = "auto") -> MeshBundle:
     """Host-side acceleration build over the scene's triangles.  ``auto``
     picks ``packet`` from ``PACKET_MIN_TRIS`` triangles up, else
-    ``brute``.  The packet clusters hold ``packet.build_clusters``'s
-    default of 128 triangles."""
+    ``brute``.  ``packet`` and ``fused`` cluster 128 triangles, ``sparse``
+    builds a BVH with leaves of 4.  ``fused`` raises ValueError for a
+    table past the SMEM budget (use ``packet``)."""
     n = scene.triangles.count
     if method == "auto":
         method = "packet" if n >= PACKET_MIN_TRIS else "brute"
-    if method in ("fused", "sparse"):
-        raise NotImplementedError(
-            f"mesh method {method!r} is not ported yet: 'fused' waits for "
-            "the coherent-shortlist slice (queue 2 #8/#9), 'sparse' for the "
-            "BVH traversal oracle")
     if method == "brute":
         return MeshBundle(scene=scene, clusters=None, method="brute")
+    if method == "fused":
+        pack = coherent_ops.pack_coherent(scene)
+        if not fused_mesh.fits_resident(pack.n_clusters, pack.cs):
+            raise ValueError(
+                "mesh too large for the SMEM-resident fused intersector "
+                f"({pack.n_clusters} clusters); use method='packet'")
+        return MeshBundle(scene=scene, clusters=None, method="fused",
+                          coherent=pack)
+    if method == "sparse":
+        flat = bvh_ops.build_bvh(_verts(scene))
+        order = torch.as_tensor(flat.order.astype(np.int64),
+                                device=scene.device)
+        tr = scene.triangles
+        return MeshBundle(scene=scene, clusters=None, method="sparse",
+                          bvh=flat, pv0=tr.v0[order], pe1=tr.e1[order],
+                          pe2=tr.e2[order])
     if method != "packet":
         raise ValueError(f"unknown mesh method {method!r}")
-    tr = scene.triangles
-    v0 = tr.v0.cpu().numpy().astype(np.float64)
-    e1 = tr.e1.cpu().numpy().astype(np.float64)
-    e2 = tr.e2.cpu().numpy().astype(np.float64)
-    verts = np.stack([v0, v0 + e1, v0 + e2], axis=1)
+    verts = _verts(scene)
     clusters = packet_ops.build_clusters(verts, device=scene.device)
     pts = verts.reshape(-1, 3)
     bounds = (tuple(map(float, pts.min(0))), tuple(map(float, pts.max(0))))
@@ -109,15 +138,28 @@ def _packet_nearest(bundle: MeshBundle, origin, direction, t_min,
     return tt, idx
 
 
-def make_intersect_fn(bundle: MeshBundle, sort_rays: bool = False):
+def _nearest(bundle: MeshBundle, origin, direction, t_min, sort_rays: bool,
+             hw):
+    """(t, triangle index) through the bundle's accelerated intersector."""
+    if bundle.method == "packet":
+        return _packet_nearest(bundle, origin, direction, t_min, sort_rays)
+    if bundle.method == "fused":
+        return coherent_ops.nearest(bundle.coherent, origin, direction,
+                                    float(t_min), hw=hw)
+    return bvh_ops.traverse(bundle.bvh, bundle.pv0, bundle.pe1, bundle.pe2,
+                            origin, direction, t_min)
+
+
+def make_intersect_fn(bundle: MeshBundle, sort_rays: bool = False, hw=None):
     """An ``intersect_fn(scene, o, d, t_min) -> Hit`` through the bundle's
     intersector, plus the brute-force sphere pass of ``assemble_hit``.
-    ``sort_rays``: reorder the rays for block coherence first (for the
-    incoherent bounce rays of the MC path)."""
-    if bundle.method == "packet":
+    ``sort_rays``: reorder the rays for block coherence first (the packet
+    kernel, for the incoherent bounce rays of the MC path).  ``hw``: the
+    image shape, for the ``fused`` intersector's pixel tiles."""
+    if bundle.method in ("packet", "fused", "sparse"):
         def fn(scene, origin, direction, t_min):
-            tt, idx = _packet_nearest(bundle, origin, direction, t_min,
-                                      sort_rays)
+            tt, idx = _nearest(bundle, origin, direction, t_min, sort_rays,
+                               hw)
             return intersect.assemble_hit(scene, origin, direction, tt, idx,
                                           t_min)
         return fn
@@ -125,13 +167,12 @@ def make_intersect_fn(bundle: MeshBundle, sort_rays: bool = False):
         scene, o, d, t_min=t_min)
 
 
-def make_nearest_t_fn(bundle: MeshBundle, sort_rays: bool = False):
+def make_nearest_t_fn(bundle: MeshBundle, sort_rays: bool = False, hw=None):
     """A ``nearest_t_fn(scene, o, d, t_min) -> t (R,)`` shadow-ray path
     through the bundle's intersector (triangles) and the brute sphere min."""
-    if bundle.method == "packet":
+    if bundle.method in ("packet", "fused"):
         def fn(scene, origin, direction, t_min):
-            tt, _ = _packet_nearest(bundle, origin, direction, t_min,
-                                    sort_rays)
+            tt, _ = _nearest(bundle, origin, direction, t_min, sort_rays, hw)
             sp = scene.spheres
             ts = torch.amin(intersect.intersect_spheres(
                 origin, direction, sp.center, sp.radius, t_min,
@@ -145,12 +186,19 @@ def make_nearest_t_fn(bundle: MeshBundle, sort_rays: bool = False):
 def render(bundle: MeshBundle, camera: cam_mod.PerspectiveCamera,
            cfg: RenderConfig, device=None) -> torch.Tensor:
     """Whitted render of the mesh scene through the bundle's intersector,
-    (H, W, 3), on ``device`` (default: the card)."""
+    (H, W, 3), on ``device`` (default: the card).  The ``fused``
+    intersector tiles 32 x 128 pixel rectangles: it takes the whole image
+    as one ray set (no chunking), with the image shape threaded through."""
     dev = resolve_device(device)
     bundle = bundle.to(dev)
+    hw = None
+    if bundle.method == "fused":
+        hw = (cfg.height, cfg.width)
+        cfg = cfg.replace(ray_chunk=cfg.height * cfg.width)
     return whitted.render(bundle.scene, camera, cfg,
-                          intersect_fn=make_intersect_fn(bundle),
-                          nearest_t_fn=make_nearest_t_fn(bundle), device=dev)
+                          intersect_fn=make_intersect_fn(bundle, hw=hw),
+                          nearest_t_fn=make_nearest_t_fn(bundle, hw=hw),
+                          device=dev)
 
 
 def render_mc(bundle: MeshBundle, camera: cam_mod.PerspectiveCamera,

@@ -1,13 +1,18 @@
-"""Bounding-volume hierarchy builder (port of
-``cpu_based_ray_tracer_tpu.ops.bvh``, the host-side part).
+"""Bounding-volume hierarchy (port of ``cpu_based_ray_tracer_tpu.ops.bvh``):
+host-side builder and per-lane traversal.
 
 Median split on the longest axis of the centroid AABB over per-triangle
 AABBs, flattened to preorder + skip links: visiting node i on an AABB hit
 continues at i + 1, on a miss at ``node_skip[i]``.  Triangles are reordered
-so each leaf is a contiguous ``order[first:first + count]`` slice.  Pure
-numpy, byte-equal to the JAX package's build; the packet intersector's
-clusters are its leaves.  The per-lane traversal (``traverse``, the
-``sparse`` oracle) is not ported yet.
+so each leaf is a contiguous ``order[first:first + count]`` slice.  The
+build is pure numpy, byte-equal to the JAX package's; the packet and fused
+intersectors' clusters are its leaves.
+
+``traverse`` walks the flattened tree per lane (the ``sparse`` mesh method,
+a correctness oracle): the JAX package's ``while_loop`` over ``vmap``-ed
+lanes becomes a PyTorch loop that advances every active lane by one node a
+step until all have left the tree.  Plain PyTorch on every device, as the
+JAX package has no kernel for it.
 """
 
 from __future__ import annotations
@@ -15,6 +20,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from cpu_based_ray_tracer_tpu_torch.ops import vec
+from cpu_based_ray_tracer_tpu_torch.ops.intersect import (NO_HIT_T,
+                                                          triangle_t_matrix)
 
 
 class FlatBVH(NamedTuple):
@@ -77,3 +87,77 @@ def build_bvh(tri_vertices: np.ndarray, leaf_size: int = 4) -> FlatBVH:
         order=np.asarray(order, np.int32),
         max_leaf=leaf_size,
     )
+
+
+def slab_test(o, inv_d, bmin, bmax, t_best):
+    """AABB slab test with reciprocal directions, rows of (R, 3): hit iff
+    t_out >= 0, t_in <= t_out and t_in <= t_best (the nearer-than-best
+    cull)."""
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    t_in = torch.amax(torch.minimum(t0, t1), -1)
+    t_out = torch.amin(torch.maximum(t0, t1), -1)
+    return (t_out >= 0.0) & (t_in <= t_out) & (t_in <= t_best)
+
+
+def _mt_scalar(o, d, v0, e1, e2):
+    """Moller-Trumbore for one (ray, triangle) pair a row, all (R, 3):
+    (t, b1, b2), t = NO_HIT_T for a degenerate triangle."""
+    s1 = vec.cross(d, e2)
+    det = vec.dot(s1, e1)[:, 0]
+    ok = torch.abs(det) > 1e-12
+    inv_det = torch.where(ok, 1.0 / det, 0.0)
+    s = o - v0
+    s2 = vec.cross(s, e1)
+    t = vec.dot(s2, e2)[:, 0] * inv_det
+    b1 = vec.dot(s1, s)[:, 0] * inv_det
+    b2 = vec.dot(s2, d)[:, 0] * inv_det
+    return torch.where(ok, t, NO_HIT_T), b1, b2
+
+
+def traverse(bvh: FlatBVH, v0, e1, e2, origin, direction, t_min: float):
+    """Nearest-hit traversal for (R, 3) rays on their device.  v0/e1/e2:
+    the triangles already permuted by ``bvh.order``.  Returns (t (R,),
+    triangle index (R,) i32 into the original order, -1 on a miss)."""
+    dev = origin.device
+    as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    node_min, node_max = as_t(bvh.node_min), as_t(bvh.node_max)
+    skip = as_t(bvh.node_skip).long()
+    first, count = as_t(bvh.leaf_first).long(), as_t(bvh.leaf_count).long()
+    order = as_t(bvh.order)
+    r = origin.shape[0]
+    tiny = torch.where(direction < 0, -1e-20, 1e-20)
+    inv_d = 1.0 / torch.where(torch.abs(direction) < 1e-20, tiny, direction)
+    best_t = torch.full((r,), NO_HIT_T, dtype=torch.float32, device=dev)
+    best_i = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    node = torch.zeros((r,), dtype=torch.int64, device=dev)
+    lanes = torch.arange(r, device=dev)
+    while lanes.numel():
+        i = node[lanes]
+        o, d = origin[lanes], direction[lanes]
+        bt, bi = best_t[lanes], best_i[lanes]
+        hit_box = slab_test(o, inv_d[lanes], node_min[i], node_max[i], bt)
+        leaf = hit_box & (count[i] > 0)
+        if bool(leaf.any()):
+            for k in range(bvh.max_leaf):
+                valid = leaf & (k < count[i])
+                tj = torch.where(valid, first[i] + k, 0)
+                t, b1, b2 = _mt_scalar(o, d, v0[tj], e1[tj], e2[tj])
+                ok = (valid & (t > t_min) & (b1 >= 0.0)
+                      & (b2 >= 0.0) & (1.0 - b1 - b2 >= 0.0) & (t < bt))
+                bt = torch.where(ok, t, bt)
+                bi = torch.where(ok, order[tj], bi)
+            best_t[lanes], best_i[lanes] = bt, bi
+        nxt = torch.where(hit_box & (count[i] == 0), i + 1, skip[i])
+        node[lanes] = nxt
+        lanes = lanes[nxt < bvh.n_nodes]
+    return best_t, best_i
+
+
+def nearest_triangle_bruteforce(v0, e1, e2, origin, direction, t_min: float):
+    """The traversal tests' oracle: the exact all-triangles scan -> (t,
+    index i32, -1 on a miss)."""
+    tmat = triangle_t_matrix(origin, direction, v0, e1, e2, t_min,
+                             float("inf"))
+    t, idx = torch.min(tmat, -1)
+    return t, torch.where(t < NO_HIT_T, idx, -1).to(torch.int32)

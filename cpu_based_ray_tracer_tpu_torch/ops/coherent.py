@@ -1,0 +1,347 @@
+"""Shortlist-driven mesh intersection for coherent ray sets (port of
+``cpu_based_ray_tracer_tpu.ops.coherent``).
+
+Whitted primaries and point-light shadow rays are coherent: a compact
+block of pixels crosses only a handful of the mesh's clusters.  So the work
+list is computed exactly, per tile, ahead of the sweep:
+
+  mask pass   per-lane cluster-AABB crossing bitmasks (u32 words, bit c % 32
+              of word c / 32), each word ORed into its tile's word;
+  lists       per tile the crossed clusters in ascending order, then the
+              others (ids), and their number (cnts);
+  sweep       each tile runs Moller-Trumbore over only its listed clusters
+              -> nearest (t, triangle index).
+
+Tiles are 32 x 128 pixel rectangles when the caller passes the image shape
+(``hw``) and the rays are the whole image; otherwise row-major strips of
+4,096 rays.  Per-ray results do not depend on the tiling; the lists do,
+and both versions use the JAX package's tiles.
+
+- ``csrc/coherent.cu`` holds the mask and the sweep kernels (CUDA C++ for
+  sm_90a, loaded with ``ctypes``); ``mask`` and ``sweep`` launch them for
+  CUDA tensors.
+- ``mask_plain`` and ``sweep_plain`` are the same arithmetic in PyTorch,
+  with the same inputs and outputs; the entry points run them only for CPU
+  tensors.  Turning the tile words into lists (``_lists``) is plain
+  PyTorch on every device, as it is XLA in the JAX package.
+
+Mask words are stored as int32 tensors holding the u32 bit patterns.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cpu_based_ray_tracer_tpu_torch.ops import intersect
+from cpu_based_ray_tracer_tpu_torch.ops.fused_mesh import (
+    MESH_NF, build_smem_clusters, list_sweep_plain)
+from cpu_based_ray_tracer_tpu_torch.utils import kernels
+
+SUB = 32                 # tile rows
+TILE_W = 128             # tile columns
+TILE = SUB * TILE_W      # lanes per tile
+_WORD = 32               # clusters per mask word
+
+# Launches of csrc/coherent.cu since the last reset (callers set them to 0).
+LAUNCHES = {"mask": 0, "sweep": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class CoherentPack:
+    """Cluster table + AABBs for the shortlist intersector."""
+
+    tri: torch.Tensor    # (C, CS, MESH_NF) f32 rows (triangle index in slot 13)
+    aabb: torch.Tensor   # (C, 8) f32
+    cs: int
+    n_tri: int
+
+    @property
+    def n_clusters(self) -> int:
+        return self.aabb.shape[0]
+
+    def to(self, device) -> "CoherentPack":
+        return dataclasses.replace(self, tri=self.tri.to(device),
+                                   aabb=self.aabb.to(device))
+
+
+def pack_coherent(scene, cluster_size: int = 128) -> CoherentPack:
+    """Cluster the scene's full triangle set (BVH preorder, full clusters)
+    for the shortlist kernels, on the scene's device.  Byte-equal to the
+    JAX package's pack."""
+    tr = scene.triangles
+    v0, e1, e2 = (x.cpu().numpy().astype(np.float64)
+                  for x in (tr.v0, tr.e1, tr.e2))
+    verts = np.stack([v0, v0 + e1, v0 + e2], 1)
+    smc = build_smem_clusters(verts, tr.normal.cpu().numpy().astype(np.float32),
+                              tr.material.cpu().numpy().astype(np.float32),
+                              cluster_size=cluster_size)
+    return CoherentPack(tri=smc.tri, aabb=smc.aabb, cs=smc.cs,
+                        n_tri=int(tr.count)).to(scene.device)
+
+
+# --- ray planes and tiles -----------------------------------------------------
+
+def _to_planes(origin, direction, hw: Optional[tuple]):
+    """(R, 3) x2 -> (6, Hp, Wp) padded planes + the (h, w, r) to recover.
+    With ``hw`` and a full-image ray set the tiles are 32 x 128 pixel
+    rectangles; otherwise row-major 4,096-lane strips.  Padded lanes get
+    origin 0 and direction (1, 1, 1)."""
+    r = origin.shape[0]
+    if hw is not None and hw[0] * hw[1] == r:
+        h, w = hw
+    else:
+        w = TILE_W
+        h = -(-r // w)
+    hp = -(-h // SUB) * SUB
+    wp = -(-w // TILE_W) * TILE_W
+    rays = torch.cat([origin.T, direction.T], 0).to(torch.float32)
+    if (hp, wp) == (h, w) and h * w == r:
+        return rays.reshape(6, h, w).contiguous(), (h, w, r)
+    out = torch.zeros((6, hp * wp), dtype=torch.float32, device=origin.device)
+    out[3:6] = 1.0
+    out = out.view(6, hp, wp)
+    flat = torch.zeros((6, h * w), dtype=torch.float32, device=origin.device)
+    flat[3:6] = 1.0
+    flat[:, :r] = rays
+    out[:, :h, :w] = flat.view(6, h, w)
+    return out, (h, w, r)
+
+
+def _from_planes(out, shape):
+    h, w, r = shape
+    return out[:, :h, :w].reshape(out.shape[0], h * w)[:, :r]
+
+
+def _tile_major(x):
+    """(P, Hp, Wp) planes -> (P, T, 4096): the lanes of each tile."""
+    p, hp, wp = x.shape
+    return (x.reshape(p, hp // SUB, SUB, wp // TILE_W, TILE_W)
+            .permute(0, 1, 3, 2, 4).reshape(p, -1, TILE))
+
+
+def _plane_major(x, hp: int, wp: int):
+    """The inverse of ``_tile_major``."""
+    p = x.shape[0]
+    return (x.reshape(p, hp // SUB, wp // TILE_W, SUB, TILE_W)
+            .permute(0, 1, 3, 2, 4).reshape(p, hp, wp))
+
+
+def _check_planes(rays):
+    p, hp, wp = rays.shape
+    if p not in (6, 7) or hp % SUB or wp % TILE_W:
+        raise ValueError(f"rays must be (6 or 7, Hp, Wp) planes with Hp a "
+                         f"multiple of {SUB} and Wp of {TILE_W}, not "
+                         f"{tuple(rays.shape)}")
+
+
+def _wrap_u32(x):
+    """int64 values in [0, 2^32) -> int32 holding the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+# --- mask pass ----------------------------------------------------------------
+
+def mask_plain(aabb, rays, t_min: float, cnt=None, planes: bool = True):
+    """The mask pass in PyTorch.  aabb (C, 8); rays (6 or 7, Hp, Wp) [o d]
+    or [o d lim]; ``cnt`` (1,) i32 or None: only the first cnt lanes in
+    row-major order are rays (the others get 0 words).  Returns masks
+    (ceil(C / 32), Hp, Wp), or None when not ``planes`` (the lists need
+    only the tile words), and the ORed tile words (T, ceil(C / 32)), both
+    int32 holding u32 bits."""
+    _check_planes(rays)
+    p, hp, wp = rays.shape
+    dev = rays.device
+    n_cl = aabb.shape[0]
+    b32 = -(-n_cl // _WORD)
+    ox, oy, oz = rays[0], rays[1], rays[2]
+
+    def sinv(v):
+        tiny = torch.where(v < 0.0, -1e-20, 1e-20)
+        return 1.0 / torch.where(torch.abs(v) < 1e-20, tiny, v)
+
+    ivx, ivy, ivz = sinv(rays[3]), sinv(rays[4]), sinv(rays[5])
+    t_lo = min(float(t_min), 0.0)
+    hi_bound = rays[6] * 1.000001 + 1e-5 if p == 7 else None
+    active = None
+    if cnt is not None:
+        lanes = torch.arange(hp * wp, device=dev).view(hp, wp)
+        active = lanes < int(cnt.reshape(-1)[0])
+    masks = (torch.zeros((b32, hp, wp), dtype=torch.int32, device=dev)
+             if planes else None)
+    words = torch.zeros((hp // SUB * (wp // TILE_W), b32), dtype=torch.int64,
+                        device=dev)
+    for w in range(b32):
+        box = aabb[w * _WORD:(w + 1) * _WORD, :6].to(dev)
+        bx0, by0, bz0, bx1, by1, bz1 = (box[:, j, None, None]
+                                        for j in range(6))   # (k, 1, 1)
+        tx0, tx1 = (bx0 - ox) * ivx, (bx1 - ox) * ivx
+        ty0, ty1 = (by0 - oy) * ivy, (by1 - oy) * ivy
+        tz0, tz1 = (bz0 - oz) * ivz, (bz1 - oz) * ivz
+        t_in = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                           torch.minimum(ty0, ty1)),
+                             torch.minimum(tz0, tz1))
+        t_out = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                            torch.maximum(ty0, ty1)),
+                              torch.maximum(tz0, tz1))
+        crossed = (t_out >= t_lo) & (t_in <= t_out)          # (k, Hp, Wp)
+        if hi_bound is not None:
+            crossed &= t_in <= hi_bound
+        if active is not None:
+            crossed &= active
+        bit = (1 << torch.arange(box.shape[0], dtype=torch.int64,
+                                 device=dev))[:, None, None]
+        if planes:
+            masks[w] = _wrap_u32((crossed.to(torch.int64) * bit).sum(0))
+        tile_bits = _tile_major(crossed).any(2)               # (k, T)
+        words[:, w] = (tile_bits.to(torch.int64) * bit[:, :, 0]).sum(0)
+    return masks, _wrap_u32(words)
+
+
+def _mask_kernel(aabb, rays, t_min: float, cnt=None, planes: bool = True):
+    """Launch the mask kernel of csrc/coherent.cu on CUDA tensors; as
+    ``mask_plain``."""
+    _check_planes(rays)
+    tensors = [aabb, rays] + ([] if cnt is None else [cnt])
+    if not all(isinstance(x, torch.Tensor) and x.is_cuda
+               and x.is_contiguous() for x in tensors):
+        raise ValueError("the mask kernel takes contiguous CUDA tensors")
+    if (aabb.dtype != torch.float32 or rays.dtype != torch.float32
+            or aabb.dim() != 2 or aabb.shape[1] != 8
+            or (cnt is not None and (cnt.dtype != torch.int32
+                                     or cnt.numel() != 1))):
+        raise ValueError("the mask kernel takes aabb (C, 8) f32, rays f32 "
+                         "and cnt (1,) i32")
+    p, hp, wp = rays.shape
+    n_cl = aabb.shape[0]
+    b32 = -(-n_cl // _WORD)
+    masks = (torch.empty((b32, hp, wp), dtype=torch.int32,
+                         device=rays.device) if planes else None)
+    words = torch.zeros((hp // SUB * (wp // TILE_W), b32), dtype=torch.int32,
+                        device=rays.device)
+    rc = _fn("coherent_mask")(
+        aabb.data_ptr(), n_cl, rays.data_ptr(), p, hp, wp, float(t_min),
+        None if cnt is None else cnt.data_ptr(),
+        None if masks is None else masks.data_ptr(),
+        words.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"coherent mask kernel launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES["mask"] += 1
+    return masks, words
+
+
+def mask(aabb, rays, t_min: float, cnt=None, planes: bool = True):
+    """The mask pass: the kernel for CUDA rays, the plain version for CPU
+    rays."""
+    if rays.is_cuda:
+        return _mask_kernel(aabb, rays, t_min, cnt, planes)
+    return mask_plain(aabb, rays, t_min, cnt, planes)
+
+
+def _lists(words, n_cl: int):
+    """Tile words (T, ceil(C / 32)) -> (ids (T * C,) i32: per tile the set
+    bits in ascending cluster order, then the unset ones; cnts (T,) i32)."""
+    c = torch.arange(n_cl, device=words.device)
+    w64 = words.to(torch.int64) & 0xFFFFFFFF
+    bset = ((w64[:, c // _WORD] >> (c % _WORD)) & 1).T        # (C, T)
+    cnts = bset.sum(0).to(torch.int32)
+    ids = torch.argsort((1 - bset).to(torch.int32), dim=0, stable=True)
+    return ids.T.to(torch.int32).reshape(-1).contiguous(), cnts
+
+
+def _shortlists(aabb, rays, t_min: float, cnt=None):
+    """(T * C,) shortlist ids + (T,) counts for a (6 or 7, Hp, Wp) ray-plane
+    set (7: with a lim plane)."""
+    return _lists(mask(aabb, rays, t_min, cnt, planes=False)[1],
+                  aabb.shape[0])
+
+
+# --- shortlist sweep ----------------------------------------------------------
+
+def sweep_plain(tri, rays, ids, cnts, t_min: float):
+    """The shortlist sweep in PyTorch: rays (6, Hp, Wp); the table tri (C,
+    CS, MESH_NF); per tile ids[tile * C + j] for j < cnts[tile].  Returns
+    (2, Hp, Wp): the nearest t (NO_HIT on a miss) and the triangle index of
+    slot 13 (-1.0), as floats."""
+    _check_planes(rays)
+    _, hp, wp = rays.shape
+    n_cl = tri.shape[0]
+    best_t, slot, _ = list_sweep_plain(
+        tri, _tile_major(rays), ids.view(-1, n_cl), cnts, t_min, occl=False)
+    idx = tri.reshape(-1, MESH_NF)[slot.clamp(min=0), 13]
+    idx = torch.where(slot >= 0, idx, -1.0)
+    return _plane_major(torch.stack([best_t, idx]), hp, wp)
+
+
+def _sweep_kernel(tri, rays, ids, cnts, t_min: float):
+    """Launch the sweep kernel of csrc/coherent.cu on CUDA tensors; as
+    ``sweep_plain``."""
+    _check_planes(rays)
+    tensors = (tri, rays, ids, cnts)
+    if not all(isinstance(x, torch.Tensor) and x.is_cuda
+               and x.is_contiguous() for x in tensors):
+        raise ValueError("the sweep kernel takes contiguous CUDA tensors")
+    p, hp, wp = rays.shape
+    n_cl, cs = tri.shape[0], tri.shape[1]
+    n_tiles = hp // SUB * (wp // TILE_W)
+    if (p != 6 or tri.dtype != torch.float32 or tri.shape[2:] != (MESH_NF,)
+            or ids.dtype != torch.int32 or cnts.dtype != torch.int32
+            or ids.numel() != n_tiles * n_cl or cnts.numel() != n_tiles):
+        raise ValueError("the sweep kernel takes rays (6, Hp, Wp) f32, tri "
+                         "(C, CS, 16) f32, ids (T * C,) and cnts (T,) i32")
+    out = torch.empty((2, hp, wp), dtype=torch.float32, device=rays.device)
+    rc = _fn("coherent_sweep")(
+        tri.data_ptr(), n_cl, cs, rays.data_ptr(), hp, wp, ids.data_ptr(),
+        cnts.data_ptr(), float(t_min), out.data_ptr(),
+        torch.cuda.current_stream(rays.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"coherent sweep kernel launch failed: "
+                           f"cudaError {rc}")
+    LAUNCHES["sweep"] += 1
+    return out
+
+
+def sweep(tri, rays, ids, cnts, t_min: float):
+    """The shortlist sweep: the kernel for CUDA rays, the plain version for
+    CPU rays."""
+    if rays.is_cuda:
+        return _sweep_kernel(tri, rays, ids, cnts, t_min)
+    return sweep_plain(tri, rays, ids, cnts, t_min)
+
+
+def nearest(pack: CoherentPack, origin, direction, t_min: float,
+            hw: Optional[tuple] = None):
+    """Nearest (t, triangle index i32) per ray for a coherent (R, 3) ray
+    set; misses (NO_HIT_T, -1).  ``hw=(h, w)``: the rays are a row-major
+    h x w image, tiled over 32 x 128 pixel rectangles."""
+    rays, shape = _to_planes(origin, direction, hw)
+    ids, cnts = _shortlists(pack.aabb, rays, t_min)
+    out = _from_planes(sweep(pack.tri, rays, ids, cnts, t_min), shape)
+    tt = torch.where(out[0] < intersect.NO_HIT_T, out[0], intersect.NO_HIT_T)
+    return tt, out[1].to(torch.int32)
+
+
+# --- the kernels' C interface -------------------------------------------------
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (aabb, n_cl, rays, n_planes, hp, wp, t_min, cnt, masks, words, stream)
+    "coherent_mask": [_P, ctypes.c_int, _P] + [ctypes.c_int] * 3
+    + [ctypes.c_float] + [_P] * 4,
+    # (tri, n_cl, cs, rays, hp, wp, ids, cnts, t_min, out, stream)
+    "coherent_sweep": [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                       ctypes.c_int, _P, _P, ctypes.c_float, _P, _P],
+}
+
+
+def _fn(name: str):
+    fn = getattr(kernels.load("coherent"), name)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return fn

@@ -1,5 +1,5 @@
 """Fused wavefront Monte Carlo over clustered meshes (port of
-``cpu_based_ray_tracer_tpu.ops.fused_mesh``, without its shortlist mode).
+``cpu_based_ray_tracer_tpu.ops.fused_mesh``).
 
 The reference's MC stage sends every path and shadow ray through a BVH.
 This engine keeps lanes in pixel order and compacts the work instead of
@@ -10,7 +10,7 @@ walking a tree per lane.  One bounce step is five launches:
            material id); mesh predicate (does the segment cross a cluster
            AABB before the smalls winner?); stable pack of the crossing
            lanes' (o, d, lane id).
-  nearest  sweep of every cluster over the packed rays -> nearest mesh
+  nearest  sweep of the clusters over the packed rays -> nearest mesh
            (t, n, material id), written back to full planes by lane id.
   K1b      merge (the smalls win ties) + facing normal + shading point +
            NEE light sample + zero-weight pruning + shadow predicate +
@@ -24,27 +24,36 @@ walking a tree per lane.  One bounce step is five launches:
 Lane for lane the semantics of ``models.monte_carlo.wavefront_steps``
 through the packet intersector, and of the JAX package's Pallas engine.
 
-- ``csrc/fused_mesh.cu`` holds the four kernel bodies (K1, the templated
-  sweep, K1b, K2), CUDA C++ for sm_90a loaded with ``ctypes``;
+Two sweep modes, as in the JAX package.  Resident (the table within
+``SMEM_RESIDENT_BUDGET``): every 4,096-ray tile of the packed buffer sweeps
+every cluster.  Shortlist streaming (``resident=False``, the default past
+the budget): before each sweep the mask pass of ``ops.coherent`` gives
+every tile the exact list of clusters its rays cross (main rays: the
+unbounded line; shadow rays: up to lim), and each tile sweeps only those,
+with the same triangle loops and so the same results.
+
+- ``csrc/fused_mesh.cu`` holds the kernel bodies (K1, the templated sweep
+  with or without lists, K1b, K2), CUDA C++ for sm_90a loaded with
+  ``ctypes``; ``csrc/coherent.cu`` the mask pass.
   ``wavefront_steps_fused_mesh`` launches them for CUDA tensors.
-- ``_k1_plain``, ``_sweep_plain``, ``_k1b_plain`` and ``_k2_plain`` are
-  the same arithmetic in PyTorch, with the same inputs and outputs as the
-  kernels; ``wavefront_steps_fused_mesh_plain`` steps with them on any
-  device.  The entry points run them only for CPU tensors.
+- ``_k1_plain``, ``_sweep_plain``, ``_k1b_plain`` and ``_k2_plain`` (and
+  ``coherent.mask_plain``) are the same arithmetic in PyTorch, with the
+  same inputs and outputs as the kernels;
+  ``wavefront_steps_fused_mesh_plain`` steps with them on any device.  The
+  entry points run them only for CPU tensors.
 
 Capacity: the packed buffers have a fixed size per call.  A step whose
 predicate population exceeds one reports overflow (``render_turbo_mesh``
 and ``render_turbo_mesh_exact`` double the caps and rerun the chunk, so a
 result is never silently wrong).  The cluster table stays in device
-memory, so any mesh size runs; the JAX package's shortlist mode for tables
-past its SMEM budget (``resident=False``, TPU kernels #5 and #8) is not
-ported.
+memory in both modes, so any mesh size runs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -62,11 +71,15 @@ MESH_NF = 16            # floats per cluster triangle row: v0 e1 e2 n mid idx pa
 LANES_PER_TILE = 4096   # the caps are whole multiples of this many lanes
 PACK_BLOCK = 256        # lanes per K1/K1b block: one offsets-table row each
 SWEEP_BLOCK = 256       # packed rays per sweep block (csrc/fused_mesh.cu)
-_PLAIN_CHUNK = 65536    # packed rays per vectorized step of _sweep_plain
+_TILE_CHUNK = 16        # tiles per vectorized step of list_sweep_plain
+# The JAX package's SMEM budget for the cluster table: past it the sweeps
+# default to the shortlist-streaming mode.
+SMEM_RESIDENT_BUDGET = 736 * 1024
 
-# Launches of csrc/fused_mesh.cu since the last reset (callers set it to
-# 0), by entry point.
-LAUNCHES = {"k1": 0, "nearest": 0, "k1b": 0, "occl": 0, "k2": 0}
+# Launches of csrc/fused_mesh.cu since the last reset (callers set them to
+# 0), by entry point; "nearest_sl" and "occl_sl" are the shortlist sweeps.
+LAUNCHES = {"k1": 0, "nearest": 0, "k1b": 0, "occl": 0, "k2": 0,
+            "nearest_sl": 0, "occl_sl": 0}
 
 # One record per chunk of the last render_turbo_mesh(_exact) call: the
 # steps, the caps, the overflow and the predicate populations.
@@ -445,92 +458,138 @@ def _k1_plain(tb: _Tables, p: _Params, sf, hf, mr, mr_id, offs, cnt):
     _append((ox, oy, oz, dx, dy, dz), crossed & valid, mr, mr_id, offs, cnt)
 
 
-def _sweep_plain(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
-                 occl: bool):
-    """The cluster sweep over the first min(cnt, cap) packed rays, in
-    chunks.  Nearest (rays (6, cap) [o d]): every cluster's triangles in
-    order, the first triangle at the least t wins; writes (t, n, material
-    id) to out (5, R) at the rays' lanes.  Occlusion (rays (7, cap) [p w_l
-    lim]): any triangle within (t_min, lim] by the division-free accept;
-    writes 1.0 / 0.0 to out (1, R) at the rays' lanes.
+def list_sweep_plain(tri, rays, ids, cnts, t_min: float, *, occl: bool,
+                     n_live: int | None = None):
+    """The cluster sweep over per-tile lists in PyTorch: the loops of the
+    sweep kernels (csrc/cluster_tri.cuh).  rays (P, T, L): the rays of T
+    tiles, P = 6 [o d] (nearest) or 7 [o d lim] (occlusion); tile t sweeps
+    the clusters ids[t, :cnts[t]] of tri (C, CS, MESH_NF), in that order.
+    Only the first ``n_live`` rays in tile order are swept (default all).
 
-    Returns the triangle tests the kernel makes, for its speed bound only:
-    the nearest sweep tests every triangle, the occlusion sweep stops a ray
-    at its first accepted triangle in cluster order."""
+    Nearest: the first row at the least t in a cluster wins, a later
+    cluster only when strictly nearer.  Occlusion: any row within
+    (t_min, lim] by the division-free accept.  Returns (best_t (T, L),
+    best_slot (T, L) i64 row of tri.reshape(-1, MESH_NF) or -1, tests) for
+    nearest and (occluded (T, L) bool, None, tests) for occlusion; tests
+    (T, L) i64 counts the triangle tests the kernels make (an occluded ray
+    stops at its first occluder)."""
     where = torch.where
-    tri = tb.mp.smc_tri
-    n_cl, cs = tri.shape[0], tri.shape[1]
-    n = min(int(cnt), rays.shape[1])
-    rows = torch.arange(cs, device=rays.device)[:, None]
-    tests = torch.zeros((), dtype=torch.int64, device=rays.device)
-    for k in range(0, n, _PLAIN_CHUNK):
-        sl = slice(k, min(k + _PLAIN_CHUNK, n))
-        ox, oy, oz, dx, dy, dz = (x[None] for x in rays[0:6, sl])  # (1, m)
-        m = ox.shape[1]
-        if occl:
-            lim = rays[6, sl][None]
-            occ = torch.zeros((m,), dtype=torch.bool, device=rays.device)
-            first = torch.full((m,), n_cl * cs, dtype=torch.int64,
-                               device=rays.device)
-        else:
-            best_t = torch.full((m,), NO_HIT, dtype=torch.float32,
-                                device=rays.device)
-            best_slot = torch.full((m,), -1, dtype=torch.int64,
-                                   device=rays.device)
-        for c in range(n_cl):
-            tc = tri[c]
-            v0x, v0y, v0z = tc[:, 0:1], tc[:, 1:2], tc[:, 2:3]     # (CS, 1)
-            e1x, e1y, e1z = tc[:, 3:4], tc[:, 4:5], tc[:, 5:6]
-            e2x, e2y, e2z = tc[:, 6:7], tc[:, 7:8], tc[:, 8:9]
+    dev = rays.device
+    cs = tri.shape[1]
+    _, n_t, n_l = rays.shape
+    n_live = n_t * n_l if n_live is None else min(int(n_live), n_t * n_l)
+    rows = torch.arange(cs, device=dev)[None, :, None]
+    tests = torch.zeros((n_t, n_l), dtype=torch.int64, device=dev)
+    best = torch.zeros((n_t, n_l), dtype=torch.bool, device=dev)
+    slot = None
+    if not occl:
+        best = torch.full((n_t, n_l), NO_HIT, dtype=torch.float32, device=dev)
+        slot = torch.full((n_t, n_l), -1, dtype=torch.int64, device=dev)
+    ids = ids.to(torch.int64)
+    cn_all = cnts.to(torch.int64).cpu()          # loop bounds, on the host
+    # whole tiles in chunks, then the live part of the last tile
+    n_full = n_live // n_l
+    segs = [(t0, min(n_full, t0 + _TILE_CHUNK), n_l)
+            for t0 in range(0, n_full, _TILE_CHUNK)]
+    if n_live % n_l:
+        segs.append((n_full, n_full + 1, n_live % n_l))
+    for t0, t1, lc in segs:
+        cn = cn_all[t0:t1]
+        for j in range(int(cn.max())):
+            act = cn > j
+            tt = (slice(t0, t1) if bool(act.all())
+                  else (torch.nonzero(act)[:, 0] + t0).to(dev))
+            cid = ids[tt, j]
+            tc = tri[cid]                                   # (A, CS, NF)
+            ox, oy, oz, dx, dy, dz = (x[:, None, :lc] for x in rays[0:6, tt])
+            v0x, v0y, v0z = tc[:, :, 0:1], tc[:, :, 1:2], tc[:, :, 2:3]
+            e1x, e1y, e1z = tc[:, :, 3:4], tc[:, :, 4:5], tc[:, :, 5:6]
+            e2x, e2y, e2z = tc[:, :, 6:7], tc[:, :, 7:8], tc[:, :, 8:9]
             s1x = dy * e2z - dz * e2y
             s1y = dz * e2x - dx * e2z
             s1z = dx * e2y - dy * e2x
-            det = s1x * e1x + s1y * e1y + s1z * e1z
+            det = s1x * e1x + s1y * e1y + s1z * e1z            # (A, CS, lc)
             okd = torch.abs(det) > _DET_EPS
             sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
             s2x = sy * e1z - sz * e1y
             s2y = sz * e1x - sx * e1z
             s2z = sx * e1y - sy * e1x
             if occl:
+                lim = rays[6, tt][:, None, :lc]
                 sd = where(det >= 0.0, 1.0, -1.0)
                 adet = det * sd
                 tn = s2x * e2x + s2y * e2y + s2z * e2z
                 b1n = s1x * sx + s1y * sy + s1z * sz
                 b2n = s2x * dx + s2y * dy + s2z * dz
                 tsd = tn * sd
-                hit = (okd & (tsd > p.t_min * adet) & (tsd <= lim * adet)
+                hit = (okd & (tsd > t_min * adet) & (tsd <= lim * adet)
                        & (b1n * sd >= 0.0) & (b2n * sd >= 0.0)
                        & ((det - b1n - b2n) * sd >= 0.0))
-                hit_c = hit.any(0)
+                hit_c = hit.any(1)                              # (A, lc)
+                prev = best[tt, :lc]
+                first = torch.amin(where(hit, rows, cs), 1)
                 # tests up to and including the first accepted row
-                first = where(~occ & hit_c, c * cs + 1 + torch.amin(
-                    where(hit, rows, cs), 0), first)
-                occ |= hit_c
+                tests[tt, :lc] += where(prev, 0, where(hit_c, first + 1, cs))
+                best[tt, :lc] = prev | hit_c
                 continue
             inv = 1.0 / where(okd, det, 1.0)
             t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv
             b1 = (s1x * sx + s1y * sy + s1z * sz) * inv
             b2 = (s2x * dx + s2y * dy + s2z * dz) * inv
-            ok = (okd & (t > p.t_min) & (b1 >= 0.0) & (b2 >= 0.0)
+            ok = (okd & (t > t_min) & (b1 >= 0.0) & (b2 >= 0.0)
                   & (1.0 - b1 - b2 >= 0.0))
-            tm = where(ok, t, NO_HIT)                              # (CS, m)
-            t_c = torch.amin(tm, 0)
+            tm = where(ok, t, NO_HIT)                           # (A, CS, lc)
+            t_c = torch.amin(tm, 1)
             # the strict t < best_t chain keeps the first row at the least t
-            i_c = torch.amin(where(tm == t_c[None], rows, cs), 0)
-            better = t_c < best_t
-            best_t = where(better, t_c, best_t)
-            best_slot = where(better, c * cs + i_c, best_slot)
-        ids = ray_id[sl].to(torch.int64)
-        if occl:
-            out[0, ids] = occ.to(torch.float32)
-            tests += first.sum()
-            continue
-        tests += m * n_cl * cs
-        attrs = tri.reshape(-1, MESH_NF)[best_slot.clamp(min=0), 9:13]
-        attrs = where((best_slot >= 0)[:, None], attrs,
-                      torch.tensor([0.0, 0.0, 0.0, -1.0], device=rays.device))
-        out[:, ids] = torch.cat([best_t[None], attrs.T])
-    return tests
+            i_c = torch.amin(where(tm == t_c[:, None], rows, cs), 1)
+            bt = best[tt, :lc]
+            better = t_c < bt
+            best[tt, :lc] = where(better, t_c, bt)
+            slot[tt, :lc] = where(better, cid[:, None] * cs + i_c,
+                                  slot[tt, :lc])
+            tests[tt, :lc] += cs
+    return best, slot, tests
+
+
+def _sweep_plain(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
+                 occl: bool, lists=None):
+    """The cluster sweep over the first min(cnt, cap) packed rays, in tiles
+    of 4,096.  Nearest (rays (6, cap) [o d]): the first triangle at the
+    least t wins; writes (t, n, material id) to out (5, R) at the rays'
+    lanes.  Occlusion (rays (7, cap) [p w_l lim]): any triangle within
+    (t_min, lim] by the division-free accept; writes 1.0 / 0.0 to out
+    (1, R) at the rays' lanes.  ``lists``: (ids (T * C,), cnts (T,)), each
+    tile's clusters (the shortlist mode); default every cluster in order.
+
+    Returns the triangle tests the kernel makes, for its speed bound only:
+    the nearest sweep tests every listed triangle, the occlusion sweep
+    stops a ray at its first accepted triangle in list order."""
+    tri = tb.mp.smc_tri
+    n_cl = tri.shape[0]
+    n_planes, cap = rays.shape
+    if cap % LANES_PER_TILE:
+        raise ValueError(f"the packed buffer holds {cap} rays, not whole "
+                         f"tiles of {LANES_PER_TILE}")
+    n = min(int(cnt), cap)
+    n_t = cap // LANES_PER_TILE
+    if lists is None:
+        ids = torch.arange(n_cl, device=rays.device).repeat(n_t)
+        cnts = torch.full((n_t,), n_cl, dtype=torch.int64)
+    else:
+        ids, cnts = lists
+    res, slot, tests = list_sweep_plain(
+        tri, rays.view(n_planes, n_t, LANES_PER_TILE), ids.view(n_t, n_cl),
+        cnts, p.t_min, occl=occl, n_live=n)
+    lane = ray_id[:n].to(torch.int64)
+    if occl:
+        out[0, lane] = res.reshape(-1)[:n].to(torch.float32)
+        return tests.sum()
+    s = slot.reshape(-1)[:n]
+    attrs = tri.reshape(-1, MESH_NF)[s.clamp(min=0), 9:13]
+    attrs = torch.where((s >= 0)[:, None], attrs,
+                        torch.tensor([0.0, 0.0, 0.0, -1.0], device=rays.device))
+    out[:, lane] = torch.cat([res.reshape(-1)[:n][None], attrs.T])
+    return tests.sum()
 
 
 def _k1b_plain(tb: _Tables, p: _Params, seed, sf, si, hf, kb, sr, sr_id,
@@ -642,6 +701,9 @@ _SIGNATURES = {
     # (params, tri, rays, ray_id, cap, cnt, out, stream)
     "fused_mesh_nearest": [_P] * 4 + [ctypes.c_int] + [_P] * 3,
     "fused_mesh_occl": [_P] * 4 + [ctypes.c_int] + [_P] * 3,
+    # (params, tri, rays, ray_id, cap, cnt, ids, cnts, out, stream)
+    "fused_mesh_nearest_sl": [_P] * 4 + [ctypes.c_int] + [_P] * 5,
+    "fused_mesh_occl_sl": [_P] * 4 + [ctypes.c_int] + [_P] * 5,
     # (params, tables, sf, si, hf, kb, sr, sr_id, offs, cnt, stream)
     "fused_mesh_k1b": [_P] * 11,
     # (params, tables, kb, sf, si, stream)
@@ -720,20 +782,32 @@ def _k1_kernel(tb: _Tables, p: _Params, sf, hf, mr, mr_id, offs, cnt):
 
 
 def _sweep_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
-                  occl: bool):
-    name = "fused_mesh_occl" if occl else "fused_mesh_nearest"
-    _check(name, dict(tri=(tb.mp.smc_tri, _F), rays=(rays, _F),
-                      ray_id=(ray_id, _I), cnt=(cnt, _I), out=(out, _F)))
+                  occl: bool, lists=None):
+    key = ("occl" if occl else "nearest") + ("" if lists is None else "_sl")
+    name = "fused_mesh_" + key
+    tensors = dict(tri=(tb.mp.smc_tri, _F), rays=(rays, _F),
+                   ray_id=(ray_id, _I), cnt=(cnt, _I), out=(out, _F))
+    if lists is not None:
+        tensors.update(ids=(lists[0], _I), cnts=(lists[1], _I))
+    _check(name, tensors)
     cap = rays.shape[1]
     _plane_rows(rays, 7 if occl else 6, cap, "rays")
     _plane_rows(out, 1 if occl else 5, out.shape[1], "out")
     if (ray_id.shape != (cap,) or tb.mp.smc_tri.shape
             != (tb.mp.n_clusters, tb.mp.cs, MESH_NF)):
         raise ValueError("bad id buffer or cluster table shape")
+    args = [cnt.data_ptr()]
+    if lists is not None:
+        n_t = cap // LANES_PER_TILE
+        if (cap % LANES_PER_TILE or lists[0].numel() != n_t * tb.mp.n_clusters
+                or lists[1].numel() != n_t):
+            raise ValueError("the shortlist sweep takes whole 4,096-ray "
+                             "tiles, ids (T * C,) and cnts (T,)")
+        args += [lists[0].data_ptr(), lists[1].data_ptr()]
     cp = _cparams(tb, p, 0, out.shape[1])
-    _launch(name, "occl" if occl else "nearest", ctypes.byref(cp),
-            tb.mp.smc_tri.data_ptr(), rays.data_ptr(), ray_id.data_ptr(),
-            cap, cnt.data_ptr(), out.data_ptr(), _stream(rays))
+    _launch(name, key, ctypes.byref(cp), tb.mp.smc_tri.data_ptr(),
+            rays.data_ptr(), ray_id.data_ptr(), cap, *args, out.data_ptr(),
+            _stream(rays))
 
 
 def _nearest_kernel(tb, p, rays, ray_id, cnt, out):
@@ -744,6 +818,28 @@ def _nearest_kernel(tb, p, rays, ray_id, cnt, out):
 def _occl_kernel(tb, p, rays, ray_id, cnt, out):
     """Launch the occlusion sweep on CUDA tensors; as ``_sweep_plain``."""
     _sweep_kernel(tb, p, rays, ray_id, cnt, out, occl=True)
+
+
+def _lists(tb: _Tables, p: _Params, rays, cnt, kernel: bool):
+    """The shortlists of the packed rays (P, cap): the mask pass of
+    ``ops.coherent`` over the first cnt rays, in strips of 4,096, against
+    the cluster AABBs (P = 7: up to lim)."""
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+
+    mask = coherent._mask_kernel if kernel else coherent.mask_plain
+    _, words = mask(tb.mp.smc_aabb, rays.view(rays.shape[0], -1,
+                                              coherent.TILE_W),
+                    p.t_min, cnt, planes=False)
+    return coherent._lists(words, tb.mp.n_clusters)
+
+
+def _sl_sweep(tb, p, rays, ray_id, cnt, out, *, occl: bool, kernel: bool):
+    """The shortlist-streaming sweep: the mask pass, the lists, then the
+    sweep over each tile's list, by the kernels or by the plain versions;
+    as ``_sweep_plain`` with lists."""
+    sweep = _sweep_kernel if kernel else _sweep_plain
+    return sweep(tb, p, rays, ray_id, cnt, out, occl=occl,
+                 lists=_lists(tb, p, rays, cnt, kernel))
 
 
 def _k1b_kernel(tb: _Tables, p: _Params, seed, sf, si, hf, kb, sr, sr_id,
@@ -794,6 +890,21 @@ KERNEL_OPS = _Ops(_k1_kernel, _nearest_kernel, _k1b_kernel, _occl_kernel,
                   _k2_kernel)
 PLAIN_OPS = _Ops(_k1_plain, _nearest_plain, _k1b_plain, _occl_plain,
                  _k2_plain)
+# the shortlist-streaming mode (resident=False)
+KERNEL_SL_OPS = KERNEL_OPS._replace(
+    nearest=functools.partial(_sl_sweep, occl=False, kernel=True),
+    occl=functools.partial(_sl_sweep, occl=True, kernel=True))
+PLAIN_SL_OPS = PLAIN_OPS._replace(
+    nearest=functools.partial(_sl_sweep, occl=False, kernel=False),
+    occl=functools.partial(_sl_sweep, occl=True, kernel=False))
+
+
+def fits_resident(n_clusters: int, cs: int) -> bool:
+    """The JAX package's SMEM budget rule: whether a table of ``n_clusters``
+    clusters of ``cs`` triangles fits ``SMEM_RESIDENT_BUDGET``.  It picks
+    the mode for ``resident=None`` and bounds ``models.mesh.prepare(method=
+    "fused")``, though the table stays in device memory here."""
+    return n_clusters * cs * MESH_NF * 4 <= SMEM_RESIDENT_BUDGET
 
 
 # --- the stepper -------------------------------------------------------------
@@ -884,7 +995,7 @@ def state_planes(state):
     return sf.contiguous(), si.contiguous()
 
 
-def _run(ops: _Ops, mp: MeshPack, camera, cfg: RenderConfig, seed: int,
+def _run(kernel: bool, mp: MeshPack, camera, cfg: RenderConfig, seed: int,
          state, n_steps: int, cap_main, cap_shadow, pixel_offset: int,
          resident, stop_after: int):
     from cpu_based_ray_tracer_tpu_torch.models.monte_carlo import (
@@ -893,11 +1004,10 @@ def _run(ops: _Ops, mp: MeshPack, camera, cfg: RenderConfig, seed: int,
     if cfg.soft_shadow_beta > 0.0:
         raise NotImplementedError("the fused mesh stepper implements the "
                                   "reference's hard shadow test only")
-    if resident is False:
-        raise NotImplementedError(
-            "resident=False is the JAX package's shortlist-streaming sweep "
-            "(TPU kernels #5 and #8, ROADMAP queue 2), not ported; the "
-            "all-cluster sweep runs any table size")
+    if resident is None:
+        resident = fits_resident(mp.n_clusters, mp.cs)
+    ops = ((KERNEL_OPS if resident else KERNEL_SL_OPS) if kernel
+           else (PLAIN_OPS if resident else PLAIN_SL_OPS))
     dev = state.s.device
     r = state.s.shape[0]
     p = params(cfg, r, cap_main, cap_shadow, pixel_offset, stop_after)
@@ -938,15 +1048,18 @@ def wavefront_steps_fused_mesh(mp: MeshPack, camera, cfg: RenderConfig,
     multiples of 4,096 lanes (default a quarter of the lanes).
     ``pixel_offset``: the absolute pixel of the state's first lane, so a
     row-major slab steps exactly like the same lanes of the full image.
+    ``resident``: True sweeps every cluster for every packed ray, False
+    only each tile's shortlist; None (default) takes the JAX package's
+    rule, ``fits_resident``.  The results are the same.
     ``stop_after > 0``: equal-spp mode.  ``device`` (default: the card)
-    must be where ``state`` lies; CUDA tensors launch csrc/fused_mesh.cu,
-    CPU tensors run the plain versions."""
+    must be where ``state`` lies; CUDA tensors launch csrc/fused_mesh.cu
+    (and csrc/coherent.cu's mask pass in the shortlist mode), CPU tensors
+    run the plain versions."""
     dev = kernels.resolve_device(device)
     if state.s.device.type != dev.type:
         raise ValueError(f"state lies on {state.s.device}, not on {dev}")
-    ops = KERNEL_OPS if state.s.is_cuda else PLAIN_OPS
-    return _run(ops, mp, camera, cfg, seed, state, n_steps, cap_main,
-                cap_shadow, pixel_offset, resident, stop_after)
+    return _run(state.s.is_cuda, mp, camera, cfg, seed, state, n_steps,
+                cap_main, cap_shadow, pixel_offset, resident, stop_after)
 
 
 def wavefront_steps_fused_mesh_plain(mp: MeshPack, camera, cfg: RenderConfig,
@@ -958,7 +1071,7 @@ def wavefront_steps_fused_mesh_plain(mp: MeshPack, camera, cfg: RenderConfig,
                                      stop_after: int = 0):
     """The plain PyTorch version of ``wavefront_steps_fused_mesh`` on any
     device (the kernels' arithmetic, vectorized over lanes)."""
-    return _run(PLAIN_OPS, mp, camera, cfg, seed, state, n_steps, cap_main,
+    return _run(False, mp, camera, cfg, seed, state, n_steps, cap_main,
                 cap_shadow, pixel_offset, resident, stop_after)
 
 

@@ -4,7 +4,8 @@ Every ``csrc/<name>.cu`` exposes a plain C interface (``extern "C"``
 functions returning the ``cudaError_t`` of ``cudaGetLastError()``).  At
 first use it is compiled with ``nvcc`` into ``build/torch_kernels/`` at the
 root of the checkout (a directory ``.gitignore`` lists), under a name that
-carries a hash of the source and the flags, and loaded with ``ctypes``.
+carries a hash of the source, the headers beside it (``csrc/*.cuh``) and
+the flags, and loaded with ``ctypes``.
 
 Flags: ``-fmad=false`` keeps ``a*b+c`` as two rounded operations, as the
 JAX package computes it, so knife-edge hits and the integer lane state
@@ -56,8 +57,11 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}.{h.hexdigest()[:12]}.so")
 
 

@@ -1,0 +1,306 @@
+"""The port's shortlist intersector (``ops.coherent``), the mesh stage's
+``fused`` and ``sparse`` methods, and the BVH traversal against the JAX
+package.  The JAX Pallas kernels run in interpret mode, as
+``tests/test_coherent.py`` runs them, on ``bvh_stage_scene(subdivisions=2)``
+in 64-triangle clusters (41 clusters).
+
+Tolerances:
+- the packs byte for byte; the shortlists (ids and counts) exactly, on
+  pixel-tiled, strip-tiled, ragged and lim-bounded ray sets;
+- ``coherent.nearest`` against JAX's: hit masks equal, t rtol 1e-5 and
+  indices equal on all but 0.5% of the rays.  Not bit for bit: XLA's CPU
+  code, which runs the interpreted kernel, contracts each a * b + c into a
+  fused multiply-add, while the port (like its CUDA kernel, built with
+  -fmad=false) rounds the product, so t differs by a few ulp (2.5e-6 at
+  most here) and a near-tie winner can flip;
+- against brute force, the JAX package's own gate
+  (``tests/test_coherent.py:42-47``): rtol 2e-6, winners on all but 0.2%;
+- ``mesh.render(method="fused")`` against JAX's under the Whitted-twin
+  gate (rtol 1e-5, atol 1e-6 on all but 0.5% knife-edge pixels), and
+  against the port's ``brute`` at rtol 1e-4, atol 1e-5
+  (``tests/test_coherent.py:59``);
+- ``bvh.traverse`` against JAX's: hit masks equal, t rtol 1e-6 and indices
+  equal (XLA's multiply-adds again); ``method="sparse"`` against
+  ``brute`` at rtol 1e-5, atol 1e-6."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from cpu_based_ray_tracer_tpu.config import RenderConfig as JConfig
+from cpu_based_ray_tracer_tpu.models import mesh as jmesh
+from cpu_based_ray_tracer_tpu.ops import bvh as jbvh
+from cpu_based_ray_tracer_tpu.ops import coherent as jcoherent
+from cpu_based_ray_tracer_tpu.scenes import meshes as jmeshes
+
+from cpu_based_ray_tracer_tpu_torch import camera, interop
+from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+from cpu_based_ray_tracer_tpu_torch.models import mesh
+from cpu_based_ray_tracer_tpu_torch.ops import (bvh, coherent, fused_mesh,
+                                                intersect)
+from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+
+CS = 64
+T_MIN = 1e-3
+W, H = 48, 36              # the image of tests/test_coherent.py's render
+KNIFE_EDGE_SHARE = 0.005
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs in parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _packs():
+    scene = meshes.bvh_stage_scene(subdivisions=2)
+    jpack = jcoherent.pack_coherent(jmeshes.bvh_stage_scene(subdivisions=2),
+                                    cluster_size=CS)
+    return scene, coherent.pack_coherent(scene, cluster_size=CS), jpack
+
+
+def _fused_bundle():
+    """The ``fused`` bundle of the test scene in 64-triangle clusters, as
+    ``mesh.prepare`` builds it (which clusters 128)."""
+    scene, pack, _ = _packs()
+    return mesh.MeshBundle(scene=scene, clusters=None, method="fused",
+                           coherent=pack)
+
+
+def _camera_rays(w, h):
+    cam = meshes.bvh_stage_camera()
+    d = camera.perspective_rays(cam, w, h).reshape(-1, 3)
+    return cam.position.expand(d.shape).contiguous(), d.contiguous()
+
+
+def _lim_rays(n=1000):
+    """Random segments through the meshes, with their lim plane."""
+    g = np.random.default_rng(5)
+    o = g.uniform((-3.0, 1.0, -2.0), (1.0, 8.0, 2.0), (n, 3))
+    d = g.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    lim = g.uniform(0.0, 4.0, n)
+    t = lambda a: torch.as_tensor(a.astype(np.float32))  # noqa: E731
+    return t(o), t(d), t(lim)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_nearest(w, h):
+    _, pack, jpack = _packs()
+    o, d = _camera_rays(w, h)
+    tt, idx = jcoherent.nearest(
+        jpack.tri, jpack.aabb, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+        n_cl=pack.n_clusters, cs=CS, t_min=T_MIN, hw=(h, w), interpret=True)
+    return np.asarray(tt), np.asarray(idx)
+
+
+def test_pack_coherent_byte_equal():
+    scene, got, want = _packs()
+    assert got.tri.numpy().tobytes() == np.asarray(want.tri).tobytes()
+    assert got.aabb.numpy().tobytes() == np.asarray(want.aabb).tobytes()
+    assert (got.cs, got.n_tri) == (want.cs, want.n_tri) == (CS, 2624)
+    assert got.n_clusters == 41
+    back = interop.coherent_pack_from_arrays(
+        {k: (np.asarray(v) if hasattr(v, "shape") else v)
+         for k, v in want._asdict().items()})
+    assert torch.equal(back.tri, got.tri) and torch.equal(back.aabb, got.aabb)
+
+
+@pytest.mark.parametrize("case", ["pixel_tiles", "strips", "ragged", "lim"])
+def test_shortlists_match_jax(case):
+    """Planes, ids and counts equal JAX ``coherent._shortlists``."""
+    _, pack, jpack = _packs()
+    if case == "lim":
+        o, d, lim = _lim_rays()
+        rays, _ = coherent._to_planes(o, d, None)
+        lim_plane = torch.zeros((1,) + rays.shape[1:])
+        lim_plane.view(-1)[:lim.shape[0]] = lim
+        rays = torch.cat([rays, lim_plane], 0)
+        jrays = jnp.asarray(rays.numpy())
+    else:
+        w, h = (41, 37) if case == "ragged" else (W, H)
+        hw = (h, w) if case == "pixel_tiles" else None
+        o, d = _camera_rays(w, h)
+        rays, shape = coherent._to_planes(o, d, hw)
+        jrays, jshape = jcoherent._to_planes(jnp.asarray(o.numpy()),
+                                             jnp.asarray(d.numpy()), hw)
+        assert shape == jshape
+        np.testing.assert_array_equal(rays.numpy(), np.asarray(jrays))
+    ids, cnts = coherent._shortlists(pack.aabb, rays, T_MIN)
+    jids, jcnts = jcoherent._shortlists(jpack.aabb, jrays,
+                                        n_cl=pack.n_clusters, t_min=T_MIN,
+                                        interpret=True)
+    np.testing.assert_array_equal(cnts.numpy(), np.asarray(jcnts))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    assert 0 < int(cnts.min()) and int(cnts.max()) <= pack.n_clusters
+
+
+def test_mask_plain_words_are_tile_ors():
+    """The tile words are the OR of the lanes' mask words over each
+    32 x 128 tile, bit for bit (the OR the kernel fuses in)."""
+    _, pack, _ = _packs()
+    o, d = _camera_rays(W, H)
+    rays, _ = coherent._to_planes(o, d, (H, W))
+    masks, words = coherent.mask_plain(pack.aabb, rays, T_MIN)
+    assert masks.shape == (2, 64, 128) and words.shape == (2, 2)
+    tiles = coherent._tile_major(masks).to(torch.int64) & 0xFFFFFFFF
+    ors = torch.zeros((2, 2), dtype=torch.int64)
+    for b in range(32):
+        ors |= (((tiles >> b) & 1).amax(2) << b).T
+    assert torch.equal(coherent._wrap_u32(ors), words)
+
+
+def test_nearest_matches_jax():
+    _, pack, _ = _packs()
+    o, d = _camera_rays(W, H)
+    tt, idx = coherent.nearest(pack, o, d, T_MIN, hw=(H, W))
+    want_t, want_i = _jax_nearest(W, H)
+    tt, idx = tt.numpy(), idx.numpy()
+    hit = want_t < intersect.NO_HIT_T
+    np.testing.assert_array_equal(tt < intersect.NO_HIT_T, hit)
+    np.testing.assert_allclose(tt[hit], want_t[hit], rtol=1e-5)
+    assert (tt[~hit] == intersect.NO_HIT_T).all() and (idx[~hit] == -1).all()
+    assert (idx != want_i).mean() < KNIFE_EDGE_SHARE
+    assert 0 < hit.sum() < hit.size
+
+
+def test_nearest_matches_brute():
+    """The JAX package's gate (``tests/test_coherent.py:25-47``) on the
+    port, strip-tiled at 40x30."""
+    scene, pack, _ = _packs()
+    o, d = _camera_rays(40, 30)
+    tt, idx = coherent.nearest(pack, o, d, T_MIN)
+    tr = scene.triangles
+    tm = intersect.triangle_t_matrix(o, d, tr.v0, tr.e1, tr.e2, T_MIN,
+                                     float("inf"))
+    t_ref, i_ref = torch.min(tm, -1)
+    hit = t_ref < 1e30
+    np.testing.assert_allclose(tt[hit].numpy(), t_ref[hit].numpy(),
+                               rtol=2e-6)
+    assert (tt[~hit] >= intersect.NO_HIT_T).all()
+    assert (hit & (idx != i_ref)).float().mean() < 0.002
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_render():
+    cfg = RenderConfig(width=W, height=H, whitted_depth=3)
+    return mesh.render(_fused_bundle(), meshes.bvh_stage_camera(), cfg,
+                       device="cpu").numpy()
+
+
+def test_mesh_render_fused_matches_jax():
+    want = np.asarray(jmesh.render(
+        jmesh.prepare(jmeshes.bvh_stage_scene(subdivisions=2),
+                      method="fused", cluster_size=CS),
+        jmeshes.bvh_stage_camera(), JConfig(width=W, height=H,
+                                            whitted_depth=3)))
+    got = _fused_render()
+    assert got.shape == (H, W, 3)
+    bad = (np.abs(got - want) > 1e-6 + 1e-5 * np.abs(want)).any(-1)
+    assert bad.mean() < KNIFE_EDGE_SHARE
+
+
+def test_mesh_render_fused_matches_brute():
+    scene, _, _ = _packs()
+    cfg = RenderConfig(width=W, height=H, whitted_depth=3)
+    brute = mesh.render(mesh.prepare(scene, method="brute"),
+                        meshes.bvh_stage_camera(), cfg, device="cpu")
+    np.testing.assert_allclose(_fused_render(), brute.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    assert float(brute.mean()) > 0.0
+
+
+def test_fused_capacity_guard():
+    """``tests/test_coherent.py:62-69``: the budget, and ``prepare``
+    refusing a table past it."""
+    _, pack, _ = _packs()
+    assert fused_mesh.fits_resident(pack.n_clusters, pack.cs)
+    assert not fused_mesh.fits_resident(4000, 128)
+    assert fused_mesh.fits_resident(92, 128)                 # 736 KB exactly
+    bundle = mesh.prepare(meshes.bvh_stage_scene(subdivisions=2),
+                          method="fused")
+    assert bundle.coherent.cs == 128 and bundle.coherent.n_clusters == 21
+    with pytest.raises(ValueError):
+        mesh.prepare(meshes.bvh_stage_scene(subdivisions=5), method="fused")
+
+
+def _traverse_inputs():
+    g = np.random.default_rng(2)
+    tris = np.concatenate([meshes.icosphere(2), meshes.torus(1.6, 0.6, 16,
+                                                             8)])
+    o = g.uniform(-3.0, 3.0, (256, 3)).astype(np.float32)
+    d = g.normal(size=(256, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return tris, o, d
+
+
+def test_traverse_matches_jax():
+    tris, o, d = _traverse_inputs()
+    v0 = tris[:, 0].astype(np.float32)
+    e1 = (tris[:, 1] - tris[:, 0]).astype(np.float32)
+    e2 = (tris[:, 2] - tris[:, 0]).astype(np.float32)
+    jflat = jbvh.build_bvh(tris, leaf_size=4)
+    order = np.asarray(jflat.order)
+    want_t, want_i = jbvh.traverse(
+        jflat, jnp.asarray(v0[order]), jnp.asarray(e1[order]),
+        jnp.asarray(e2[order]), jnp.asarray(o), jnp.asarray(d), T_MIN)
+    flat = bvh.build_bvh(tris, leaf_size=4)
+    t = lambda a: torch.as_tensor(a[order])  # noqa: E731
+    got_t, got_i = bvh.traverse(flat, t(v0), t(e1), t(e2), torch.as_tensor(o),
+                                torch.as_tensor(d), T_MIN)
+    want_t, want_i = np.asarray(want_t), np.asarray(want_i)
+    hit = want_t < intersect.NO_HIT_T
+    assert 0 < hit.sum() < hit.size
+    np.testing.assert_array_equal(got_t.numpy() < intersect.NO_HIT_T, hit)
+    np.testing.assert_allclose(got_t.numpy()[hit], want_t[hit], rtol=1e-6)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    # and the port's brute-force oracle agrees
+    bt, bi = bvh.nearest_triangle_bruteforce(
+        torch.as_tensor(v0), torch.as_tensor(e1), torch.as_tensor(e2),
+        torch.as_tensor(o), torch.as_tensor(d), T_MIN)
+    np.testing.assert_array_equal(bt.numpy(), got_t.numpy())
+    np.testing.assert_array_equal(bi.numpy()[hit], got_i.numpy()[hit])
+
+
+def test_mesh_render_sparse_matches_brute():
+    scene = meshes.bvh_stage_scene(subdivisions=1)
+    cam, cfg = meshes.bvh_stage_camera(), RenderConfig(width=24, height=16)
+    bundle = mesh.prepare(scene, method="sparse")
+    assert bundle.method == "sparse" and bundle.bvh.n_nodes > 1
+    got = mesh.render(bundle, cam, cfg, device="cpu")
+    want = mesh.render(mesh.prepare(scene, method="brute"), cam, cfg,
+                       device="cpu")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["mask", "sweep"])
+def test_kernel_wrappers_refuse_cpu_tensors(which):
+    """The wrappers raise ValueError on CPU tensors, before their launch
+    counter moves."""
+    _, pack, _ = _packs()
+    o, d = _camera_rays(W, H)
+    rays, _ = coherent._to_planes(o, d, (H, W))
+    launches = coherent.LAUNCHES[which]
+    with pytest.raises(ValueError):
+        if which == "mask":
+            coherent._mask_kernel(pack.aabb, rays, T_MIN)
+        else:
+            ids, cnts = coherent._shortlists(pack.aabb, rays, T_MIN)
+            coherent._sweep_kernel(pack.tri, rays, ids, cnts, T_MIN)
+    assert coherent.LAUNCHES[which] == launches
+
+
+def test_fused_render_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        mesh.render(_fused_bundle(), meshes.bvh_stage_camera(),
+                    RenderConfig(width=8, height=8))

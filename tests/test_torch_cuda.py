@@ -13,7 +13,7 @@ from cpu_based_ray_tracer_tpu_torch import camera
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import mesh
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
-from cpu_based_ray_tracer_tpu_torch.ops import (fused, fused_mesh,
+from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused, fused_mesh,
                                                 fused_whitted, packet)
 from cpu_based_ray_tracer_tpu_torch.scene import make_spheres
 from cpu_based_ray_tracer_tpu_torch.scenes import (cornell, meshes,
@@ -233,7 +233,9 @@ def test_render_turbo_mesh_exact_on_card(cuda):
                                              cluster_size=64)
     steps = sum(t["steps"] for t in fused_mesh.TRACE)
     assert img.is_cuda and packet.LAUNCHES == 0
-    assert all(v == steps for v in fused_mesh.LAUNCHES.values())
+    counts = fused_mesh.LAUNCHES
+    assert all(counts[k] == steps for k in fused_mesh.OP_NAMES)
+    assert counts["nearest_sl"] == counts["occl_sl"] == 0   # resident
     plain = fused_mesh.render_turbo_mesh_exact(scene, cam, cfg, SEED,
                                                cluster_size=64, device="cpu")
     np.testing.assert_allclose(img.cpu().numpy(), plain.numpy(), rtol=2e-3,
@@ -247,6 +249,126 @@ def test_mesh_render_on_card(cuda):
     packet.LAUNCHES = 0
     img = mesh.render(bundle, cam, cfg)
     assert img.is_cuda and packet.LAUNCHES > 0
+    plain = mesh.render(bundle, cam, cfg, device="cpu").numpy()
+    # rtol 1e-5, atol 1e-6 on all but knife-edge pixels (< 0.5%).
+    bad = (np.abs(img.cpu().numpy() - plain) > 1e-6 + 1e-5 * np.abs(plain))
+    assert bad.any(-1).mean() < 0.005
+
+
+# --- the shortlist intersector and the shortlist-streaming sweep ------------
+
+def _coherent_rays(case, device):
+    """(pack, ray planes, cnt) of bvh_stage_scene: its 64x64 camera rays
+    in pixel tiles, random segments with a lim plane, or a strip-tiled
+    packed buffer of which the first 3,000 rays count."""
+    scene = meshes.bvh_stage_scene(device=device)
+    pack = coherent.pack_coherent(scene)
+    cam = meshes.bvh_stage_camera(device)
+    d = camera.perspective_rays(cam, 64, 64).reshape(-1, 3).contiguous()
+    o = cam.position.expand(d.shape).contiguous()
+    cnt = None
+    if case == "camera":
+        rays, _ = coherent._to_planes(o, d, (64, 64))
+    elif case == "lim":
+        o, d = _rays(4, 4096, -3.0, 6.0, device)
+        rays, _ = coherent._to_planes(o, d, None)
+        lim = torch.rand((1,) + rays.shape[1:], device=device,
+                         generator=torch.Generator(device).manual_seed(0))
+        rays = torch.cat([rays, 6.0 * lim], 0).contiguous()
+    else:
+        rays, _ = coherent._to_planes(o, d, None)
+        cnt = torch.tensor([3000], dtype=torch.int32, device=device)
+    return pack, rays, cnt
+
+
+@pytest.mark.parametrize("case", ["camera", "lim", "packed"])
+def test_coherent_mask_matches_plain(cuda, case):
+    """The mask kernel against mask_plain: mask planes and tile words bit
+    equal, so the same ids and counts; without the planes (as the lists
+    run it) the same tile words."""
+    pack, rays, cnt = _coherent_rays(case, cuda)
+    launches = coherent.LAUNCHES["mask"]
+    mk, wk = coherent._mask_kernel(pack.aabb, rays, 1e-3, cnt)
+    none, wk0 = coherent._mask_kernel(pack.aabb, rays, 1e-3, cnt,
+                                      planes=False)
+    mp, wp = coherent.mask_plain(pack.aabb, rays, 1e-3, cnt)
+    torch.cuda.synchronize()
+    assert coherent.LAUNCHES["mask"] == launches + 2
+    assert torch.equal(mk, mp) and torch.equal(wk, wp)
+    assert none is None and torch.equal(wk0, wk)
+    assert bool((wk != 0).any())
+    for a, b in zip(coherent._lists(wk, pack.n_clusters),
+                    coherent._lists(wp, pack.n_clusters)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["camera", "packed"])
+def test_coherent_sweep_matches_plain(cuda, case):
+    """The sweep kernel against sweep_plain on the same lists: t bit equal,
+    indices equal."""
+    pack, rays, cnt = _coherent_rays(case, cuda)
+    ids, cnts = coherent._shortlists(pack.aabb, rays, 1e-3, cnt)
+    launches = coherent.LAUNCHES["sweep"]
+    got = coherent._sweep_kernel(pack.tri, rays, ids, cnts, 1e-3)
+    want = coherent.sweep_plain(pack.tri, rays, ids, cnts, 1e-3)
+    torch.cuda.synchronize()
+    assert coherent.LAUNCHES["sweep"] == launches + 1
+    assert torch.equal(got, want) and bool((want[1] >= 0).any())
+
+
+@pytest.mark.parametrize("op", ["nearest", "occl"])
+def test_fused_mesh_shortlist_sweep_matches_plain(cuda, op):
+    """The shortlist sweeps (mask kernel, lists, then the sweep of
+    csrc/fused_mesh.cu with lists) against their plain versions: outputs
+    and populations bit equal."""
+    tb, p, sf, si = _mesh_step_inputs(cuda)
+    fm = fused_mesh
+    bp = fm.StepBuffers(*[torch.zeros_like(x) for x in
+                          fm.step_buffers(sf.shape[1], p, 1, cuda)])
+    for name in ["k1", "nearest", "k1b"][:1 if op == "nearest" else 3]:
+        fm.run_op(fm.PLAIN_OPS, name, tb, p, SEED, sf, si, bp)
+    bk = fm.StepBuffers(*[x.clone() for x in bp])
+    key, masks = op + "_sl", coherent.LAUNCHES["mask"]
+    launches = fm.LAUNCHES[key]
+    fm.run_op(fm.KERNEL_SL_OPS, op, tb, p, SEED, sf, si, bk)
+    fm.run_op(fm.PLAIN_SL_OPS, op, tb, p, SEED, sf, si, bp)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES[key] == launches + 1
+    assert coherent.LAUNCHES["mask"] == masks + 1
+    assert int(bp.cnt[0, 0 if op == "nearest" else 1]) > 0
+    assert torch.equal(bk.hf, bp.hf) and torch.equal(bk.kb, bp.kb)
+
+
+def test_fused_mesh_stepper_shortlist_matches_resident(cuda):
+    """resident=False against resident=True through the kernels: every
+    field bit equal, overflow 0, the same populations."""
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(2), device=cuda)
+    cam = cornell.cornell_camera(cuda)
+    cfg = RenderConfig(width=64, height=64, spp=4, max_depth=6)
+    mp = fused_mesh.pack_mesh_scene(scene, cluster_size=64)
+    st = mc.wavefront_init(scene, cam, cfg, SEED, device=cuda)
+    a, of_a, np_a = fused_mesh.wavefront_steps_fused_mesh(
+        mp, cam, cfg, SEED, st, 8, resident=True)
+    launches = fused_mesh.LAUNCHES["occl_sl"]
+    b, of_b, np_b = fused_mesh.wavefront_steps_fused_mesh(
+        mp, cam, cfg, SEED, st, 8, resident=False)
+    torch.cuda.synchronize()
+    assert fused_mesh.LAUNCHES["occl_sl"] == launches + 8
+    assert int(of_a) == int(of_b) == 0 and torch.equal(np_a, np_b)
+    for f in ("s", "b", "n_done", "nrays", "o", "d", "tp", "cur", "acc"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_mesh_render_fused_on_card(cuda):
+    scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
+    cfg = RenderConfig(width=64, height=48)
+    bundle = mesh.prepare(scene, method="fused")
+    packet.LAUNCHES = 0
+    masks, sweeps = coherent.LAUNCHES["mask"], coherent.LAUNCHES["sweep"]
+    img = mesh.render(bundle, cam, cfg)
+    assert img.is_cuda and packet.LAUNCHES == 0
+    assert coherent.LAUNCHES["mask"] > masks
+    assert coherent.LAUNCHES["sweep"] > sweeps
     plain = mesh.render(bundle, cam, cfg, device="cpu").numpy()
     # rtol 1e-5, atol 1e-6 on all but knife-edge pixels (< 0.5%).
     bad = (np.abs(img.cpu().numpy() - plain) > 1e-6 + 1e-5 * np.abs(plain))

@@ -386,18 +386,137 @@ def test_kernel_wrappers_refuse_cpu_tensors(op):
     assert fm.LAUNCHES[op] == launches
 
 
-@pytest.mark.parametrize("what", ["resident_false", "soft_shadows"])
+@pytest.mark.parametrize("what", ["soft_shadows"])
 def test_unported_modes_raise(what):
-    """The shortlist sweep and soft shadows are refused, not emulated."""
+    """Soft shadows are refused, not emulated."""
     scene, _ = _scenes()
     cam = cornell.cornell_camera()
-    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=2)
-    kw = {}
-    if what == "resident_false":
-        kw["resident"] = False
-    else:
-        cfg = cfg.replace(soft_shadow_beta=0.05)
+    cfg = RenderConfig(width=8, height=8, spp=1, max_depth=2,
+                       soft_shadow_beta=0.05)
     st = mc.wavefront_init(scene, cam, cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError):
         fm.wavefront_steps_fused_mesh(_port_pack(), cam, cfg, 0, st, 1,
-                                      device="cpu", **kw)
+                                      device="cpu")
+
+
+# --- the shortlist-streaming mode (resident=False) ----------------------------
+
+def _shortlist_run(cfg, n_steps, **kw):
+    scene, _ = _scenes()
+    cam, seed = cornell.cornell_camera(), ref.seed_word(9)
+    st = mc.wavefront_init(scene, cam, cfg, seed, device="cpu")
+    return fm.wavefront_steps_fused_mesh(_port_pack(scene), cam, cfg, seed,
+                                         st, n_steps, device="cpu", **kw)
+
+
+def test_shortlist_stepper_equals_resident():
+    """``resident=False`` steps bit for bit like the all-cluster sweep: the
+    JAX gate of ``tests/test_fused_mesh.py:95-117`` (48x48, 64-triangle
+    clusters, gated from triangle 22, 4 steps), on every field, the
+    overflow and the populations."""
+    cfg = RenderConfig(width=48, height=48, spp=4, max_depth=3,
+                       rr_survival=0.8)
+    a, of_a, np_a = _shortlist_run(cfg, 4, resident=True)
+    b, of_b, np_b = _shortlist_run(cfg, 4, resident=False)
+    assert int(of_a) == 0 and int(of_b) == 0
+    assert torch.equal(np_a, np_b) and int(np_a[1]) > 0
+    for f in ("s", "b", "n_done", "nrays", "o", "d", "tp", "cur", "acc"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("occl", [False, True])
+def test_shortlist_sweep_matches_jax_pallas_interpret(occl):
+    """The plain shortlist sweep (mask pass, lists, list sweep) against the
+    JAX ``_mesh_pass(resident=False)`` (its mask and shortlist-sweep Pallas
+    kernels in interpret mode) on the same packed buffer: 3,072 segments
+    toward the mesh in one 4,096-ray tile, the idle rays pointing away.
+    Occlusion flags exact; nearest: hits equal, t rtol 1e-5 and the
+    winner's normal and material on all but 0.5% of the rays (XLA's CPU
+    code contracts multiply-adds, the port does not, so near-ties can
+    flip)."""
+    _, jscene = _scenes()
+    jmp = jfm.pack_mesh_scene(jscene, gate_mask=_gate(jscene),
+                              cluster_size=64)
+    mp = interop.mesh_pack_from_arrays(_jax_pack_arrays(jmp))
+    g = np.random.default_rng(3)
+    cap, n = fm.LANES_PER_TILE, 3072
+    lo, hi = mp.smc_aabb[:, :3].amin(0), mp.smc_aabb[:, 3:6].amax(0)
+    tgt = g.uniform(lo.numpy(), hi.numpy(), (n, 3))
+    o = tgt + g.normal(size=(n, 3)) * 2.0
+    seg = np.linalg.norm(tgt - o, axis=-1)
+    rays = np.zeros((7, cap), np.float32)
+    rays[0:3], rays[3:6] = 100.0, 1.0
+    rays[0:3, :n], rays[3:6, :n] = o.T, ((tgt - o) / seg[:, None]).T
+    rays[6, :n] = seg * g.uniform(0.3, 1.5, n)
+    n_planes = 7 if occl else 6
+    p = fm.params(RenderConfig(width=64, height=64), cap)
+    jrays = np.concatenate([rays[:n_planes], np.arange(cap)[None]], 0)
+    want = np.asarray(jfm._mesh_pass(
+        jmp.smc_tri, jnp.asarray(jrays.reshape(n_planes + 1, -1, 128),
+                                 jnp.float32),
+        jnp.asarray([[n // 128, 0]], jnp.int32), jmp.smc_aabb,
+        n_clusters=mp.n_clusters, cs=64, t_min=p.t_min, occl=occl,
+        resident=False, interpret=True)).reshape(-1, cap)[:, :n]
+    tb = fm._tables(mp, fused._camera_words(cornell.cornell_camera()))
+    out = torch.zeros((1 if occl else 5, cap))
+    fm._sl_sweep(tb, p, torch.as_tensor(rays[:n_planes]).contiguous(),
+                 torch.arange(cap, dtype=torch.int32),
+                 torch.tensor([n], dtype=torch.int32), out, occl=occl,
+                 kernel=False)
+    got = out[:, :n].numpy()
+    if occl:
+        np.testing.assert_array_equal(got, want)
+        assert 0 < got.sum() < n
+        return
+    hit = want[0] < fused.NO_HIT
+    assert 0 < hit.sum() < n
+    np.testing.assert_array_equal(got[0] < fused.NO_HIT, hit)
+    np.testing.assert_allclose(got[0][hit], want[0][hit], rtol=1e-5)
+    assert (got[1:] != want[1:]).any(0).mean() < 0.005
+
+
+@pytest.mark.parametrize("n_clusters,cs", [(2, 64), (92, 128), (93, 128),
+                                           (1280, 128)])
+def test_resident_auto_rule_matches_jax(n_clusters, cs):
+    """``resident=None`` takes the JAX package's rule: resident exactly
+    when the table fits its SMEM budget (92 clusters of 128 is 736 KB)."""
+    want = n_clusters * cs * jfm.MESH_NF * 4 <= jfm.SMEM_RESIDENT_BUDGET
+    assert fm.SMEM_RESIDENT_BUDGET == jfm.SMEM_RESIDENT_BUDGET
+    assert fm.fits_resident(n_clusters, cs) == want
+
+
+def test_resident_auto_rule_takes_the_shortlists(monkeypatch):
+    """Past the budget (here set to 0) the default sweeps the shortlists:
+    the mask pass runs, twice a step, and the state is the resident one."""
+    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=3)
+    want, _, np_w = _shortlist_run(cfg, 2, resident=True)
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+
+    calls, mask_plain = [], coherent.mask_plain
+    monkeypatch.setattr(fm, "SMEM_RESIDENT_BUDGET", 0)
+    monkeypatch.setattr(coherent, "mask_plain",
+                        lambda *a, **kw: calls.append(a[1].shape[0])
+                        or mask_plain(*a, **kw))
+    got, of, np_g = _shortlist_run(cfg, 2)
+    assert calls == [6, 7, 6, 7] and int(of) == 0
+    assert torch.equal(np_g, np_w)
+    for f in ("s", "b", "n_done", "acc"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("occl", [False, True])
+def test_shortlist_sweep_wrapper_refuses_cpu_tensors(occl):
+    mp = _port_pack()
+    p = fm.params(RenderConfig(width=16, height=16), 256)
+    tb = fm._tables(mp, fused._camera_words(cornell.cornell_camera()))
+    b = fm.step_buffers(256, p, 1, "cpu")
+    key = "occl_sl" if occl else "nearest_sl"
+    rays, ids, out = ((b.sr, b.sr_id, b.kb[8:9]) if occl
+                      else (b.mr, b.mr_id, b.hf[5:10]))
+    lists = (torch.zeros((mp.n_clusters,), dtype=torch.int32),
+             torch.zeros((1,), dtype=torch.int32))
+    launches = fm.LAUNCHES[key]
+    with pytest.raises(ValueError):
+        fm._sweep_kernel(tb, p, rays, ids, b.cnt[0, 0:1], out, occl=occl,
+                         lists=lists)
+    assert fm.LAUNCHES[key] == launches

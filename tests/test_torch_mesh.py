@@ -235,9 +235,10 @@ def test_prepare_methods():
     small = meshes._mesh_scene(meshes.icosphere(1))
     assert mesh.prepare(small).method == "brute"          # 80 < 512
     assert mesh.prepare(meshes.bvh_stage_scene()).method == "packet"
-    for m in ("fused", "sparse"):
-        with pytest.raises(NotImplementedError):
-            mesh.prepare(small, method=m)
+    fused = mesh.prepare(small, method="fused")
+    assert fused.method == "fused" and fused.coherent.n_clusters == 1
+    sparse = mesh.prepare(small, method="sparse")
+    assert sparse.method == "sparse" and sparse.pv0.shape == (80, 3)
     with pytest.raises(ValueError):
         mesh.prepare(small, method="octree")
 
