@@ -1,8 +1,9 @@
 """Drive the PyTorch port on one NVIDIA GPU through its main paths — the
 Monte Carlo Cornell path tracer, the Whitted stage, the BVH mesh stage
-(packet and fused shortlist intersectors) and the fused mesh Monte Carlo
-stage (resident and shortlist-streaming sweeps) — and hold every kernel
-against its plain PyTorch version.
+(packet and fused shortlist intersectors), the fused mesh Monte Carlo
+stage (resident and shortlist-streaming sweeps), the RTIOW stages (offline
+prototype and NPPT) and the Denoiser — and hold every kernel against its
+plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -83,10 +84,40 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 22. sl_speed  the 164k cell timed as bench_passes' scale_case (caps rp//8
               and rp//16, 16 steps a call, 3 calls after a warm-up) in both
               modes; each shortlist sweep and the mask pass alone beside the
-              all-cluster sweep on the same packed rays, and the bounds.
+              all-cluster sweep on the same packed rays, and the bounds;
+23. rtiow_parity  csrc/fused_rtiow.cu against its plain version for 64
+              steps from render_fused's initial state at full width: the
+              offline cell (thin lens, 400x225, 100 spp, depth 50), its
+              depth-of-field camera on the classic scene, and the NPPT cell
+              (perspective, 883x824, 256 spp, with the glass bubble):
+              integer planes equal on all but 1e-4 of the lanes (listed),
+              float planes on agreeing lanes within 2e-3;
+24. rtiow_golden  render_fused at tools/make_goldens.py's offline_rtiow,
+              offline_dof and nppt configurations against their goldens
+              (mean abs diff <= 1.5, p99 <= 8);
+25. rtiow_main  the two headline renders through render_fused: offline
+              400x225 100 spp depth 50 and NPPT 883x824 256 spp depth 50,
+              with their launch counts and seconds; images to build/;
+26. rtiow_speed  the kernel alone on the NPPT cell, 128 steps from
+              render_fused's initial state (every lane live) in ms per step
+              of 727,592 lanes, the plain version on the same steps, and the
+              bound of the work those steps need (each live lane-step's
+              spheres, plus its miss or its material's branch);
+27. denoiser_parity  the single_path mode of csrc/fused_mc.cu against its
+              plain version at 896x896, depth 16, RR 0.8: ids and the
+              contributor flag equal, color within 2e-3, position and normal
+              within 1e-4;
+28. denoiser_golden  the three denoiser_* goldens (128x128, 4 frames, JBF
+              16) through the fused engine (mean <= 2, p99 <= 16);
+29. denoiser_main  render_sequence(engine="fused") over 12 frames of a
+              static camera at 896x896, depth 16, RR 0.8, DenoiserParams():
+              seconds per frame and one fused_mc launch a frame; image to
+              build/;
+30. single_path_speed  one single_path launch alone, its plain version,
+              the bound of its live lane-steps and shadow rays.
 
-Each main path (5, 9, 11, 12, 15, 18, 21) runs with every launch counter
-set to 0 just before it and read just after.  Then the kernels line, the nvidia-smi
+Each main path (5, 9, 11, 12, 15, 18, 21, 25, 29) runs with every launch
+counter set to 0 just before it and read just after.  Then the kernels line, the nvidia-smi
 line, and the last line {"ok": true, "device": {...}}.  Exits non-zero,
 printing no result, where CUDA is not available.
 """
@@ -155,14 +186,18 @@ def nvidia_smi(fields: str) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def flops_per_lane_step(n_tri: int, n_sph: int) -> int:
-    """f32 add/sub/mul/div/sqrt/rsqrt/cos/sin of one lane-step of
-    csrc/fused_mc.cu, counted from its source: 47 per triangle in the main
-    intersect, 50 in the shadow test; 28 + 28 per sphere; 150 for shading,
-    NEE and scatter.  Work done only on some lanes (winner attributes,
-    regeneration, accumulation) and the integer RNG are not counted, so the
-    bound derived from it is a floor."""
-    return 150 + 97 * n_tri + 56 * n_sph
+def mc_ops(n_tri: int, n_sph: int, lane_steps: int, shadow_rays: int) -> int:
+    """f32 add/sub/mul/div/sqrt/rsqrt/cos/sin that a run of
+    csrc/fused_mc.cu needs, counted from its source: the main intersect (47
+    per triangle, 28 per sphere) on each live lane-step; the shadow test
+    (50 per triangle, 28 per sphere) and 150 of shading, NEE and scatter
+    on each lane-step that traced a shadow ray (a live hit on a
+    non-emissive surface; si plane 3 counts them).  The kernel also runs
+    the latter on misses, emissive hits and idle lanes; the function does
+    not need it there.  A miss's sky, the winner's attributes, the
+    regeneration and the integer RNG are not counted: a floor."""
+    return ((47 * n_tri + 28 * n_sph) * lane_steps
+            + (150 + 50 * n_tri + 28 * n_sph) * shadow_rays)
 
 
 def compare_states(got, want) -> dict:
@@ -333,13 +368,22 @@ def speed_phase(dev, full: RenderConfig, max_sm_mhz: float, smi: str,
                       full.eps_offset, full.rr_survival,
                       full.shadow_tolerance, full.max_depth, 0)
     fused._steps_kernel(fs, cam16, SEED_KEY0, sf, si, p)       # warm-up
+    sfc, sic = sf.clone(), si.clone()
     kernel_ms = timed(lambda: [fused._steps_kernel(
         fs, cam16, SEED_KEY0, sf, si, p) for _ in range(n_iters)]
     ) / (n_iters * n_steps)
     plain_ms = timed(lambda: fused.wavefront_steps_fused_plain(
         fs, cam, full, SEED_KEY0, state0, n_plain)) / n_plain
+    # The timed launches again from the same state, untimed, for the shadow
+    # rays they trace (every lane is live at every step in this mode).
+    shadow = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(n_iters):
+        fused._steps_kernel(fs, cam16, SEED_KEY0, sfc, sic, p)
+        shadow += sic[3].sum()
+    shadow = int(shadow)
 
-    flops = flops_per_lane_step(fs.n_tri, fs.n_sph) * r
+    flops = mc_ops(fs.n_tri, fs.n_sph, r * n_steps * n_iters,
+                   shadow) / (n_iters * n_steps)
     bytes_per_step = (15 + 4) * 4 * 2 * r / n_steps   # state in + out per call
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, bytes_per_step / PEAK_BYTES
     res = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
@@ -349,6 +393,7 @@ def speed_phase(dev, full: RenderConfig, max_sm_mhz: float, smi: str,
          n_iters=n_iters, rays_per_s=rays / dt,
          ms_per_step=dt / (n_iters * n_steps) * 1e3,
          kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms,
+         shadow_ray_share=shadow / (r * n_steps * n_iters),
          flops_per_step=flops, bound_ms_per_step=res["bound_ms"],
          bound_no_fma_issue_rate_ms_per_step=flops / (
              N_SM * F32_LANES_PER_SM * max_sm_mhz * 1e6) * 1e3,
@@ -360,10 +405,11 @@ def speed_phase(dev, full: RenderConfig, max_sm_mhz: float, smi: str,
 
 def reset_counts():
     from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused,
-                                                    fused_mesh, fused_whitted,
-                                                    packet)
+                                                    fused_mesh, fused_rtiow,
+                                                    fused_whitted, packet)
 
     fused.LAUNCHES = fused_whitted.LAUNCHES = packet.LAUNCHES = 0
+    fused_rtiow.LAUNCHES = 0
     for counts in (fused_mesh.LAUNCHES, coherent.LAUNCHES):
         for k in counts:
             counts[k] = 0
@@ -371,11 +417,12 @@ def reset_counts():
 
 def read_counts() -> dict:
     from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused,
-                                                    fused_mesh, fused_whitted,
-                                                    packet)
+                                                    fused_mesh, fused_rtiow,
+                                                    fused_whitted, packet)
 
     return {"fused_mc": fused.LAUNCHES,
             "fused_whitted": fused_whitted.LAUNCHES,
+            "fused_rtiow": fused_rtiow.LAUNCHES,
             "packet": packet.LAUNCHES,
             "fused_mesh": dict(fused_mesh.LAUNCHES),
             "coherent": dict(coherent.LAUNCHES)}
@@ -1414,6 +1461,417 @@ def sl_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16, n_iters=10) -> dict:
     return res
 
 
+# --- the RTIOW stages and the Denoiser --------------------------------------
+
+RTIOW_TPU = "cpu_based_ray_tracer_tpu/ops/fused_rtiow.py:99"
+# f32 add/sub/mul/div/sqrt/rsqrt/min/max/cos/sin/pow that a live lane-step
+# of csrc/fused_rtiow.cu needs, counted from its source, by what the step's
+# ray meets.  Every live lane-step: 28 per ray/sphere quadratic.  A miss:
+# 28 (the ray's normalization, the sky weight and the sky term).  A hit:
+# 41 (the winner's normal, its normalization, the facing test, the scatter
+# normalization, the throughput) plus its material's branch: Lambert by
+# the diffuse model (the sphere sample and the sum; in-sphere adds the
+# ball's cube root; in-hemisphere the ball and the side test), metal 48
+# (the ray's normalization, the mirror, the ball, the fuzz, the
+# below-surface test), dielectric 64 (the ray's normalization, Schlick,
+# the mirror and Snell).  Each finished sample's next primary ray: 33
+# (perspective) or 50 (thin lens).  The kernel runs every branch on every
+# lane and every step, idle lanes too; the function needs only these.  The
+# continuation's origin and the integer RNG are not counted: a floor.
+RTIOW_SPH_OPS, RTIOW_MISS_OPS, RTIOW_HIT_OPS = 28, 28, 41
+RTIOW_LAMBERT_OPS = {0: 18, 1: 14, 2: 20}   # by config.diffuse_model
+RTIOW_METAL_OPS, RTIOW_DIELECTRIC_OPS = 48, 64
+RTIOW_REGEN_OPS = {False: 33, True: 50}     # by thin lens
+SEED_KEY1 = 1883912375   # render_key(1): tools/make_goldens.nppt
+SEED_KEY3 = 318053758    # render_key(3): tools/make_goldens.denoiser_triple
+SEED_KEY4 = 3781919339   # render_key(4): tools/make_goldens.offline_dof
+
+
+def rtiow_configs(dev):
+    """The two headline RTIOW configurations (tools/bench_passes.py's
+    rtiowfused): name -> (scene, camera, config)."""
+    from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+    from cpu_based_ray_tracer_tpu_torch.scenes import rtiow
+
+    return {
+        "offline": (rtiow.offline_two_sphere_scene(dev),
+                    rtiow.offline_camera(400 / 225, device=dev),
+                    RenderConfig(width=400, height=225, spp=100,
+                                 max_depth=50)),
+        "nppt": (rtiow.nppt_scene(dev), rtiow.nppt_camera(dev),
+                 RenderConfig(width=883, height=824, spp=256, max_depth=50,
+                              gamma=1.0))}
+
+
+def compare_planes(got_f, got_i, want_f, want_i) -> dict:
+    """Integer planes: the lanes that differ (share and the first few);
+    float planes: max abs error on the lanes that agree, within rtol = atol
+    = TOL or not."""
+    bad = (got_i != want_i).any(0)
+    agree = ~bad
+    err = (got_f[:, agree] - want_f[:, agree]).abs()
+    within = bool((err <= TOL + TOL * want_f[:, agree].abs()).all())
+    n_bad = int(bad.sum())
+    return dict(lanes=int(bad.numel()), int_mismatch_lanes=n_bad,
+                int_mismatch_share=n_bad / bad.numel(),
+                mismatched=torch.nonzero(bad)[:8, 0].tolist(),
+                max_abs_err=float(err.max()) if err.numel() else 0.0,
+                float_within_tol=within)
+
+
+def rtiow_parity_phase(dev, n_steps=64) -> float:
+    """csrc/fused_rtiow.cu against _steps_plain at full width from
+    render_fused's initial state, for each camera mode (the default
+    diffuse model; the depth-of-field camera too); returns the max abs
+    error."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_rtiow as fr
+    from cpu_based_ray_tracer_tpu_torch.scenes import rtiow
+
+    cases = dict(rtiow_configs(dev))
+    cfg_dof = cases["offline"][2]
+    cases["offline_dof"] = (rtiow.rtiow_classic_scene(dev),
+                            rtiow.offline_dof_camera(400 / 225, device=dev),
+                            cfg_dof)
+    max_err = 0.0
+    for name, (scene, cam, cfg) in cases.items():
+        pk, cam24, sf, si, p = fr._setup(scene, cam, cfg, SEED_KEY0, dev)
+        p = p._replace(n_steps=n_steps)
+        want_f, want_i = fr._steps_plain(pk, cam24, SEED_KEY0, sf, si, p)
+        got_f, got_i = fr.rtiow_steps(pk, cam24, SEED_KEY0, sf.clone(),
+                                      si.clone(), p)
+        sync(dev)
+        res = compare_planes(got_f, got_i, want_f, want_i)
+        emit(phase="rtiow_parity", case=name, mode="thinlens" if p.thinlens
+             else "perspective", config=f"{cfg.width}x{cfg.height} "
+             f"spp{cfg.spp} depth{cfg.max_depth}", n_steps=n_steps,
+             mean_n_done=float(want_i[2].float().mean()), **res)
+        if (res["int_mismatch_share"] > MAX_INT_MISMATCH
+                or not res["float_within_tol"]):
+            raise RuntimeError(f"fused_rtiow disagrees with its plain "
+                               f"version on {name}: {res}")
+        max_err = max(max_err, res["max_abs_err"])
+    return max_err
+
+
+def u8_gate(img, name: str, gamma: float, mean_tol, p99_tol) -> dict:
+    """An image against goldens/test/<name>.png by assert_close_u8's rule."""
+    from cpu_based_ray_tracer_tpu_torch.ops import tonemap
+    from cpu_based_ray_tracer_tpu_torch.utils import image as im
+
+    u8 = tonemap.quantize_u8(img, gamma=gamma).cpu().numpy()
+    gold = im.read_png(os.path.join(ROOT, "goldens", "test", name + ".png"))
+    if u8.shape != gold.shape:
+        raise RuntimeError(f"{name}: golden shape {gold.shape}, render "
+                           f"{u8.shape}")
+    d = np.abs(u8.astype(np.int32) - gold.astype(np.int32))
+    res = dict(mean_abs_diff=float(d.mean()), p99=float(np.percentile(d, 99)),
+               mean_tol=mean_tol, p99_tol=p99_tol)
+    if not (res["mean_abs_diff"] <= mean_tol and res["p99"] <= p99_tol):
+        raise RuntimeError(f"{name} disagrees with its golden: {res}")
+    return res
+
+
+def rtiow_golden_phase(dev, mean_tol=1.5, p99_tol=8):
+    """render_fused through the kernel at tools/make_goldens.py's test-tier
+    configurations of offline_rtiow, offline_dof and nppt."""
+    from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_rtiow as fr
+    from cpu_based_ray_tracer_tpu_torch.scenes import rtiow
+
+    cases = {
+        "offline_rtiow": (rtiow.offline_two_sphere_scene(dev),
+                          rtiow.offline_camera(200 / 112, device=dev),
+                          RenderConfig(width=200, height=112, spp=16,
+                                       max_depth=50), SEED_KEY0),
+        "offline_dof": (rtiow.rtiow_classic_scene(dev),
+                        rtiow.offline_dof_camera(200 / 112, device=dev),
+                        RenderConfig(width=200, height=112, spp=32,
+                                     max_depth=50), SEED_KEY4),
+        "nppt": (rtiow.nppt_scene(dev), rtiow.nppt_camera(dev),
+                 RenderConfig(width=128, height=128, spp=16, max_depth=50,
+                              gamma=1.0), SEED_KEY1)}
+    launches = fr.LAUNCHES
+    res = {name: u8_gate(fr.render_fused(sc, cam, cfg, seed, device=dev),
+                         name, cfg.gamma, mean_tol, p99_tol)
+           for name, (sc, cam, cfg, seed) in cases.items()}
+    emit(phase="rtiow_golden", launches=fr.LAUNCHES - launches, **res)
+    if dev.type == "cuda" and fr.LAUNCHES == launches:
+        raise RuntimeError("the RTIOW goldens launched no fused_rtiow kernel")
+
+
+def rtiow_main_phase(dev) -> dict:
+    """The two headline renders through render_fused, each with the launch
+    counters set to 0 just before and read just after; returns the
+    fused_rtiow launches by render."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_rtiow as fr
+
+    out = {}
+    for name, (scene, cam, cfg) in rtiow_configs(dev).items():
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        img = fr.render_fused(scene, cam, cfg, SEED_KEY0, device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        png = save_png(img, f"rtiow_{name}_{cfg.width}x{cfg.height}_"
+                       f"{cfg.spp}spp.png", gamma=cfg.gamma)
+        finite = bool(torch.isfinite(img).all())
+        mean_rad = float(img.mean())
+        emit(phase="rtiow_main", case=name, config=f"{cfg.width}x"
+             f"{cfg.height} {cfg.spp}spp depth{cfg.max_depth}",
+             seconds=secs, shape=list(img.shape), finite=finite,
+             mean_radiance=mean_rad, launches=counts, png=png)
+        if dev.type == "cuda" and counts["fused_rtiow"] <= 0:
+            raise RuntimeError(f"rtiow_main {name} launched no fused_rtiow "
+                               f"kernel")
+        if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
+                or not mean_rad > 0.0):
+            raise RuntimeError(f"the {name} image is wrong")
+        out[name] = counts["fused_rtiow"]
+    return out
+
+
+def rtiow_kinds(pk, sf, t_min: float):
+    """What each lane's ray meets, found independently of the kernel: the
+    nearest sphere by near-then-far roots -> its material's kind, -1 on a
+    miss."""
+    o, d = sf[0:3], sf[3:6]
+    best = torch.full_like(o[0], float("inf"))
+    mid = torch.full_like(o[0], -1.0)
+    for m in range(pk.n_sph):
+        oc = o - pk.sph[m, 0:3, None]
+        a = (d * d).sum(0)
+        hb = (oc * d).sum(0)
+        disc = hb * hb - a * ((oc * oc).sum(0) - pk.sph[m, 3] ** 2)
+        sq = torch.sqrt(disc.clamp(min=0.0))
+        t_near, t_far = (-hb - sq) / a, (-hb + sq) / a
+        ts = torch.where(t_near > t_min, t_near,
+                         torch.where(t_far > t_min, t_far, float("inf")))
+        ts = torch.where(disc > 0.0, ts, float("inf"))
+        closer = ts < best
+        best = torch.where(closer, ts, best)
+        mid = torch.where(closer, pk.sph[m, 4], mid)
+    kind = torch.full_like(mid, -1.0)
+    for k in range(pk.n_mat):
+        kind = torch.where(mid == k, pk.mat[k, 0], kind)
+    return kind
+
+
+def rtiow_ops(pk, cam24, sf, si, p) -> dict:
+    """The operations that p.n_steps steps from (sf, si) need: the kernel
+    steps one launch a step (not timed) and each live lane's ray is
+    classified before its step; the finished samples are the change in
+    n_done."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_rtiow as fr
+
+    sf, si = sf.clone(), si.clone()
+    nd0 = si[2].clone()
+    n = torch.zeros(5, dtype=torch.int64, device=sf.device)
+    one = p._replace(n_steps=1)
+    for _ in range(p.n_steps):
+        kind = rtiow_kinds(pk, sf, p.t_min)[si[2] < p.spp]
+        n += torch.stack([(kind > -2).sum(), (kind < 0).sum(),
+                          (kind == 0).sum(), (kind == 1).sum(),
+                          (kind == 2).sum()])
+        sf, si = fr.rtiow_steps(pk, cam24, SEED_KEY0, sf, si, one)
+    live, miss, lam, met, die = (int(x) for x in n)
+    regen = int((si[2] - nd0).sum())
+    ops = ((RTIOW_SPH_OPS * pk.n_sph) * live + RTIOW_MISS_OPS * miss
+           + RTIOW_HIT_OPS * (lam + met + die)
+           + RTIOW_LAMBERT_OPS[p.diffuse_model] * lam
+           + RTIOW_METAL_OPS * met + RTIOW_DIELECTRIC_OPS * die
+           + RTIOW_REGEN_OPS[p.thinlens] * regen)
+    return dict(ops=ops, live_lane_steps=live, miss=miss, lambert=lam,
+                metal=met, dielectric=die, samples_finished=regen)
+
+
+def rtiow_speed_phase(dev, smi, n_steps=128, n_iters=4) -> dict:
+    """The kernel alone on the NPPT cell (883x824 lanes): n_steps steps
+    from render_fused's initial state by CUDA events, ms per step of the
+    whole image; the plain version over the same steps from the same state;
+    the bound from the operations those steps need (rtiow_ops).  A lane
+    finishes at most one sample a step, so with n_steps < spp every lane
+    is live at every step of the window (checked)."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_rtiow as fr
+
+    scene, cam, cfg = rtiow_configs(dev)["nppt"]
+    pk, cam24, sf0, si0, p = fr._setup(scene, cam, cfg, SEED_KEY0, dev)
+    p = p._replace(n_steps=n_steps)
+    sf, si = sf0.clone(), si0.clone()
+    fr.rtiow_steps(pk, cam24, SEED_KEY0, sf, si, p)            # warm-up
+    ms = 0.0
+    for _ in range(n_iters):
+        sf.copy_(sf0)
+        si.copy_(si0)
+        ms += timed(lambda: fr.rtiow_steps(pk, cam24, SEED_KEY0, sf, si, p)
+                    ) / (n_iters * n_steps)
+    plain_ms = timed(lambda: fr._steps_plain(pk, cam24, SEED_KEY0, sf0, si0,
+                                             p)) / n_steps
+    r = p.n_pix
+    work = rtiow_ops(pk, cam24, sf0, si0, p)
+    if work["live_lane_steps"] != r * n_steps:
+        raise RuntimeError(f"lanes went idle inside the timed window: {work}")
+    nbytes = (12 + 3) * 4 * 2 * r          # state in + out, one launch
+    res = dict(ms=ms, plain_ms=plain_ms,
+               **bound(work["ops"] / n_steps, nbytes / n_steps))
+    emit(phase="rtiow_speed", nvidia_smi=smi, lanes=r, n_steps=n_steps,
+         n_iters=n_iters, spheres=pk.n_sph, work=work,
+         lane_steps_per_s=r / (ms * 1e-3), unit="ms per step", **res)
+    return res
+
+
+def denoiser_parity_phase(dev, cfg) -> dict:
+    """The single_path kernel against its plain version at full width:
+    ids and the contributor flag exact, color 2e-3, position and normal
+    1e-4 (tests/test_fused.py's gate)."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    fs = fused.pack_scene(scene)
+    want = fused._gbuffer(fused._steps_plain, fs, cam, cfg, SEED_KEY0, 3,
+                          dev)
+    got = fused.single_sample_gbuffer(fs, cam, cfg, SEED_KEY0, 3,
+                                      device=dev)
+    sync(dev)
+    res = dict(lanes=int(got[4].numel()),
+               contributors=int(got[4].sum()),
+               ids_equal=bool(torch.equal(got[3], want[3])),
+               contributor_equal=bool(torch.equal(got[4], want[4])))
+    ok = res["ids_equal"] and res["contributor_equal"]
+    for i, name, tol in ((0, "color", TOL), (1, "world_pos", 1e-4),
+                         (2, "normal", 1e-4)):
+        err = (got[i] - want[i]).abs()
+        res[name + "_max_abs_err"] = float(err.max())
+        ok &= bool((err <= tol + tol * want[i].abs()).all())
+    emit(phase="denoiser_parity", config=f"{cfg.width}x{cfg.height} "
+         f"depth{cfg.max_depth} rr{cfg.rr_survival}", **res)
+    if not ok:
+        raise RuntimeError(f"the single_path kernel disagrees with its "
+                           f"plain version: {res}")
+    return res["color_max_abs_err"]
+
+
+def denoiser_golden_phase(dev, mean_tol=2.0, p99_tol=16, n_frames=4):
+    """tools/make_goldens.denoiser_triple (128x128, 4 frames of a static
+    camera, JBF half-size 16) through the fused engine."""
+    from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+    from cpu_based_ray_tracer_tpu_torch.models import denoiser as dn
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    cfg = RenderConfig(width=128, height=128, max_depth=16, rr_survival=0.8)
+    params = dn.DenoiserParams(jbf_half_size=16)
+    launches = fused.LAUNCHES
+    imgs = {"denoiser_noisy_1spp": dn.render_gbuffer_fused(
+        scene, cam, cfg, SEED_KEY3, n_frames - 1, True, device=dev).color}
+    for name, p in (("denoiser_denoised", params),
+                    ("denoiser_denoised_noclamp",
+                     params.replace(immediate_clamping=False))):
+        imgs[name] = dn.render_sequence(scene, [cam] * n_frames, cfg,
+                                        SEED_KEY3, p, engine="fused",
+                                        device=dev)[-1]
+    res = {name: u8_gate(img, name, 1.0, mean_tol, p99_tol)
+           for name, img in imgs.items()}
+    emit(phase="denoiser_golden", launches=fused.LAUNCHES - launches, **res)
+
+
+def denoiser_main_phase(dev, cfg, n_frames=12) -> int:
+    """bench_passes' denoiser_fused_frame: render_sequence over 12 frames
+    of a static camera through the fused engine, the launch counters set
+    to 0 just before and read just after; one fused_mc launch a frame."""
+    from cpu_based_ray_tracer_tpu_torch.models import denoiser as dn
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    params = dn.DenoiserParams()
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    frames = dn.render_sequence(scene, [cam] * n_frames, cfg, SEED_KEY0,
+                                params, engine="fused", device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    # Steady state: a frame with history (temporal pass on), timed alone.
+    _, hist = dn.render_frame(scene, cam, cfg, SEED_KEY0, n_frames, None,
+                              params, engine="fused", device=dev)
+    sync(dev)
+    t1 = time.perf_counter()
+    dn.render_frame(scene, cam, cfg, SEED_KEY0, n_frames + 1, hist, params,
+                    engine="fused", device=dev)
+    sync(dev)
+    frame_s = time.perf_counter() - t1
+    img = frames[-1]
+    finite = all(bool(torch.isfinite(f).all()) for f in frames)
+    png = save_png(img, f"denoiser_{cfg.width}_{n_frames}frames.png")
+    emit(phase="denoiser_main", config=f"{cfg.width}x{cfg.height} spp1 "
+         f"depth{cfg.max_depth} rr{cfg.rr_survival} {params}",
+         frames=n_frames, seconds=secs, seconds_per_frame=secs / n_frames,
+         one_frame_seconds=frame_s, shape=list(img.shape), finite=finite,
+         mean=float(img.mean()), launches=counts, png=png)
+    if dev.type == "cuda" and counts["fused_mc"] != n_frames:
+        raise RuntimeError(f"the Denoiser sequence made {counts['fused_mc']}"
+                           f" fused_mc launches for {n_frames} frames")
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
+            or not float(img.mean()) > 0.0):
+        raise RuntimeError("the Denoiser frames are wrong")
+    return counts["fused_mc"]
+
+
+def single_path_work(fs, cam16, sf, si, gb, p) -> tuple:
+    """(live lane-steps, shadow rays) of one single_path launch from
+    (sf, si): the launch again one step at a time, untimed."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
+
+    core = fused._steps_kernel if sf.is_cuda else fused._steps_plain
+    one = p._replace(n_steps=1)
+    n = torch.zeros(2, dtype=torch.int64, device=sf.device)
+    for _ in range(p.n_steps):
+        live = (si[2] < 1).sum()
+        sf, si = core(fs, cam16, SEED_KEY0, sf.clone(), si.clone(), one,
+                      gb=gb)
+        n += torch.stack([live, si[3].sum()])
+    return tuple(int(x) for x in n)
+
+
+def single_path_speed_phase(dev, cfg, smi, n_iters=10) -> dict:
+    """One single_path launch of cfg.max_depth steps (the Denoiser frame's
+    G-buffer pass) alone by CUDA events, from the same initial state each
+    time; its plain version; the bound from the live lane-steps and the
+    shadow rays of that launch (counted by stepping the kernel one launch
+    a step, untimed: a lane is live until its one path ends)."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    fs = fused.pack_scene(scene)
+    cam16, sf0, si0, gb, p = fused._gbuffer_setup(cam, cfg, 3, dev)
+    sf, si = sf0.clone(), si0.clone()
+    fused._steps_kernel(fs, cam16, SEED_KEY0, sf, si, p, gb=gb)  # warm-up
+    ms = 0.0
+    for _ in range(n_iters):
+        sf.copy_(sf0)
+        si.copy_(si0)
+        ms += timed(lambda: fused._steps_kernel(fs, cam16, SEED_KEY0, sf, si,
+                                                p, gb=gb)) / n_iters
+    plain_ms = timed(lambda: fused._steps_plain(fs, cam16, SEED_KEY0, sf0,
+                                                si0, p, gb=gb.clone()))
+    n = single_path_work(fs, cam16, sf0, si0, gb, p)
+    live, shadow = n
+    r = cfg.width * cfg.height
+    nbytes = ((15 + 4) * 4 * 2 + 8 * 4) * r      # state in + out, G-buffer
+    res = dict(ms=ms, plain_ms=plain_ms,
+               **bound(mc_ops(fs.n_tri, fs.n_sph, live, shadow), nbytes))
+    emit(phase="single_path_speed", nvidia_smi=smi, lanes=r,
+         n_steps=cfg.max_depth, n_iters=n_iters, live_lane_steps=live,
+         shadow_rays=shadow, lane_steps_of_launch=r * cfg.max_depth,
+         unit="ms per single_path launch of max_depth steps", **res)
+    return res
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -1479,6 +1937,17 @@ def main():
     sl_launches, sl_err = mesh_fused_164k_phase(dev, cfg164)
     ssp = sl_speed_phase(dev, cfg164, smi)
 
+    r_err = rtiow_parity_phase(dev)
+    rtiow_golden_phase(dev)
+    r_launches = rtiow_main_phase(dev)
+    rsp = rtiow_speed_phase(dev, smi)
+    dcfg = RenderConfig(width=896, height=896, spp=1, max_depth=16,
+                        rr_survival=0.8)
+    d_err = denoiser_parity_phase(dev, dcfg)
+    denoiser_golden_phase(dev)
+    d_launches = denoiser_main_phase(dev, dcfg)
+    dsp = single_path_speed_phase(dev, dcfg, smi)
+
     r = full.width * full.height
     mesh_kernels = [{
         "name": f"fused_mesh_{k}", "route": "cuda",
@@ -1526,6 +1995,22 @@ def main():
         "ms": sp["kernel_ms"], "ms_per_step": sp["kernel_ms"],
         "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
         "bound_ms_per_step": sp["bound_ms"], "bound_by": sp["bound_by"],
+        "library_ms": None, "single_path_unit":
+            f"ms per single_path launch, {dcfg.width}x{dcfg.height} lanes, "
+            f"{dcfg.max_depth} steps (the Denoiser frame's G-buffer)",
+        "single_path_launches": d_launches, "single_path_max_abs_err": d_err,
+        "single_path_ms": dsp["ms"], "single_path_plain_ms": dsp["plain_ms"],
+        "single_path_bound_ms": dsp["bound_ms"],
+        "single_path_bound_by": dsp["bound_by"]}, {
+        "name": "fused_rtiow", "route": "cuda",
+        "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_rtiow.cu",
+        "replaces": RTIOW_TPU, "tpu_kernel": "ops/fused_rtiow.py::_kernel",
+        "unit": "ms per step of 883x824 lanes, the NPPT cell, 128-step "
+                "launches from the initial state",
+        "launches": sum(r_launches.values()),
+        "launches_by_render": r_launches, "max_abs_err": r_err,
+        "ms": rsp["ms"], "plain_ms": rsp["plain_ms"],
+        "bound_ms": rsp["bound_ms"], "bound_by": rsp["bound_by"],
         "library_ms": None}, {
         "name": "fused_whitted", "route": "cuda",
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_whitted.cu",

@@ -1,8 +1,11 @@
-"""Perspective camera and ray generation (port of
-``cpu_based_ray_tracer_tpu.camera``, the ``PerspectiveCamera`` part).
+"""Cameras and ray generation (port of ``cpu_based_ray_tracer_tpu.camera``).
 
-Same floating-point operation order as the JAX package: the fused kernel's
-in-kernel camera ray (``ops.fused`` / ``csrc/fused_mc.cu``) relies on it.
+- ``ThinLensCamera``: the RTIOW look-from/look-at camera with an aperture
+  (the offline prototype's depth of field);
+- ``PerspectiveCamera``: the interactive GUI camera.
+
+Same floating-point operation order as the JAX package: the fused kernels'
+in-kernel camera rays (``ops.fused``, ``ops.fused_rtiow``) rely on it.
 Row 0 is the TOP scanline.
 """
 
@@ -17,8 +20,68 @@ import torch
 from cpu_based_ray_tracer_tpu_torch.ops import vec
 
 
+class _Fields:
+    def to(self, device):
+        return type(self)(*(getattr(self, f.name).to(device)
+                            for f in dataclasses.fields(self)))
+
+
 @dataclasses.dataclass(frozen=True)
-class PerspectiveCamera:
+class ThinLensCamera(_Fields):
+    """RTIOW thin-lens camera: focus distance |look_at - look_from|,
+    aperture 0 disables depth of field."""
+
+    origin: torch.Tensor       # (3,)
+    lower_left: torch.Tensor   # (3,) lower-left corner of the image plane
+    horizontal: torch.Tensor   # (3,) full-width image-plane vector
+    vertical: torch.Tensor     # (3,) full-height image-plane vector
+    u: torch.Tensor            # (3,) camera basis (right)
+    v: torch.Tensor            # (3,) camera basis (up)
+    lens_radius: torch.Tensor  # () aperture / 2
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def make_thin_lens_camera(look_from, look_at, up, vfov_degrees, aspect_ratio,
+                          aperture=0.0, device="cpu") -> ThinLensCamera:
+    """Built in float64 numpy, stored as float32 (as the JAX package)."""
+    look_from = np.asarray(look_from, np.float64)
+    look_at = np.asarray(look_at, np.float64)
+    up = np.asarray(up, np.float64)
+    half_h = np.tan(np.radians(vfov_degrees) / 2.0)
+    half_w = aspect_ratio * half_h
+    w = look_from - look_at
+    focus = np.linalg.norm(w)
+    w = w / focus
+    u = np.cross(up, w)
+    u = u / np.linalg.norm(u)
+    v = np.cross(w, u)
+    lower_left = look_from - half_w * focus * u - half_h * focus * v - focus * w
+    return ThinLensCamera(
+        origin=_f32(look_from, device), lower_left=_f32(lower_left, device),
+        horizontal=_f32(2 * half_w * focus * u, device),
+        vertical=_f32(2 * half_h * focus * v, device),
+        u=_f32(u, device), v=_f32(v, device),
+        lens_radius=_f32(aperture / 2.0, device))
+
+
+def thin_lens_rays(cam: ThinLensCamera, s, t, lens_u1, lens_u2):
+    """Rays for image-plane coords s (left to right) and t (bottom to top)
+    in [0, 1]: the origin jittered on the lens disk by the U[0,1) draws
+    ``lens_u1`` / ``lens_u2``, the unit direction to the focus-plane point.
+    Returns (origin, direction), each (..., 3)."""
+    disk = vec.disk_from(lens_u1, lens_u2) * cam.lens_radius
+    offset = cam.u * disk[..., 0:1] + cam.v * disk[..., 1:2]
+    origin = cam.origin + offset
+    target = (cam.lower_left + s[..., None] * cam.horizontal
+              + t[..., None] * cam.vertical)
+    return origin, vec.normalize(target - origin)
+
+
+@dataclasses.dataclass(frozen=True)
+class PerspectiveCamera(_Fields):
     """GUI fly-camera pose; width/height are arguments of the ray-gen."""
 
     position: torch.Tensor      # (3,)
@@ -26,21 +89,16 @@ class PerspectiveCamera:
     up: torch.Tensor            # (3,) world up
     vfov_degrees: torch.Tensor  # ()
 
-    def to(self, device) -> "PerspectiveCamera":
-        return PerspectiveCamera(*(getattr(self, f.name).to(device)
-                                   for f in dataclasses.fields(self)))
-
 
 def make_perspective_camera(position, forward, up=(0.0, 1.0, 0.0),
                             vfov_degrees=45.0, device="cpu"
                             ) -> PerspectiveCamera:
     fwd = np.asarray(forward, np.float64)
     fwd = fwd / np.linalg.norm(fwd)
-    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),  # noqa: E731
-                                    device=device)
-    return PerspectiveCamera(position=f32(position), forward=f32(fwd),
-                             up=f32(np.asarray(up, np.float64)),
-                             vfov_degrees=f32(vfov_degrees))
+    return PerspectiveCamera(
+        position=_f32(position, device), forward=_f32(fwd, device),
+        up=_f32(np.asarray(up, np.float64), device),
+        vfov_degrees=_f32(vfov_degrees, device))
 
 
 def camera_basis(cam: PerspectiveCamera):
@@ -55,16 +113,9 @@ def tan_half_fov(cam: PerspectiveCamera) -> torch.Tensor:
     return torch.tan(cam.vfov_degrees * (math.pi / 180.0) / 2.0)
 
 
-def _div(x: torch.Tensor, c) -> torch.Tensor:
-    # A tensor divisor: CUDA builds of PyTorch turn a division by a Python
-    # scalar into a multiplication by its reciprocal, which rounds
-    # differently from the IEEE division of the JAX package and the kernel.
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
-
-
 def _dirs(cam, width, height, x, y, jx, jy):
-    ndc_x = _div(x + jx, width) * 2.0 - 1.0
-    ndc_y = -(_div(y + jy, height) * 2.0 - 1.0)  # row 0 = top scanline
+    ndc_x = vec.div(x + jx, width) * 2.0 - 1.0
+    ndc_y = -(vec.div(y + jy, height) * 2.0 - 1.0)  # row 0 = top scanline
     t = tan_half_fov(cam)
     aspect = width / height
     right, true_up, fwd = camera_basis(cam)
@@ -106,3 +157,29 @@ def perspective_ray_at(cam: PerspectiveCamera, width: int, height: int,
     x = (pixel % width).to(torch.float32)
     y = (pixel // width).to(torch.float32)
     return _dirs(cam, width, height, x, y, jx, jy)
+
+
+def view_proj_matrices(cam: PerspectiveCamera, width: int, height: int,
+                       near: float = 0.1, far: float = 100.0):
+    """(view, proj) 4x4 float32 matrices matching glm::lookAt and
+    glm::perspectiveFov (right-handed, NDC z in [-1, 1]); row-major, so
+    ``view @ [p; 1]``.  The temporal denoiser reprojects through the
+    previous frame's pair."""
+    right, true_up, fwd = camera_basis(cam)
+    eye = cam.position
+    one = torch.ones((1,), dtype=eye.dtype, device=eye.device)
+    view = torch.stack([
+        torch.cat([right, -vec.dot(right, eye)]),
+        torch.cat([true_up, -vec.dot(true_up, eye)]),
+        torch.cat([-fwd, vec.dot(fwd, eye)]),
+        torch.cat([torch.zeros((3,), dtype=eye.dtype, device=eye.device),
+                   one])])
+    f = 1.0 / tan_half_fov(cam)
+    aspect = width / height
+    proj = torch.zeros((4, 4), dtype=eye.dtype, device=eye.device)
+    proj[0, 0] = vec.div(f, aspect)
+    proj[1, 1] = f
+    proj[2, 2] = -(far + near) / (far - near)
+    proj[2, 3] = -(2.0 * far * near) / (far - near)
+    proj[3, 2] = -1.0
+    return view, proj

@@ -3,7 +3,9 @@
 //
 // Replaces: cpu_based_ray_tracer_tpu/ops/fused.py::_kernel, the Pallas TPU
 // kernel launched by _run from wavefront_steps_fused (plain and stop_after
-// modes; the single_path G-buffer mode is not ported yet).
+// modes) and from single_sample_gbuffer (single_path mode: quota 1, the
+// sample index pinned, the primary hit's 8-plane G-buffer written at the
+// launch's first step — the Denoiser frame).
 //
 // What bounds it on this card: arithmetic.  Each lane-step runs two
 // Moller-Trumbore passes over every triangle (main hit, then the shadow
@@ -96,9 +98,13 @@ __device__ __forceinline__ void norm3(float& x, float& y, float& z) {
   z = z * inv;
 }
 
+// SINGLE_PATH: a template parameter, so the plain and stop_after modes
+// compile to the kernel they were before the mode existed.
+template <bool SINGLE_PATH>
 __global__ void __launch_bounds__(256)
 fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
-                float* __restrict__ sf, int* __restrict__ si) {
+                float* __restrict__ sf, int* __restrict__ si,
+                float* __restrict__ gb) {
   extern __shared__ float sm[];
   for (int i = threadIdx.x; i < p.scene_words; i += blockDim.x)
     sm[i] = scene_g[i];
@@ -123,7 +129,8 @@ fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
   const float light_pdf =
       light_valid ? 1.0f / fmaxf(light_total, 1e-20f) : 0.0f;
   const float width_f = (float)p.width, height_f = (float)p.height;
-  const bool gated = p.stop_after > 0;
+  const int quota = SINGLE_PATH ? 1 : p.stop_after;
+  const bool gated = quota > 0;
 
   const uint32_t pix = (uint32_t)lane;
   const bool valid = pix < (uint32_t)p.n_pix;
@@ -140,13 +147,14 @@ fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
   float azp = sf[14 * R + lane];
 
   for (int step = 0; step < p.n_steps; ++step) {
-    const bool armed = nd < p.stop_after;
+    const bool armed = nd < quota;
     const bool alive0 = gated ? (valid && armed) : valid;
 
     // --- main intersect: Moller-Trumbore over triangles, then spheres -----
     float best_t = NO_HIT, bnx = 0.f, bny = 0.f, bnz = 0.f;
     float al0 = 0.f, al1 = 0.f, al2 = 0.f, em0 = 0.f, em1 = 0.f, em2 = 0.f;
     float bef = 0.f;
+    float bpid = 0.f;  // global primitive id (single_path's G-buffer)
     for (int n = 0; n < p.n_tri; ++n) {
       const float* T = tri + n * TRI_W;
       const float v0x = T[0], v0y = T[1], v0z = T[2];
@@ -173,6 +181,7 @@ fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
         al0 = T[12]; al1 = T[13]; al2 = T[14];
         em0 = T[15]; em1 = T[16]; em2 = T[17];
         bef = T[18];
+        if (SINGLE_PATH) bpid = (float)(n + 1);
       }
     }
     for (int m = 0; m < p.n_sph; ++m) {
@@ -201,6 +210,7 @@ fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
         al0 = S[4]; al1 = S[5]; al2 = S[6];
         em0 = S[7]; em1 = S[8]; em2 = S[9];
         bef = S[10];
+        if (SINGLE_PATH) bpid = (float)(p.n_tri + m + 1);
       }
     }
 
@@ -238,6 +248,18 @@ fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
     const float hx = ox + t_pt * dx + nxp * p.eps_offset;
     const float hy = oy + t_pt * dy + nyp * p.eps_offset;
     const float hz = oz + t_pt * dz + nzp * p.eps_offset;
+    if (SINGLE_PATH && step == 0) {
+      // The primary hit: world position without the eps offset, facing
+      // normal, global primitive id (-1 on a miss), contributor flag.
+      gb[0 * R + lane] = ox + t_pt * dx;
+      gb[1 * R + lane] = oy + t_pt * dy;
+      gb[2 * R + lane] = oz + t_pt * dz;
+      gb[3 * R + lane] = nxp;
+      gb[4 * R + lane] = nyp;
+      gb[5 * R + lane] = nzp;
+      gb[6 * R + lane] = hit ? bpid : -1.0f;
+      gb[7 * R + lane] = hit ? 1.0f : 0.0f;
+    }
 
     // --- NEE: one area-light sample ------------------------------------------
     float ul[4];
@@ -358,7 +380,7 @@ fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
       ayp = ayp + cuy;
       azp = azp + cuz;
       nd += 1;
-      s += 1;
+      if (!SINGLE_PATH) s += 1;
       cux = 0.0f;
       cuy = 0.0f;
       cuz = 0.0f;
@@ -404,14 +426,17 @@ fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
 // Advances every lane of the (15, R) f32 / (4, R) i32 state planes by
 // n_steps bounces, in place, on `stream`.  `scene` is the concatenation
 // tri (n_tri, 20) | sph (max(n_sph, 1), 16) | light (n_light, 16) | sky (8)
-// | cam (16), `scene_words` floats in all.  Returns cudaGetLastError().
+// | cam (16), `scene_words` floats in all.  With single_path != 0 the
+// (8, R) f32 G-buffer `gb` is written (stop_after is then ignored).
+// Returns cudaGetLastError().
 extern "C" int fused_mc_steps(const float* scene, int scene_words, int n_tri,
                               int n_sph, int n_light, uint32_t seed,
                               float* sf, int* si, int R, int n_pix, int width,
                               int height, int n_steps, float t_min,
                               float eps_offset, float rr_survival,
                               float inv_rr, float shadow_tol, float aspect,
-                              int max_depth, int stop_after, void* stream) {
+                              int max_depth, int stop_after, int single_path,
+                              float* gb, void* stream) {
   Params p;
   p.n_tri = n_tri;
   p.n_sph = n_sph;
@@ -436,16 +461,18 @@ extern "C" int fused_mc_steps(const float* scene, int scene_words, int n_tri,
   p.aspect = aspect;
   p.max_depth = max_depth;
   p.stop_after = stop_after;
+  if (single_path && gb == nullptr) return (int)cudaErrorInvalidValue;
+  const auto kernel =
+      single_path ? fused_mc_kernel<true> : fused_mc_kernel<false>;
   const size_t smem = (size_t)scene_words * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_mc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int threads = 256;
   const int blocks = (R + threads - 1) / threads;
-  fused_mc_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      p, scene, sf, si);
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p, scene, sf, si,
+                                                          gb);
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,10 @@ arrays, nested as the dataclasses are::
      "lights": {"position": ..., "radiance": ...},
      "sky_bottom": ..., "sky_top": ...}
 
-and ``camera_from_arrays`` the camera's ``position``, ``forward``, ``up``
-and ``vfov_degrees``.  Fed the same arrays, both packages compute the same
+and ``camera_from_arrays`` a camera's leaves: ``position``, ``forward``,
+``up`` and ``vfov_degrees`` of a ``PerspectiveCamera``, or ``origin``,
+``lower_left``, ``horizontal``, ``vertical``, ``u``, ``v`` and
+``lens_radius`` of a ``ThinLensCamera``.  Fed the same arrays, both packages compute the same
 image.  ``scene_to_arrays`` / ``camera_to_arrays`` go the other way.
 ``mesh_pack_from_arrays`` and ``coherent_pack_from_arrays`` carry the
 fused mesh engine's and the shortlist intersector's packs across.
@@ -26,7 +28,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from cpu_based_ray_tracer_tpu_torch.camera import PerspectiveCamera
+from cpu_based_ray_tracer_tpu_torch.camera import (PerspectiveCamera,
+                                                   ThinLensCamera)
 from cpu_based_ray_tracer_tpu_torch.scene import (Materials, PointLights,
                                                   Scene, Spheres, Triangles)
 
@@ -67,12 +70,14 @@ def scene_to_arrays(scene: Scene) -> dict:
     return out
 
 
-def camera_from_arrays(d: dict, device="cpu") -> PerspectiveCamera:
-    """A ``PerspectiveCamera`` on ``device`` from numpy leaves."""
-    return _build(PerspectiveCamera, d, device)
+def camera_from_arrays(d: dict, device="cpu"):
+    """A ``PerspectiveCamera``, or a ``ThinLensCamera`` where the leaves
+    hold ``lens_radius``, on ``device`` from numpy leaves."""
+    cls = ThinLensCamera if "lens_radius" in d else PerspectiveCamera
+    return _build(cls, d, device)
 
 
-def camera_to_arrays(camera: PerspectiveCamera) -> dict:
+def camera_to_arrays(camera) -> dict:
     return {f.name: getattr(camera, f.name).cpu().numpy()
             for f in dataclasses.fields(camera)}
 

@@ -118,10 +118,13 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
 
 def trace(scene: Scene, origin, direction, cfg: RenderConfig, *, seed, pixel,
           sample, count_rays: bool = False, intersect_fn=None,
-          nearest_t_fn=None):
+          nearest_t_fn=None, first_hit: intersect.Hit | None = None):
     """Path radiance for a batch of primary rays, (R, 3): the fixed-depth
     engine (every lane runs all ``cfg.max_depth`` bounces, dead ones
-    masked).  ``count_rays``: also return the rays traced (main + shadow)."""
+    masked).  ``count_rays``: also return the rays traced (main + shadow).
+    ``first_hit``: the already-computed ``intersect.Hit`` of these primary
+    rays (the Denoiser's G-buffer needs it anyway); bounce 0 uses it in
+    place of a second intersection, with the same result."""
     r = origin.shape[0]
     o, d = origin, direction
     tp = torch.ones((r, 3), dtype=origin.dtype, device=origin.device)
@@ -129,9 +132,12 @@ def trace(scene: Scene, origin, direction, cfg: RenderConfig, *, seed, pixel,
     alive = torch.ones((r,), dtype=torch.bool, device=origin.device)
     nrays = torch.zeros((), dtype=torch.int64, device=origin.device)
     for bounce in range(cfg.max_depth):
+        fn = intersect_fn
+        if bounce == 0 and first_hit is not None:
+            fn = lambda *_args: first_hit  # noqa: E731
         delta, o, d, tp, alive, n_main, n_shadow = _bounce_step(
             scene, cfg, seed=seed, pixel=pixel, sample=sample, bounce=bounce,
-            o=o, d=d, throughput=tp, alive=alive, intersect_fn=intersect_fn,
+            o=o, d=d, throughput=tp, alive=alive, intersect_fn=fn,
             nearest_t_fn=nearest_t_fn)
         radiance = radiance + delta
         nrays = nrays + n_main + n_shadow

@@ -16,10 +16,11 @@ pcg4d streams, the same estimator, the same masking.
   vectorized over lanes, looping over primitives.  The wrapper runs it for
   CPU tensors only; ``chip_smoke.py`` holds the kernel against it.
 
-Modes: plain (lanes regenerate forever — equal-time progressive) and
+Modes: plain (lanes regenerate forever — equal-time progressive),
 ``stop_after`` (a lane that has completed that many samples idles — the
-equal-spp estimator).  The G-buffer ``single_path`` mode waits for the
-Denoiser slice.
+equal-spp estimator) and ``single_path`` (the Denoiser frame: one sample
+per lane with its sample index pinned, and the primary hit's 8-plane
+G-buffer written at the launch's first step — ``single_sample_gbuffer``).
 """
 
 from __future__ import annotations
@@ -144,6 +145,7 @@ class _Params(NamedTuple):
     shadow_tol: float
     max_depth: int
     stop_after: int
+    single_path: bool = False
 
 
 # --- plain version: the kernel's arithmetic in PyTorch ----------------------
@@ -195,7 +197,8 @@ def lanes(r: int, width: int, n_pix: int, pixel_offset: int, device) -> Lanes:
 
 
 def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
-                   ln: Lanes, planes, s, bb, nd, hit, mat, nrm, pt, occluded):
+                   ln: Lanes, planes, s, bb, nd, hit, mat, nrm, pt, occluded,
+                   single_path: bool = False):
     """A bounce step after its intersection, lane for lane as the kernels:
     sky/emissive on primary bounces, NEE (the shadow ray tested against
     the occluders ``occ`` = (tri rows, n_tri, sphere rows, n_sph), ORed
@@ -205,8 +208,9 @@ def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
     hit something; ``mat``: the hit's (albedo 3, emission 3, emissive
     flag); ``nrm``/``pt``: the facing unit normal and the shading point.
     ``p`` carries width, height, t_min, shadow_tol, rr_survival, max_depth
-    and stop_after.  Returns (the 15 next planes, s, b, n_done, the lanes
-    that traced a shadow ray)."""
+    and stop_after; ``single_path`` sets the quota to 1 and pins ``s``
+    (the Denoiser's G-buffer pass).  Returns (the 15
+    next planes, s, b, n_done, the lanes that traced a shadow ray)."""
     where = torch.where
     dev = s.device
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
@@ -231,8 +235,9 @@ def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
     bal, bem, bef = mat
     nxp, nyp, nzp = nrm
     hx, hy, hz = pt
-    gated = p.stop_after > 0
-    armed = nd < p.stop_after
+    quota = 1 if single_path else p.stop_after
+    gated = quota > 0
+    armed = nd < quota
     alive0 = (ln.valid & armed) if gated else ln.valid
     hit_emissive = hit & (bef > 0.5)
     is_primary = bb == 0
@@ -339,7 +344,8 @@ def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
     ayp = ayp + where(done, cuy, 0.0)
     azp = azp + where(done, cuz, 0.0)
     nd = nd + done.to(torch.int32)
-    s = s + done.to(torch.int32)
+    if not single_path:
+        s = s + done.to(torch.int32)
     uj0, uj1, _, _ = rng_mod.uniforms4(seed, ln.pix, s, 0, rng_mod.JITTER)
     ndc_x = (ln.pxf + uj0) / width_f * 2.0 - 1.0
     ndc_y = -((ln.pyf + uj1) / height_f * 2.0 - 1.0)
@@ -357,10 +363,14 @@ def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
     return planes, s, bb, nd, alive
 
 
-def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
+def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
+                 gb=None):
     """``n_steps`` bounces of every lane; sf (15, R) f32, si (4, R) i32 in
     the kernel's layout.  Returns new (sf, si) with si[3] = per-lane shadow
-    rays traced."""
+    rays traced.  ``single_path`` mode writes the (8, R) f32 G-buffer
+    ``gb`` in place: world position, facing normal, global primitive id
+    (triangle n -> n+1, live sphere m -> n_tri+m+1, miss -> -1) and the
+    contributor flag of each lane's ray at the first step."""
     where = torch.where
     dev = sf.device
     r = sf.shape[1]
@@ -373,7 +383,7 @@ def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
     s, bb, nd = si[0], si[1], si[2]
     nsh = torch.zeros_like(s)
     planes = list(sf.unbind(0))
-    for _ in range(p.n_steps):
+    for step in range(p.n_steps):
         ox, oy, oz, dx, dy, dz = planes[0:6]
 
         # --- main intersect: Moller-Trumbore over triangles, then spheres --
@@ -405,6 +415,7 @@ def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
                       fs.tri[best_n.clamp(min=0), 9:19], 0.0)
         bnx, bny, bnz, ar, ag, ab, er, eg, eb, bef = attrs.unbind(1)
         bal, bem = [ar, ag, ab], [er, eg, eb]
+        bpid = (best_n + 1).to(torch.float32)
         for m in range(fs.n_sph):
             (cx, cy, cz, rad, ar, ag, ab, er, eg, eb, ef) = SPH[m]
             ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
@@ -429,6 +440,7 @@ def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
             bal = [where(ok, v, o) for v, o in zip((ar, ag, ab), bal)]
             bem = [where(ok, v, o) for v, o in zip((er, eg, eb), bem)]
             bef = where(ok, ef, bef)
+            bpid = where(ok, float(fs.n_tri + m + 1), bpid)
         hit = best_t < NO_HIT
 
         # Facing normal + epsilon-offset shading point.
@@ -439,11 +451,15 @@ def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
         hx = ox + t_pt * dx + nxp * p.eps_offset
         hy = oy + t_pt * dy + nyp * p.eps_offset
         hz = oz + t_pt * dz + nzp * p.eps_offset
+        if p.single_path and step == 0:
+            gb[:] = torch.stack([
+                ox + t_pt * dx, oy + t_pt * dy, oz + t_pt * dz, nxp, nyp,
+                nzp, where(hit, bpid, -1.0), hit.to(torch.float32)])
 
         planes, s, bb, nd, alive = _shade_advance(
             occ, fs.light, fs.n_light, fs.sky, cam16, seed, p, ln, planes,
             s, bb, nd, hit, (bal, bem, bef), (nxp, nyp, nzp), (hx, hy, hz),
-            torch.zeros((r,), dtype=torch.bool, device=dev))
+            torch.zeros((r,), dtype=torch.bool, device=dev), p.single_path)
         nsh = nsh + alive.to(torch.int32)
 
     sf_out = torch.stack(planes)
@@ -463,6 +479,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int,             # scene words
              ctypes.c_float, ctypes.c_float,            # rr_survival 1/rr
              ctypes.c_float, ctypes.c_float,            # shadow_tol aspect
              ctypes.c_int, ctypes.c_int,                # max_depth stop_after
+             ctypes.c_int, ctypes.c_void_p,             # single_path gb
              ctypes.c_void_p]                           # stream
 
 
@@ -475,15 +492,23 @@ def _lib():
     return lib
 
 
-def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
-    """Launch csrc/fused_mc.cu on CUDA tensors; updates sf/si in place."""
+def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
+                  gb=None):
+    """Launch csrc/fused_mc.cu on CUDA tensors; updates sf/si (and, in
+    ``single_path`` mode, the (8, R) G-buffer ``gb``) in place."""
     global LAUNCHES
-    for x, dt in ((sf, torch.float32), (si, torch.int32)):
-        if not (x.is_cuda and x.dtype == dt and x.is_contiguous()):
+    planes = ((sf, torch.float32), (si, torch.int32))
+    if p.single_path:
+        planes += ((gb, torch.float32),)
+    for x, dt in planes:
+        if not (isinstance(x, torch.Tensor) and x.is_cuda and x.dtype == dt
+                and x.is_contiguous()):
             raise ValueError("fused_mc takes contiguous CUDA state planes "
-                             "(15, R) float32 and (4, R) int32")
+                             "(15, R) float32 and (4, R) int32, and in "
+                             "single_path mode an (8, R) float32 G-buffer")
     r = sf.shape[1]
-    if sf.shape != (15, r) or si.shape != (4, r):
+    if (sf.shape != (15, r) or si.shape != (4, r)
+            or (p.single_path and gb.shape != (8, r))):
         raise ValueError(f"bad state plane shapes {tuple(sf.shape)}, "
                          f"{tuple(si.shape)}")
     if r == 0:
@@ -498,6 +523,7 @@ def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params):
             p.height, p.n_steps, p.t_min, p.eps_offset, p.rr_survival,
             1.0 / p.rr_survival, p.shadow_tol,
             float(p.width) / float(p.height), p.max_depth, p.stop_after,
+            int(p.single_path), gb.data_ptr() if p.single_path else None,
             torch.cuda.current_stream(sf.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_mc kernel launch failed: cudaError {rc}")
@@ -571,3 +597,51 @@ def wavefront_steps_fused_plain(fs: FusedScene, camera, cfg: RenderConfig,
     (the kernel's arithmetic, vectorized over lanes)."""
     return _run(_steps_plain, fs, camera, cfg, seed, state, n_steps,
                 stop_after)
+
+
+def _gbuffer_setup(camera, cfg: RenderConfig, frame_index: int, dev):
+    """Camera words, lane state, G-buffer and parameters of a single-path
+    launch: every lane on its pixel-center primary ray of sample
+    ``frame_index``."""
+    h, w = cfg.height, cfg.width
+    n_pix = h * w
+    camera = camera.to(dev)
+    d = cam_mod.perspective_rays(camera, w, h).reshape(-1, 3)
+    o = camera.position.expand(d.shape)
+    ones = torch.ones((n_pix, 3), dtype=torch.float32, device=dev)
+    zeros = torch.zeros_like(ones)
+    sf = torch.cat([o.T, d.T, ones.T, zeros.T, zeros.T]).contiguous()
+    si = torch.zeros((4, n_pix), dtype=torch.int32, device=dev)
+    si[0] = int(frame_index)
+    gb = torch.empty((8, n_pix), dtype=torch.float32, device=dev)
+    p = _Params(n_steps=int(cfg.max_depth), width=w, height=h, n_pix=n_pix,
+                t_min=float(cfg.t_min), eps_offset=float(cfg.eps_offset),
+                rr_survival=float(cfg.rr_survival),
+                shadow_tol=float(cfg.shadow_tolerance),
+                max_depth=int(cfg.max_depth), stop_after=0, single_path=True)
+    return _camera_words(camera), sf, si, gb, p
+
+
+def _gbuffer(core, fs: FusedScene, camera, cfg: RenderConfig, seed: int,
+             frame_index: int, dev):
+    cam16, sf, si, gb, p = _gbuffer_setup(camera, cfg, frame_index, dev)
+    sf2, _ = core(fs.to(dev), cam16, int(seed) & 0xFFFFFFFF, sf, si, p,
+                  gb=gb)
+    return (sf2[12:15].T, gb[0:3].T, gb[3:6].T, gb[6].to(torch.int32),
+            gb[7] > 0.5)
+
+
+def single_sample_gbuffer(fs: FusedScene, camera, cfg: RenderConfig,
+                          seed: int, frame_index: int, *, device=None):
+    """ONE sample per pixel and the primary hit's G-buffer, fused: the
+    Denoiser stage's frame (pixel-center primaries, the full path radiance
+    of sample ``frame_index``) in ``single_path`` mode, one launch of
+    ``cfg.max_depth`` steps (the depth cap retires every lane), on
+    ``device`` (default: the card; the plain version on the CPU).
+
+    Returns ``(color (R, 3), world_pos (R, 3), normal (R, 3), prim_id (R,)
+    i32, contributor (R,) bool)`` in row-major pixel order; ``prim_id`` as
+    ``models.denoiser.global_prim_id`` over the pack's live spheres."""
+    dev = kernels.resolve_device(device)
+    core = _steps_kernel if dev.type == "cuda" else _steps_plain
+    return _gbuffer(core, fs, camera, cfg, seed, frame_index, dev)

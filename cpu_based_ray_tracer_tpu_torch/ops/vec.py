@@ -1,5 +1,5 @@
-"""Vector math and direction sampling, the MC and Whitted subsets
-(port of ``cpu_based_ray_tracer_tpu.ops.vec``).
+"""Vector math and direction sampling (port of
+``cpu_based_ray_tracer_tpu.ops.vec``).
 
 Functions over (..., 3) tensors.  Three-element sums are written out as
 ``x0 + x1 + x2``, the order in which the JAX package's ``jnp.sum`` over a
@@ -15,6 +15,14 @@ import torch
 
 def _sum3(p: torch.Tensor) -> torch.Tensor:
     return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def div(x: torch.Tensor, c) -> torch.Tensor:
+    """x / c for a Python number c, divided as a 0-dim tensor: CUDA builds
+    of PyTorch turn a division by a Python scalar into a multiplication by
+    its reciprocal, which rounds differently from the IEEE division of the
+    JAX package and of the kernels."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
 def dot(a, b):
@@ -48,6 +56,34 @@ def lerp(a, b, t):
 def reflect(d, n):
     """Mirror reflection of direction d about unit normal n."""
     return d - 2.0 * dot(d, n) * n
+
+
+def refract(d, n, eta_ratio):
+    """Snell refraction of unit incident d through unit normal n with
+    eta_ratio = eta_in / eta_out (broadcast over the last axis).  Returns
+    the refracted direction (the zero vector under total internal
+    reflection) and the TIR mask."""
+    cos_theta = torch.clamp(-dot(d, n), max=1.0)
+    sin2 = torch.clamp(1.0 - cos_theta * cos_theta, min=0.0)
+    sin2_refr = eta_ratio * eta_ratio * sin2
+    tir = sin2_refr > 1.0
+    cos_refr = torch.sqrt(torch.clamp(1.0 - sin2_refr, min=0.0))
+    out = eta_ratio * d + (eta_ratio * cos_theta - cos_refr) * n
+    return torch.where(tir, 0.0, out), tir[..., 0]
+
+
+def pow5(x):
+    """x ** 5 as the products XLA expands an integer power into:
+    x * ((x * x) * (x * x))."""
+    x2 = x * x
+    return x * (x2 * x2)
+
+
+def schlick(cos_theta, eta_ratio):
+    """Schlick reflectance approximation."""
+    r0 = (1.0 - eta_ratio) / (1.0 + eta_ratio)
+    r0 = r0 * r0
+    return r0 + (1.0 - r0) * pow5(1.0 - cos_theta)
 
 
 def fresnel_exact(cos_incident, eta_in, eta_out):
@@ -104,6 +140,39 @@ def orthonormal_frame(n):
     y = normalize(torch.where(use_x, y_a, y_b))
     x = cross(y, n)
     return x, y
+
+
+# --- Samplers: explicit U[0,1) draws from utils.rng.uniforms4 ---------------
+
+def sphere_from(u1, u2):
+    """Uniform on the unit sphere, (..., 3)."""
+    z = 1.0 - 2.0 * u1
+    r_xy = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = (2.0 * math.pi) * u2
+    return torch.stack([r_xy * torch.cos(phi), r_xy * torch.sin(phi), z], -1)
+
+
+def cube_root_radius(u3):
+    """u3 ** (1/3), the radius of a uniform ball sample."""
+    return torch.pow(u3, 1.0 / 3.0)
+
+
+def ball_from(u1, u2, u3):
+    """Uniform in the unit ball: a sphere sample scaled by u3 ** (1/3)."""
+    return sphere_from(u1, u2) * cube_root_radius(u3)[..., None]
+
+
+def hemisphere_volume_from(normal, u1, u2, u3):
+    """Uniform in the unit half-ball around ``normal``."""
+    d = ball_from(u1, u2, u3)
+    return torch.where(dot(d, normal) > 0.0, d, -d)
+
+
+def disk_from(u1, u2):
+    """Uniform in the unit xy-disk (thin-lens depth of field), (..., 2)."""
+    r = torch.sqrt(u1)
+    phi = (2.0 * math.pi) * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], -1)
 
 
 def hemisphere_surface_from(normal, u1, u2):

@@ -13,10 +13,12 @@ from cpu_based_ray_tracer_tpu_torch import camera
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import mesh
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+from cpu_based_ray_tracer_tpu_torch.models import denoiser
 from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused, fused_mesh,
-                                                fused_whitted, packet)
+                                                fused_rtiow, fused_whitted,
+                                                packet)
 from cpu_based_ray_tracer_tpu_torch.scene import make_spheres
-from cpu_based_ray_tracer_tpu_torch.scenes import (cornell, meshes,
+from cpu_based_ray_tracer_tpu_torch.scenes import (cornell, meshes, rtiow,
                                                    whitted_scene)
 
 pytestmark = pytest.mark.requires_cuda
@@ -373,3 +375,93 @@ def test_mesh_render_fused_on_card(cuda):
     # rtol 1e-5, atol 1e-6 on all but knife-edge pixels (< 0.5%).
     bad = (np.abs(img.cpu().numpy() - plain) > 1e-6 + 1e-5 * np.abs(plain))
     assert bad.any(-1).mean() < 0.005
+
+
+# name -> (scene, camera, diffuse model): both camera modes, the three
+# diffuse models.
+RTIOW_CASES = {
+    "thinlens": ("offline_two_sphere_scene",
+                 lambda: rtiow.offline_camera(96 / 64), 1),
+    "thinlens_aperture_in_sphere": (
+        "rtiow_classic_scene",
+        lambda: rtiow.offline_camera(96 / 64, aperture=0.4), 0),
+    "dof_in_hemisphere": ("rtiow_classic_scene",
+                          lambda: rtiow.offline_dof_camera(96 / 64), 2),
+    "perspective_nppt": ("nppt_scene", rtiow.nppt_camera, 1),
+    "perspective_in_hemisphere": ("nppt_scene", rtiow.nppt_camera, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(RTIOW_CASES))
+def test_rtiow_kernel_matches_plain(cuda, case):
+    scene, cam, model = RTIOW_CASES[case]
+    cfg = RenderConfig(width=96, height=64, spp=4, max_depth=8,
+                       diffuse_model=model)
+    pk, cam24, sf, si, p = fused_rtiow._setup(
+        getattr(rtiow, scene)(), cam(), cfg, SEED, cuda)
+    p = p._replace(n_steps=24)
+    want_f, want_i = fused_rtiow._steps_plain(pk, cam24, SEED, sf, si, p)
+    launches = fused_rtiow.LAUNCHES
+    got_f, got_i = fused_rtiow.rtiow_steps(pk, cam24, SEED, sf.clone(),
+                                           si.clone(), p)
+    torch.cuda.synchronize()
+    assert fused_rtiow.LAUNCHES == launches + 1
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_f, want_f, rtol=2e-3, atol=2e-3)
+    assert int(got_i[2].max()) > 0
+
+
+def test_rtiow_render_fused_on_card(cuda):
+    scene, cam = rtiow.nppt_scene(), rtiow.nppt_camera()
+    cfg = RenderConfig(width=64, height=48, spp=3, max_depth=8)
+    fused_rtiow.LAUNCHES = 0
+    img = fused_rtiow.render_fused(scene, cam, cfg, SEED)
+    assert img.is_cuda and fused_rtiow.LAUNCHES > 0
+    plain = fused_rtiow.render_fused(scene, cam, cfg, SEED, device="cpu")
+    np.testing.assert_allclose(img.cpu().numpy(), plain.numpy(), rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_single_path_kernel_matches_plain(cuda):
+    """The Denoiser's G-buffer pass: ids and the contributor flag exact,
+    color 2e-3, position and normal 1e-4 (tests/test_fused.py's gate)."""
+    scene, cam = _scene("cornell_sphere", cuda), cornell.cornell_camera(cuda)
+    cfg = RenderConfig(width=96, height=64, max_depth=8, rr_survival=0.8)
+    fs = fused.pack_scene(scene)
+    want = fused._gbuffer(fused._steps_plain, fs, cam, cfg, SEED, 3, cuda)
+    launches = fused.LAUNCHES
+    got = fused.single_sample_gbuffer(fs, cam, cfg, SEED, 3)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES == launches + 1
+    for i, tol in ((0, 2e-3), (1, 1e-4), (2, 1e-4)):
+        torch.testing.assert_close(got[i], want[i], rtol=tol, atol=tol)
+    for i in (3, 4):
+        assert torch.equal(got[i], want[i])
+    frame, _ = denoiser.render_frame(scene, cam, cfg, SEED, 0, None,
+                                     denoiser.DenoiserParams(),
+                                     engine="fused")
+    assert frame.is_cuda and frame.shape == (64, 96, 3)
+
+
+def test_new_wrappers_refuse_bad_tensors(cuda):
+    scene, cam = rtiow.nppt_scene(), rtiow.nppt_camera()
+    cfg = RenderConfig(width=16, height=8, spp=1, max_depth=2)
+    pk, cam24, sf, si, p = fused_rtiow._setup(scene, cam, cfg, SEED,
+                                              torch.device("cpu"))
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        fused_rtiow._steps_kernel(pk, cam24, SEED, sf, si, p)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        fused_rtiow._steps_kernel(pk.to(cuda), cam24.to(cuda), SEED,
+                                  sf.to(cuda).double(), si.to(cuda), p)
+    fs = fused.pack_scene(cornell.cornell_scene(cuda))
+    p = fused._Params(2, 16, 8, 128, 1e-3, 1e-5, 0.8, 1e-2, 2, 0,
+                      single_path=True)
+    sf = torch.zeros((15, 128), device=cuda)
+    si = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    cam16 = fused._camera_words(cornell.cornell_camera(cuda))
+    with pytest.raises(ValueError, match="G-buffer"):
+        fused._steps_kernel(fs, cam16, SEED, sf, si, p)
+    with pytest.raises(ValueError, match="G-buffer"):
+        fused._steps_kernel(fs, cam16, SEED, sf, si, p,
+                            gb=torch.zeros((8, 128), device=cuda,
+                                           dtype=torch.float64))

@@ -5,6 +5,7 @@ lane states."""
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from cpu_based_ray_tracer_tpu import scene as jscene
@@ -76,3 +77,18 @@ def assert_states_match(ref: dict, got: dict):
     for name in ("o", "d", "tp", "cur", "acc"):
         np.testing.assert_allclose(got[name], ref[name], rtol=RTOL,
                                    atol=ATOL, err_msg=f"float state {name}")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run the test with one PyTorch intra-op thread, restoring the count
+    after.  The tier-1 run puts six test workers on the machine's cores;
+    PyTorch's thread pool in each of them then oversubscribes the cores,
+    and frame-sized elementwise passes (the denoise filters, the golden
+    renders) run many times slower than on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
