@@ -37,7 +37,10 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               camera rays of bvh_stage_scene (3,584 triangles), on the
               shadow rays kept from mesh_main, and on 8,192 triangles in
               64-triangle clusters (hit masks and indices equal, t within
-              rtol 1e-6);
+              rtol 1e-6); then packet_in_render: the packet kernel inside
+              mesh.render (each of its launches replayed alone on the rays
+              it was given, summed, beside the summed bound and the
+              render's seconds);
 11. whitted_main  render_fused at 896x896, depth 5, Q=4; image to build/;
 12. mesh_mc    mesh.render_mc through the packet kernel against
               method="brute" on cornell_mesh_scene, 128x128, 4 spp, depth 16
@@ -62,7 +65,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 17. mesh_fused_speed  bench.py's mc_bunny_mesh_fused (896x896, caps rp//8
               and rp//12, 16 steps a call, 3 calls after a warm-up) in
               rays/s, and each entry point alone in ms per step beside its
-              plain version and its bound;
+              plain version and its bound (a sweep's: each packed ray's
+              box tests over its list and the triangle tests of the
+              clusters whose boxes it crosses, from the mask pass's
+              per-ray planes); each sweep also unsplit (each output bit
+              equal to the plain one);
 18. mesh_fused_whitted_main  mesh.render(prepare(bvh_stage_scene(4),
               method="fused")) at 896x896, depth 5 (7,424 triangles, 58
               clusters; no packet launch), against method="packet" at rtol
@@ -85,6 +92,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               and rp//16, 16 steps a call, 3 calls after a warm-up) in both
               modes; each shortlist sweep and the mask pass alone beside the
               all-cluster sweep on the same packed rays, and the bounds;
+              each shortlist sweep split and unsplit as in 17 (the slices
+              K, the grid, blocks per SM; every output bit equal to the
+              plain one) and the occlusion sweep's triangle tests, serial
+              and by independent slices (the kernel's at most these); the
+              list lengths of the step's primary, bounce and shadow rays as
+              packed and sorted by lane;
 23. rtiow_parity  csrc/fused_rtiow.cu against its plain version for 64
               steps from render_fused's initial state at full width: the
               offline cell (thin lens, 400x225, 100 spp, depth 50), its
@@ -95,14 +108,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 24. rtiow_golden  render_fused at tools/make_goldens.py's offline_rtiow,
               offline_dof and nppt configurations against their goldens
               (mean abs diff <= 1.5, p99 <= 8);
-25. rtiow_main  the two headline renders through render_fused: offline
-              400x225 100 spp depth 50 and NPPT 883x824 256 spp depth 50,
-              with their launch counts and seconds; images to build/;
-26. rtiow_speed  the kernel alone on the NPPT cell, 128 steps from
-              render_fused's initial state (every lane live) in ms per step
-              of 727,592 lanes, the plain version on the same steps, and the
-              bound of the work those steps need (each live lane-step's
-              spheres, plus its miss or its material's branch);
+25. rtiow_main  the two headline renders through render_fused (one
+              launch each): offline 400x225 100 spp depth 50 and NPPT
+              883x824 256 spp depth 50, with their launch counts and
+              seconds; images to build/; each against the lockstep render
+              of the same cell by the step-mode kernel under the chunk
+              schedule and by the plain version: every state plane bit
+              equal to both; the render launch alone and the bound of every
+              live lane-step of the render;
+26. rtiow_speed  the step-mode kernel alone on the NPPT cell, 128 steps
+              from render_fused's initial state (every lane live) in ms per
+              step of 727,592 lanes, the plain version on the same steps
+              (every plane bit equal), and the bound of the work those
+              steps need (each live lane-step's spheres, plus its miss or
+              its material's branch);
 27. denoiser_parity  the single_path mode of csrc/fused_mc.cu against its
               plain version at 896x896, depth 16, RR 0.8: ids and the
               contributor flag equal, color within 2e-3, position and normal
@@ -232,7 +251,8 @@ def build_phase():
     emit(phase="build", sources=sources,
          seconds=time.perf_counter() - t0,
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln
-                    or "spill" in ln] for k, v in kernels.BUILD_LOG.items()})
+                    or "spill" in ln or "entry function" in ln]
+                for k, v in kernels.BUILD_LOG.items()})
 
 
 def parity_phase(dev, full: RenderConfig, sphere_size: int,
@@ -665,6 +685,69 @@ def mesh_main_phase(dev, cfg) -> tuple:
     return launches["packet"], (so, sd)
 
 
+def packet_in_render_phase(dev, cfg, smi, n_rep=3) -> dict:
+    """packet.cu inside mesh.render (bvh_stage_scene, the mesh_main cell):
+    one render with every launch's rays recorded (and CUDA events around
+    each launch, which also hold the wrapper's host work when the card
+    waits for it); then each launch replayed alone on its rays (CUDA
+    events, n_rep back to back), summed; the bound summed over the
+    launches (each launch's slab tests and the triangle tests of its
+    (block, cluster) pairs whose vote passed, or its bytes); the render's
+    seconds, so the eager Whitted twin's share is the rest."""
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.ops import packet
+    from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+
+    scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
+    bundle = mesh.prepare(scene)
+    mesh.render(bundle, cam, cfg, device=dev)                   # warm-up
+    rec, real = [], packet._nearest_kernel
+
+    def recording(clusters, origin, direction, t_min):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = real(clusters, origin, direction, t_min)
+        e1.record()
+        rec.append((e0, e1, clusters, origin.clone(), direction.clone(),
+                    t_min))
+        return out
+    sync(dev)
+    packet._nearest_kernel = recording
+    try:
+        t0 = time.perf_counter()
+        mesh.render(bundle, cam, cfg, device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+    finally:
+        packet._nearest_kernel = real
+    inline_ms = sum(e0.elapsed_time(e1) for e0, e1, *_ in rec)
+    ms = ops = nbytes = bound_ms = 0.0
+    rays = []
+    for _, _, cl, o, d, t_min in rec:
+        real(cl, o, d, t_min)                                   # warm-up
+        ms += timed(lambda: [real(cl, o, d, t_min)
+                             for _ in range(n_rep)]) / n_rep
+        n_pass = packet.nearest_plain(cl, o, d, t_min,
+                                      return_passes=True)[2]
+        r, c, cs = o.shape[0], cl.n_clusters, cl.cs
+        l_ops = r * c * SLAB_OPS + n_pass * packet.BLOCK * cs * TRI_OPS
+        l_bytes = r * (24 + 8) + c * (cs * (48 + 4) + 32)
+        ops += l_ops
+        nbytes += l_bytes
+        bound_ms += bound(l_ops, l_bytes)["bound_ms"]
+        rays.append(r)
+    res = dict(ms=ms, inline_event_ms=inline_ms, launches=len(rec),
+               bound_ms=bound_ms, bound_by=bound(ops, nbytes)["bound_by"],
+               render_seconds=secs,
+               eager_share=1.0 - ms * 1e-3 / secs)
+    emit(phase="packet_in_render", nvidia_smi=smi, config=f"bvh_stage_scene "
+         f"{cfg.width}x{cfg.height} depth{cfg.whitted_depth}",
+         rays_per_launch=dict(total=sum(rays), min=min(rays),
+                              mean=sum(rays) / len(rays), max=max(rays)),
+         ops=ops, bytes=nbytes, **res)
+    return res
+
+
 def whitted_main_phase(dev, cfg) -> int:
     """render_fused once, counters set to 0 just before and read just
     after; returns the fused_whitted launches."""
@@ -951,27 +1034,109 @@ def mesh_fused_oracle_phase(dev, cfg, tol=TOL):
 # SLAB_OPS per predicate AABB; per lane of K1b K1B_OPS + SLAB_OPS per
 # AABB (normal, shading point, light sample, cos); per lane of K2 150 +
 # 50 per small triangle + 28 per sphere (as fused_mc's step); the sweeps
-# TRI_OPS per triangle test, with no AABB cull: the nearest sweep tests
-# every triangle for each packed ray, the occlusion sweep stops a ray at
-# its first accepted triangle (the plain version's tally of its tests).
+# SLAB_OPS per box test of a packed ray against each cluster of its list
+# and TRI_OPS per triangle test it needs (sweep_tests).
 K1B_OPS = 75
 
 
-def mesh_bounds(mp, r, n_main, n_shadow, occl_tests) -> dict:
+def crossed_counts(mp, p, rays, cnt) -> tuple:
+    """How many cluster boxes each of the first cnt packed rays (P, cap)
+    crosses, and the mean over warps (32 consecutive rays) of the boxes
+    any of a warp's rays crosses: the mask pass's per-ray planes, the
+    boxes unpadded."""
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+
+    masks, _ = coherent._mask_kernel(mp.smc_aabb,
+                                     rays.view(rays.shape[0], -1, 128),
+                                     p.t_min, cnt, planes=True)
+    n = min(int(cnt), rays.shape[1])
+    m = masks.reshape(masks.shape[0], -1)[:, :n].to(torch.int64) & 0xFFFFFFFF
+    nw = n // 32
+    warp = torch.zeros_like(m[:, :nw])
+    for lane in range(32):
+        warp |= m[:, lane:nw * 32:32]
+    c = torch.zeros((n,), dtype=torch.int64, device=rays.device)
+    cw = torch.zeros((nw,), dtype=torch.int64, device=rays.device)
+    for b in range(32):
+        c += ((m >> b) & 1).sum(0)
+        cw += ((warp >> b) & 1).sum(0)
+    return c, float(cw.double().mean()) if nw else 0.0
+
+
+def sweep_tests(mp, p, rays, cnt, ray_tests, listed) -> dict:
+    """The work a sweep of the first cnt packed rays needs: each ray tests
+    its tile's listed boxes (``listed``, per ray) and the triangles of the
+    clusters whose boxes it crosses, and no more than the serial sweep
+    (``ray_tests``, per ray: an occluded ray stops at its first occluder);
+    with the boxes crossed per ray and per warp."""
+    crossed, per_warp = crossed_counts(mp, p, rays, cnt)
+    tri = torch.minimum(ray_tests.to(torch.int64), crossed * mp.cs)
+    return dict(needed_triangle_tests=int(tri.sum()),
+                box_tests=int(listed.sum()),
+                boxes_crossed_per_ray=float(crossed.double().mean()),
+                boxes_crossed_per_warp=per_warp,
+                boxes_listed_per_ray=float(listed.double().mean()))
+
+
+def mesh_bounds(mp, r, n_main, n_shadow, near, occl) -> dict:
     """(ops, bytes) of each entry point for one step with these packed
-    populations: each input read once, each output written once."""
+    populations and the sweeps' needed work ``near`` and ``occl``
+    (sweep_tests): each input read once, each output written once."""
     n_pred = mp.pred_aabb.shape[0]
     table = mp.n_clusters * mp.cs * 16 * 4
     return {
         "k1": (r * (47 * mp.n_stri + 28 * mp.n_sph + SLAB_OPS * n_pred),
                r * (24 + 40) + n_main * 28),
-        "nearest": (n_main * mp.n_clusters * mp.cs * TRI_OPS,
+        "nearest": (near["needed_triangle_tests"] * TRI_OPS
+                    + near["box_tests"] * SLAB_OPS,
                     n_main * (28 + 20) + table),
         "k1b": (r * (K1B_OPS + SLAB_OPS * n_pred),
                 r * (24 + 8 + 40 + 36) + n_shadow * 32),
-        "occl": (occl_tests * TRI_OPS, n_shadow * (32 + 4) + table),
+        "occl": (occl["needed_triangle_tests"] * TRI_OPS
+                 + occl["box_tests"] * SLAB_OPS,
+                 n_shadow * (32 + 4) + table),
         "k2": (r * (150 + 50 * mp.n_stri + 28 * mp.n_sph), r * (100 + 76)),
     }
+
+
+def sweep_splits(tb, p, rays, ray_id, cnt, want, occl: bool, lists,
+                 n_iters: int) -> dict:
+    """One sweep entry point alone (CUDA events, ms per launch), its ray
+    blocks' cluster lists split as the default does and unsplit.  Every
+    output must equal ``want`` (the plain version's) on the packed rays'
+    lanes.  With the slices K each takes, the grid, and the card's resident
+    sweep blocks per SM."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+
+    per_sm, n_sm = fm.sweep_slots(occl, tb.mp.cs)
+    n = min(int(cnt), rays.shape[1])
+    lanes = ray_id[:n].long()
+    ray_blocks = -(-rays.shape[1] // fm.SWEEP_BLOCK)
+    live_blocks = -(-n // fm.SWEEP_BLOCK)
+    res = dict(blocks_per_sm=per_sm, sms=n_sm, packed=n,
+               ray_blocks=live_blocks, waves=fm.SWEEP_WAVES)
+    for name, k_max in (("default", fm.SPLIT_MAX), ("unsplit", 1)):
+        out = torch.full_like(want, -7.0)
+
+        def run():
+            fm._sweep_kernel(tb, p, rays, ray_id, cnt, out, occl=occl,
+                             lists=lists, k_max=k_max)
+        run()                                                   # warm-up
+        sync(rays.device)
+        equal = torch.equal(out[:, lanes], want[:, lanes])
+        if not equal:
+            raise RuntimeError(f"the {'occlusion' if occl else 'nearest'} "
+                               f"sweep ({name}) differs from its plain "
+                               f"version")
+        ms = timed(lambda: [run() for _ in range(n_iters)]) / n_iters
+        k_max = max(1, min(k_max, tb.mp.n_clusters))
+        k = fm.split_count(n, per_sm * n_sm * fm.SWEEP_WAVES, k_max)
+        res[name] = dict(ms=ms, k=k, k_max=k_max,
+                         grid_blocks=ray_blocks * k_max,
+                         live_blocks=live_blocks * k,
+                         live_blocks_per_sm=live_blocks * k / n_sm,
+                         bit_equal=equal)
+    return res
 
 
 def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
@@ -1006,7 +1171,7 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
                  b)
     n_main, n_shadow = b.cnt[0].tolist()
     sf2, si2 = sf.clone(), si.clone()
-    res, plain_out = {}, {}
+    res, plain_out, tests = {}, {}, {}
     for name in fm.OP_NAMES:
         def counters(n):
             """A step's populations: the packers add to 0s, the sweeps
@@ -1024,11 +1189,25 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
         plain_ms = timed(lambda: plain_out.update({name: fm.run_op(
             fm.PLAIN_OPS, name, tb, p, SEED_KEY0, sf.clone(), si.clone(),
             bp)}))
-        if name == "occl":
-            occl_tests = int(plain_out["occl"])
-            occluded = int(bp.kb[8].sum())
         res[name] = dict(ms=ms, plain_ms=plain_ms)
-    bounds = mesh_bounds(mp, r, n_main, n_shadow, occl_tests)
+        if name in ("nearest", "occl"):
+            occl = name == "occl"
+            packed = b.sr if occl else b.mr
+            cnt = b.cnt[0, 1:2] if occl else b.cnt[0, 0:1]
+            res[name]["splits"] = sweep_splits(
+                tb, p, packed, b.sr_id if occl else b.mr_id, cnt,
+                bp.kb[8:9] if occl else bp.hf[5:10], occl, None, n_iters)
+            serial = plain_out[name]
+            tests[name] = sweep_tests(
+                mp, p, packed, cnt, serial,
+                torch.full_like(serial, mp.n_clusters))
+            res[name].update(serial_triangle_tests=int(serial.sum()),
+                             **tests[name])
+            if occl:
+                occl_tests = int(serial.sum())
+                occluded = int(bp.kb[8].sum())
+    bounds = mesh_bounds(mp, r, n_main, n_shadow, tests["nearest"],
+                         tests["occl"])
     for name in fm.OP_NAMES:
         ops, nbytes = bounds[name]
         t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -1444,21 +1623,70 @@ def sl_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16, n_iters=10) -> dict:
         tests = {}
         plain_ms = timed(lambda: tests.update(t=fm._sweep_plain(
             tb, p, rays, ids_, cnt, outp, occl=occl, lists=lst)))
+        splits = sweep_splits(tb, p, rays, ids_, cnt, outp, occl, lst,
+                              n_iters)
         n_tiles = -(-n // 4096)
+        if occl:
+            # the tests of the default split's K slices if each stopped a
+            # ray only at its own first occluder (the plain split sweep):
+            # the kernel's slices, which also stop once another slice has
+            # set the ray's flag, make at most these
+            n_t = rays.shape[1] // 4096
+            _, _, t_split = fm.split_sweep_plain(
+                mp.smc_tri, rays.view(7, n_t, 4096),
+                lst[0].view(n_t, mp.n_clusters), lst[1], p.t_min,
+                splits["default"]["k"], occl=True, n_live=n)
+            splits["triangle_tests_serial"] = int(tests["t"].sum())
+            splits["triangle_tests_slices"] = int(t_split.sum())
         per_ray = 32 + 4 if occl else 28 + 20
-        ops = int(tests["t"]) * TRI_OPS
+        listed = lst[1].to(torch.int64).repeat_interleave(4096)[:n]
+        need = sweep_tests(mp, p, rays, cnt, tests["t"], listed)
+        ops = (need["needed_triangle_tests"] * TRI_OPS
+               + need["box_tests"] * SLAB_OPS)
         nbytes = (n * per_ray + n_tiles * (mp.n_clusters + 1) * 4
                   + listed_clusters(*lst, mp.n_clusters, n_tiles) * mp.cs
                   * 64)
         key = "occl_sl" if occl else "nearest_sl"
         res[key] = dict(ms=ms, plain_ms=plain_ms, all_clusters_ms=all_ms,
-                        mask_ms=mask_ms, packed=n, triangle_tests=int(
-                            tests["t"]), **bound(ops, nbytes))
+                        mask_ms=mask_ms, packed=n,
+                        serial_triangle_tests=int(tests["t"].sum()),
+                        **need, splits=splits, **bound(ops, nbytes))
         lists[key] = list_stats(lst[1], n_tiles)
     emit(phase="sl_speed", nvidia_smi=smi, lanes=r, n_steps=n_steps,
          n_calls=n_calls, caps=list(caps), modes=modes,
-         packed_per_step=[n_main, n_shadow], lists=lists, per_kernel=res)
+         packed_per_step=[n_main, n_shadow], lists=lists, per_kernel=res,
+         pack_order=pack_order_lists(tb, p, b, si))
     return res
+
+
+def pack_order_lists(tb, p, b, si) -> dict:
+    """The shortlists of one step's packed rays by ray kind (primary,
+    bounce, shadow): in the order K1 / K1b packed them (256-lane blocks
+    in completion order) and sorted by lane id (the JAX package's lane
+    order), each kind packed alone from the buffer's start; mean and max
+    list length over its tiles."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+
+    n_main, n_shadow = b.cnt[0].tolist()
+    bounce = si[1][b.mr_id[:n_main].long()]
+    kinds = {"primary": (b.mr, b.mr_id, n_main, bounce == 0),
+             "bounce": (b.mr, b.mr_id, n_main, bounce > 0),
+             "shadow": (b.sr, b.sr_id, n_shadow, None)}
+    out = {}
+    for kind, (rays, ids, n, sel) in kinds.items():
+        rk, ik = rays[:, :n], ids[:n]
+        if sel is not None:
+            rk, ik = rk[:, sel], ik[sel]
+        m = ik.shape[0]
+        out[kind] = dict(rays=m)
+        for order in ("packed", "lane"):
+            ro = rk[:, torch.argsort(ik)] if order == "lane" else rk
+            buf = torch.zeros_like(rays)
+            buf[:, :m] = ro
+            cnt = torch.tensor([m], dtype=torch.int32, device=rays.device)
+            _, cnts = fm._lists(tb, p, buf, cnt, kernel=True)
+            out[kind][order] = list_stats(cnts, -(-m // 4096))
+    return out
 
 
 # --- the RTIOW stages and the Denoiser --------------------------------------
@@ -1599,11 +1827,25 @@ def rtiow_golden_phase(dev, mean_tol=1.5, p99_tol=8):
         raise RuntimeError("the RTIOW goldens launched no fused_rtiow kernel")
 
 
-def rtiow_main_phase(dev) -> dict:
-    """The two headline renders through render_fused, each with the launch
-    counters set to 0 just before and read just after; returns the
-    fused_rtiow launches by render."""
+# render_fused's seconds on the same cells under the JAX package's chunk
+# schedule (many launches, one poll each; NVIDIA H100 80GB HBM3, 700 W,
+# PERF.md section 6): the yardstick of the one-launch render.
+RTIOW_CHUNKED_SECONDS = {"offline": 0.0133, "nppt": 0.1674}
+
+
+def rtiow_main_phase(dev, smi, n_iters=3) -> dict:
+    """The two headline renders through render_fused (one launch each),
+    each with the launch counters set to 0 just before and read just after;
+    then, from the same initial state, the lockstep render of the step-mode
+    kernel under the chunk schedule and of the plain version one step at a
+    time (both untimed), each of which must give the render kernel's
+    planes bit for bit; the render kernel alone by CUDA events, with each
+    pixel's samples in 1 to 32 chunks and in the default number (each
+    bit equal to the lockstep planes); and the bound of the operations of
+    every live lane-step of the render, counted in the plain run.
+    Returns {cell: dict(launches, ms, bound ...)}."""
     from cpu_based_ray_tracer_tpu_torch.ops import fused_rtiow as fr
+    from cpu_based_ray_tracer_tpu_torch.ops import vec
 
     out = {}
     for name, (scene, cam, cfg) in rtiow_configs(dev).items():
@@ -1618,17 +1860,74 @@ def rtiow_main_phase(dev) -> dict:
                        f"{cfg.spp}spp.png", gamma=cfg.gamma)
         finite = bool(torch.isfinite(img).all())
         mean_rad = float(img.mean())
-        emit(phase="rtiow_main", case=name, config=f"{cfg.width}x"
-             f"{cfg.height} {cfg.spp}spp depth{cfg.max_depth}",
-             seconds=secs, shape=list(img.shape), finite=finite,
-             mean_radiance=mean_rad, launches=counts, png=png)
-        if dev.type == "cuda" and counts["fused_rtiow"] <= 0:
-            raise RuntimeError(f"rtiow_main {name} launched no fused_rtiow "
-                               f"kernel")
+        if dev.type == "cuda" and counts["fused_rtiow"] != 1:
+            raise RuntimeError(f"rtiow_main {name}: {counts['fused_rtiow']} "
+                               f"fused_rtiow launches, not one")
         if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
                 or not mean_rad > 0.0):
             raise RuntimeError(f"the {name} image is wrong")
-        out[name] = counts["fused_rtiow"]
+
+        pk, cam24, sf0, si0, p = fr._setup(scene, cam, cfg, SEED_KEY0, dev)
+        lf, li = fr.render_lockstep(pk, cam24, SEED_KEY0, sf0.clone(),
+                                    si0.clone(), p)
+        sf, si = sf0.clone(), si0.clone()
+        fr._render_kernel(pk, cam24, SEED_KEY0, sf, si, p)
+        sync(dev)
+        lock_img = vec.div(lf[9:12].T, float(cfg.spp)).reshape(img.shape)
+        equal = dict(image=torch.equal(img, lock_img),
+                     float_planes=torch.equal(sf, lf),
+                     int_planes=torch.equal(si, li),
+                     all_done=bool((li[2] == cfg.spp).all()))
+        if not all(equal.values()):
+            raise RuntimeError(f"the one-launch {name} render differs from "
+                               f"the lockstep render: {equal}")
+        work, pf, pi = rtiow_ops(pk, cam24, sf0, si0, p._replace(
+            n_steps=cfg.spp * cfg.max_depth))
+        plain = dict(float_planes=torch.equal(sf, pf),
+                     int_planes=torch.equal(si, pi),
+                     all_done=bool((pi[2] == cfg.spp).all()),
+                     max_abs_err=float((sf - pf).abs().max()),
+                     int_lanes_off=int((si != pi).any(0).sum()))
+        if not (plain["float_planes"] and plain["int_planes"]
+                and plain["all_done"]):
+            raise RuntimeError(f"the one-launch {name} render differs from "
+                               f"the plain lockstep render: {plain}")
+
+        per_sm, n_sm = fr.render_slots(pk, p)
+        threads = per_sm * n_sm * 256
+        auto = fr.default_chunks(pk, p, dev)
+        chunk_ms = {}
+        for chunks in sorted({1, 2, 4, 16, 32, auto}):
+            def once():
+                sf.copy_(sf0)
+                si.copy_(si0)
+                fr._render_kernel(pk, cam24, SEED_KEY0, sf, si, p,
+                                  chunks=chunks)
+            once()                                              # warm-up
+            sync(dev)
+            if not (torch.equal(sf, lf) and torch.equal(si, li)):
+                raise RuntimeError(f"the {name} render in {chunks} sample "
+                                   f"chunks differs from the lockstep one")
+            chunk_ms[chunks] = sum(timed(once) for _ in range(n_iters)
+                                   ) / n_iters
+        ms = chunk_ms[auto]
+        nbytes = (12 + 3) * 4 * 2 * p.n_pix    # state in + out, once
+        res = dict(launches=counts["fused_rtiow"], ms=ms, chunks=auto,
+                   **bound(work["ops"], nbytes))
+        emit(phase="rtiow_main", case=name, config=f"{cfg.width}x"
+             f"{cfg.height} {cfg.spp}spp depth{cfg.max_depth}",
+             nvidia_smi=smi, seconds=secs,
+             chunk_schedule_seconds=RTIOW_CHUNKED_SECONDS[name],
+             shape=list(img.shape),
+             finite=finite, mean_radiance=mean_rad, counts=counts,
+             bit_equal_to_lockstep=equal, bit_equal_to_plain=plain,
+             kernel_ms=ms,
+             ms_by_chunks=chunk_ms, blocks_per_sm=per_sm, sms=n_sm,
+             resident_threads=threads, pixels=p.n_pix,
+             pixels_per_resident_thread=p.n_pix / max(threads, 1),
+             work=work, live_lane_steps_per_s=work["live_lane_steps"]
+             / (ms * 1e-3), png=png, **res)
+        out[name] = res
     return out
 
 
@@ -1658,32 +1957,45 @@ def rtiow_kinds(pk, sf, t_min: float):
     return kind
 
 
-def rtiow_ops(pk, cam24, sf, si, p) -> dict:
-    """The operations that p.n_steps steps from (sf, si) need: the kernel
-    steps one launch a step (not timed) and each live lane's ray is
+def rtiow_ops(pk, cam24, sf, si, p) -> tuple:
+    """The operations that p.n_steps steps from (sf, si) need: the plain
+    version steps the lanes (not timed) and each live lane's ray is
     classified before its step; the finished samples are the change in
-    n_done."""
+    n_done.  Stops early once every lane is done (checked every 64 steps;
+    a finished lane's state no longer changes).  -> (the work, the plain
+    version's final planes sf, si)."""
     from cpu_based_ray_tracer_tpu_torch.ops import fused_rtiow as fr
 
     sf, si = sf.clone(), si.clone()
     nd0 = si[2].clone()
     n = torch.zeros(5, dtype=torch.int64, device=sf.device)
+    steps = torch.zeros_like(nd0)        # live steps of each lane
     one = p._replace(n_steps=1)
-    for _ in range(p.n_steps):
-        kind = rtiow_kinds(pk, sf, p.t_min)[si[2] < p.spp]
-        n += torch.stack([(kind > -2).sum(), (kind < 0).sum(),
-                          (kind == 0).sum(), (kind == 1).sum(),
-                          (kind == 2).sum()])
-        sf, si = fr.rtiow_steps(pk, cam24, SEED_KEY0, sf, si, one)
+    for step in range(p.n_steps):
+        if step % 64 == 63 and int(si[2].min()) >= p.spp:
+            break
+        kind = rtiow_kinds(pk, sf, p.t_min)
+        live = si[2] < p.spp
+        steps += live.to(steps.dtype)
+        n += torch.stack([live.sum(), (live & (kind < 0)).sum(),
+                          (live & (kind == 0)).sum(),
+                          (live & (kind == 1)).sum(),
+                          (live & (kind == 2)).sum()])
+        sf, si = fr._steps_plain(pk, cam24, SEED_KEY0, sf, si, one)
     live, miss, lam, met, die = (int(x) for x in n)
     regen = int((si[2] - nd0).sum())
+    q = torch.quantile(steps.float(), torch.tensor(
+        [0.5, 0.99, 0.999], device=steps.device)).tolist()
+    per_lane = dict(mean=float(steps.float().mean()), p50=q[0], p99=q[1],
+                    p999=q[2], max=int(steps.max()))
     ops = ((RTIOW_SPH_OPS * pk.n_sph) * live + RTIOW_MISS_OPS * miss
            + RTIOW_HIT_OPS * (lam + met + die)
            + RTIOW_LAMBERT_OPS[p.diffuse_model] * lam
            + RTIOW_METAL_OPS * met + RTIOW_DIELECTRIC_OPS * die
            + RTIOW_REGEN_OPS[p.thinlens] * regen)
     return dict(ops=ops, live_lane_steps=live, miss=miss, lambert=lam,
-                metal=met, dielectric=die, samples_finished=regen)
+                metal=met, dielectric=die, samples_finished=regen,
+                steps_per_lane=per_lane), sf, si
 
 
 def rtiow_speed_phase(dev, smi, n_steps=128, n_iters=4) -> dict:
@@ -1692,7 +2004,8 @@ def rtiow_speed_phase(dev, smi, n_steps=128, n_iters=4) -> dict:
     whole image; the plain version over the same steps from the same state;
     the bound from the operations those steps need (rtiow_ops).  A lane
     finishes at most one sample a step, so with n_steps < spp every lane
-    is live at every step of the window (checked)."""
+    is live at every step of the window (checked).  The last timed run's
+    planes must equal the plain version's bit for bit."""
     from cpu_based_ray_tracer_tpu_torch.ops import fused_rtiow as fr
 
     scene, cam, cfg = rtiow_configs(dev)["nppt"]
@@ -1709,9 +2022,11 @@ def rtiow_speed_phase(dev, smi, n_steps=128, n_iters=4) -> dict:
     plain_ms = timed(lambda: fr._steps_plain(pk, cam24, SEED_KEY0, sf0, si0,
                                              p)) / n_steps
     r = p.n_pix
-    work = rtiow_ops(pk, cam24, sf0, si0, p)
+    work, pf, pi = rtiow_ops(pk, cam24, sf0, si0, p)
     if work["live_lane_steps"] != r * n_steps:
         raise RuntimeError(f"lanes went idle inside the timed window: {work}")
+    if not (torch.equal(sf, pf) and torch.equal(si, pi)):
+        raise RuntimeError("the timed steps differ from the plain version's")
     nbytes = (12 + 3) * 4 * 2 * r          # state in + out, one launch
     res = dict(ms=ms, plain_ms=plain_ms,
                **bound(work["ops"] / n_steps, nbytes / n_steps))
@@ -1917,6 +2232,7 @@ def main():
     whitted_golden_phase(dev)
     p_launches, shadow = mesh_main_phase(dev, wfull)
     p_err, p_cases = mesh_parity_phase(dev, wfull, shadow)
+    pir = packet_in_render_phase(dev, wfull, smi)
     w_launches = whitted_main_phase(dev, wfull)
     mesh_mc_phase(dev, RenderConfig(width=128, height=128, spp=4,
                                     max_depth=16, rr_survival=0.8))
@@ -1939,7 +2255,7 @@ def main():
 
     r_err = rtiow_parity_phase(dev)
     rtiow_golden_phase(dev)
-    r_launches = rtiow_main_phase(dev)
+    r_main = rtiow_main_phase(dev, smi)
     rsp = rtiow_speed_phase(dev, smi)
     dcfg = RenderConfig(width=896, height=896, spp=1, max_depth=16,
                         rr_survival=0.8)
@@ -1960,6 +2276,9 @@ def main():
         "launches": m_launches[k], "max_abs_err": m_err[k],
         "ms": msp[k]["ms"], "plain_ms": msp[k]["plain_ms"],
         "bound_ms": msp[k]["bound_ms"], "bound_by": msp[k]["bound_by"],
+        **({"slices": msp[k]["splits"]["default"]["k"],
+            "unsplit_ms": msp[k]["splits"]["unsplit"]["ms"]}
+           if "splits" in msp[k] else {}),
         "library_ms": None} for k in MESH_TPU]
     coherent_src = "cpu_based_ray_tracer_tpu_torch/csrc/coherent.cu"
     coherent_kernels = [{
@@ -1983,7 +2302,9 @@ def main():
         "max_abs_err": sl_err[k[:-3]], "ms": ssp[k]["ms"],
         "plain_ms": ssp[k]["plain_ms"], "bound_ms": ssp[k]["bound_ms"],
         "bound_by": ssp[k]["bound_by"],
-        "all_clusters_ms": ssp[k]["all_clusters_ms"], "library_ms": None}
+        "all_clusters_ms": ssp[k]["all_clusters_ms"],
+        "slices": ssp[k]["splits"]["default"]["k"],
+        "unsplit_ms": ssp[k]["splits"]["unsplit"]["ms"], "library_ms": None}
         for k in ("nearest_sl", "occl_sl")]
     print(json.dumps({"kernels": [{
         "name": "fused_mc", "route": "cuda",
@@ -2006,11 +2327,16 @@ def main():
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_rtiow.cu",
         "replaces": RTIOW_TPU, "tpu_kernel": "ops/fused_rtiow.py::_kernel",
         "unit": "ms per step of 883x824 lanes, the NPPT cell, 128-step "
-                "launches from the initial state",
-        "launches": sum(r_launches.values()),
-        "launches_by_render": r_launches, "max_abs_err": r_err,
+                "step-mode launches from the initial state (render_ms: one "
+                "render-mode launch, the whole render)",
+        "launches": sum(v["launches"] for v in r_main.values()),
+        "launches_by_render": {k: v["launches"] for k, v in r_main.items()},
+        "max_abs_err": r_err,
         "ms": rsp["ms"], "plain_ms": rsp["plain_ms"],
         "bound_ms": rsp["bound_ms"], "bound_by": rsp["bound_by"],
+        "render_ms": {k: v["ms"] for k, v in r_main.items()},
+        "render_bound_ms": {k: v["bound_ms"] for k, v in r_main.items()},
+        "render_chunks": {k: v["chunks"] for k, v in r_main.items()},
         "library_ms": None}, {
         "name": "fused_whitted", "route": "cuda",
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_whitted.cu",
@@ -2034,6 +2360,8 @@ def main():
         "shadow_ms": psp["shadow"]["ms"],
         "shadow_plain_ms": psp["shadow"]["plain_ms"],
         "shadow_bound_ms": psp["shadow"]["bound_ms"],
+        "in_render_ms": pir["ms"], "in_render_launches": pir["launches"],
+        "in_render_bound_ms": pir["bound_ms"],
         "library_ms": None}] + mesh_kernels + coherent_kernels
         + sl_kernels}), flush=True)
     print(smi, flush=True)

@@ -23,13 +23,21 @@
 //     are copied into shared memory at block start; a warp reads the same
 //     row at the same time, so each read is a broadcast.
 //   - The sweep is arithmetic: packed rays x clusters x triangles x ~48
-//     f32 operations of Moller-Trumbore, with no culling (as the TPU
-//     kernel) or, with lists, over the listed clusters only.  One thread
-//     per packed ray; each cluster's CS x 16 floats are staged in shared
-//     memory by a cooperative float4 load and read as broadcasts
+//     f32 operations of Moller-Trumbore (~65 instructions without FMA),
+//     with no culling (as the TPU kernel) or, with lists, over the listed
+//     clusters only.  The packed rays alone are too few blocks to fill
+//     the card (the caps are an eighth or a sixteenth of the lanes), so
+//     the list is split too: K blocks sweep K contiguous slices of a ray
+//     block's list and combine their partial results in list order.  A
+//     tile's list is the union of its 4,096 rays' cluster boxes (most of
+//     the mesh on the 164k cell), while a ray crosses a few: each ray tests
+//     each listed cluster's box, and a warp none of whose rays crosses it
+//     skips the cluster (a block that none crosses does not stage it).
+//     One thread per packed ray; each cluster's CS x 16 floats are
+//     double-buffered in shared memory by cp.async copies that overlap the
+//     previous cluster's tests, and read as broadcasts
 //     (csrc/cluster_tri.cuh).  The occlusion sweep stops testing a ray once
-//     it is occluded (an any-hit OR: the result is the same).  The TPU's
-//     double-buffered per-cluster DMA is a plain load and barrier here.
+//     it is occluded (an any-hit OR: the result is the same).
 //   - The pack (K1, K1b) is stable inside a block and contiguous per
 //     block: a warp ballot + popcount gives each lane its rank, a scan of
 //     the 8 warp counts in shared memory the block's count, and one
@@ -148,6 +156,38 @@ __device__ bool crosses_any(const float* aabb, int n, float ox, float oy,
               ((t_out >= t_lo) && (t_in <= t_out) && (t_in <= hi_bound));
   }
   return crossed;
+}
+
+// Does the ray cross box A (min xyz, max xyz), each side pushed out by
+// 1e-4 of the box's extent plus the largest coordinate magnitude of the box
+// and of the ray's origin (o_mag), and 1e-6?  The slab test of the mask
+// pass (csrc/coherent.cu), with the line's t from min(t_min, 0) (and, for
+// a segment, up to hi_bound); the margin keeps it conservative against the
+// triangle test's rounding, so a ray that hits a triangle crosses the box.
+// The rounding of both tests grows with the coordinates' magnitude, not
+// with the box's extent (a box flat in one axis has none), so the pad
+// scales with both (ops/fused_mesh.py crosses_box_plain is the same test
+// in PyTorch).
+__device__ __forceinline__ bool crosses_box(const float* __restrict__ A,
+                                            float ox, float oy, float oz,
+                                            float o_mag, float ivx, float ivy,
+                                            float ivz, float t_lo,
+                                            float hi_bound, bool segment) {
+  const float mag = fmaxf(
+      o_mag, fmaxf(fmaxf(fmaxf(fabsf(A[0]), fabsf(A[1])),
+                         fmaxf(fabsf(A[2]), fabsf(A[3]))),
+                   fmaxf(fabsf(A[4]), fabsf(A[5]))));
+  const float mx = 1e-4f * ((A[3] - A[0]) + mag) + 1e-6f;
+  const float my = 1e-4f * ((A[4] - A[1]) + mag) + 1e-6f;
+  const float mz = 1e-4f * ((A[5] - A[2]) + mag) + 1e-6f;
+  const float tx0 = (A[0] - mx - ox) * ivx, tx1 = (A[3] + mx - ox) * ivx;
+  const float ty0 = (A[1] - my - oy) * ivy, ty1 = (A[4] + my - oy) * ivy;
+  const float tz0 = (A[2] - mz - oz) * ivz, tz1 = (A[5] + mz - oz) * ivz;
+  const float t_in = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                           fminf(tz0, tz1));
+  const float t_out = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                            fmaxf(tz0, tz1));
+  return (t_out >= t_lo) && (t_in <= t_out) && (!segment || t_in <= hi_bound);
 }
 
 // Stable block-level pack: the slot of a predicate lane (the block's base
@@ -283,24 +323,114 @@ k1_kernel(const Params p, const float* __restrict__ tables,
 
 // --- the cluster sweep: nearest hit or any-hit occlusion of packed rays ----
 //
-// Without lists (ids == nullptr) every block sweeps every cluster.  With
-// lists (the shortlist-streaming mode) the block sweeps only the clusters
-// that its 4,096-ray tile's list names: ids[tile * n_clusters + j] for
-// j < cnts[tile], in list order; the triangle loops are the same.
+// Without lists (ids == nullptr) every ray block sweeps every cluster.  With
+// lists (the shortlist-streaming mode) it sweeps only the clusters that its
+// 4,096-ray tile's list names: ids[tile * n_clusters + j] for j < cnts[tile],
+// in list order; the triangle loops are the same.
+//
+// The list is split into K contiguous slices, each swept by its own block
+// of the same 256 rays (grid: ray blocks x k_max; block (rb, k) takes slice
+// k of K, and blocks with k >= K leave at once).  K comes from the packed
+// count on the device: enough blocks to fill `target` block slots (the
+// resident blocks of the card times SWEEP_WAVES), at most k_max.
+// With K = 1 the block writes its result itself.  Otherwise each slice
+// writes a partial result per ray to `part`, and the combine takes them in
+// slice order:
+//   - nearest: (t, row of tri) of the slice's winner; the combine keeps a
+//     later slice only when strictly nearer, which is the serial sweep's
+//     rule (the first row at the least t wins: t does not depend on the
+//     running best), so t, normal and material id are the serial sweep's;
+//   - occlusion: one flag per ray that every slice sets when it finds an
+//     occluder (zero at launch); a slice stops testing a ray at its own
+//     first accepted row or once another slice has set the flag, and the
+//     combine reads the flag: the OR of the slices, whichever finish
+//     first.
+// The combine runs in the last block of the ray block to finish (a ticket
+// per ray block, taken after a __threadfence); a second launch for it
+// measured no faster.  Inside a block the clusters are
+// double-buffered in shared memory: the next cluster's cp.async copies are
+// in flight while cluster j is tested.  Only clusters whose box (padded,
+// see crosses_box) a ray of the block crosses are staged, and a warp tests
+// a staged cluster only when one of its rays crosses the box: each listed
+// cluster costs a box test and a barrier, a crossed one its triangles.
+// The occlusion sweep leaves the list once every ray of the block is
+// occluded (the barrier's OR of the rays still open).
+
+constexpr int SPLIT_MAX = 16;   // most list slices per ray block
+// Block slots the slices fill: the card's resident sweep blocks times this
+// (1, 2, 4 and 8 measured; 8 the fastest on the 164k cell).
+constexpr int SWEEP_WAVES = 8;
+
+// Slices per ray block: ceil(target / ray blocks), clamped to [1, k_max].
+__host__ __device__ __forceinline__ int split_count(int n, int target,
+                                                    int k_max) {
+  const int nb = (n + SWEEP_BLOCK - 1) / SWEEP_BLOCK;
+  if (nb <= 0) return 1;
+  const int k = (target + nb - 1) / nb;
+  return k < 1 ? 1 : (k > k_max ? k_max : k);
+}
+
+// The nearest result of row `slot` of tri (-1: no hit) into out at `lane`.
+__device__ __forceinline__ void write_nearest(const float* __restrict__ tri,
+                                              float* __restrict__ out, int R,
+                                              int lane, float best_t,
+                                              int slot) {
+  float bnx = 0.f, bny = 0.f, bnz = 0.f, bmid = -1.f;
+  if (slot >= 0) {
+    const float* T = tri + (size_t)slot * NF;
+    bnx = T[9]; bny = T[10]; bnz = T[11];
+    bmid = T[12];
+  }
+  out[lane] = best_t;
+  out[R + lane] = bnx;
+  out[2 * R + lane] = bny;
+  out[3 * R + lane] = bnz;
+  out[4 * R + lane] = bmid;
+}
+
+// Packed ray i's K partial results, in slice order, into its lane's output.
+// Partials come from other blocks: read past L1 (__ldcg).
+template <bool OCCL>
+__device__ __forceinline__ void combine_ray(const Params& p,
+                                            const float* __restrict__ tri,
+                                            const int* __restrict__ ray_id,
+                                            int cap, int K, const int* part,
+                                            float* __restrict__ out, int i) {
+  const int lane = ray_id[i];
+  if (OCCL) {
+    out[lane] = __ldcg(part + i) ? 1.0f : 0.0f;
+    return;
+  }
+  float best_t = NO_HIT;
+  int slot = -1;
+  for (int k = 0; k < K; ++k) {
+    const float t = __int_as_float(__ldcg(part + (size_t)(2 * k) * cap + i));
+    if (t < best_t) {
+      best_t = t;
+      slot = __ldcg(part + (size_t)(2 * k + 1) * cap + i);
+    }
+  }
+  write_nearest(tri, out, p.R, lane, best_t, slot);
+}
 
 template <bool OCCL>
 __global__ void __launch_bounds__(SWEEP_BLOCK)
 sweep_kernel(const Params p, const float* __restrict__ tri,
+             const float* __restrict__ aabb,
              const float* __restrict__ rays, const int* __restrict__ ray_id,
              int cap, const int* __restrict__ cnt,
              const int* __restrict__ ids, const int* __restrict__ cnts,
+             int target, int k_max, int* part, int* __restrict__ tickets,
              float* __restrict__ out) {
   extern __shared__ float4 tile4[];
+  __shared__ int last;
   const int n = min(*cnt, cap);
-  const int i0 = blockIdx.x * SWEEP_BLOCK;
-  // A block wholly past the packed rays leaves at once; in a live block
-  // every thread joins every load and barrier below.
-  if (i0 >= n) return;
+  const int rb = blockIdx.x / k_max, k = blockIdx.x - rb * k_max;
+  const int i0 = rb * SWEEP_BLOCK;
+  const int K = split_count(n, target, k_max);
+  // A block past the packed rays or past the K slices leaves at once; in a
+  // live block every thread joins every copy and barrier below.
+  if (i0 >= n || k >= K) return;
   const int i = i0 + threadIdx.x;
   const bool live = i < n;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
@@ -313,40 +443,86 @@ sweep_kernel(const Params p, const float* __restrict__ tri,
   const int tile_i = i0 / LIST_TILE;
   const int* list = ids ? ids + (size_t)tile_i * p.n_clusters : nullptr;
   const int n_list = ids ? cnts[tile_i] : p.n_clusters;
-  float best_t = NO_HIT, bnx = 0.f, bny = 0.f, bnz = 0.f, bmid = -1.f;
+  const int j0 = (int)((long long)n_list * k / K);
+  const int j1 = (int)((long long)n_list * (k + 1) / K);
+  float best_t = NO_HIT;
+  int slot = -1;
   bool occ = false;
+  // The ray's slab-test terms: the unbounded line (nearest) or the segment
+  // up to lim (occlusion), with the mask pass's slack (csrc/coherent.cu).
+  const float ivx = sinv(dx), ivy = sinv(dy), ivz = sinv(dz);
+  const float o_mag = fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
+  const float t_lo = fminf(p.t_min, 0.0f);
+  const float hi_bound = OCCL ? lim * 1.000001f + 1e-5f : 0.0f;
+  // The next position at or after q in the slice whose cluster box a ray
+  // of the block that still needs testing crosses (j1: none), and whether
+  // this lane's ray crosses it.  One barrier a probe.
+  auto seek = [&](int q, bool& mine) {
+    if (OCCL && !__syncthreads_or(live && !occ)) return j1;
+    for (; q < j1; ++q) {
+      mine = live && !(OCCL && occ) &&
+             crosses_box(aabb + (size_t)(list ? list[q] : q) * AABB_W, ox,
+                         oy, oz, o_mag, ivx, ivy, ivz, t_lo, hi_bound, OCCL);
+      if (__syncthreads_or(mine)) return q;
+    }
+    return j1;
+  };
   const int words4 = p.cs * NF / 4;
-  const float* tile = reinterpret_cast<const float*>(tile4);
-  for (int j = 0; j < n_list; ++j) {
-    __syncthreads();  // the previous cluster is no longer read
-    cluster_tri::stage_cluster(tile4, tri, list ? list[j] : j, words4);
+  int cur = 0;   // the buffer cluster j is staged in
+  bool mine = false;
+  int j = seek(j0, mine);
+  if (j < j1)
+    cluster_tri::stage_cluster_async(tile4, tri, list ? list[j] : j, words4);
+  while (j < j1) {
+    // another slice found this ray's occluder
+    if (OCCL && K > 1 && live && !occ && __ldcg(part + i)) occ = true;
+    cluster_tri::wait_staged();   // this thread's copies of cluster j
+    // Every copy of cluster j has landed, and the other buffer is no longer
+    // read: it takes the next cluster a ray of the block needs.
     __syncthreads();
-    if (!live || (OCCL && occ)) continue;
-    if (OCCL) {
-      occ = cluster_tri::occluded_rows(tile, p.cs, ox, oy, oz, dx, dy, dz,
-                                       lim, p.t_min);
-    } else {
-      const int k = cluster_tri::nearest_rows(tile, p.cs, ox, oy, oz, dx, dy,
-                                              dz, p.t_min, best_t);
-      if (k >= 0) {
-        const float* T = tile + k * NF;
-        bnx = T[9]; bny = T[10]; bnz = T[11];
-        bmid = T[12];
+    bool mine_next = false;
+    const int jn = seek(j + 1, mine_next);
+    if (jn < j1)
+      cluster_tri::stage_cluster_async(tile4 + (cur ^ 1) * words4, tri,
+                                       list ? list[jn] : jn, words4);
+    // A warp none of whose rays crosses the cluster's box skips it; the
+    // box test is conservative, as the lists' own (every ray that hits a
+    // triangle crosses its cluster's box), so the results stay the
+    // unculled sweep's.
+    const bool test = live && !(OCCL && occ);
+    if (__any_sync(0xffffffffu, mine) && test) {
+      const float* tile = reinterpret_cast<const float*>(tile4 + cur * words4);
+      if (OCCL) {
+        occ = cluster_tri::occluded_rows(tile, p.cs, ox, oy, oz, dx, dy, dz,
+                                         lim, p.t_min);
+        if (occ && K > 1) __stcg(part + i, 1);
+      } else {
+        const int kk = cluster_tri::nearest_rows(tile, p.cs, ox, oy, oz, dx,
+                                                 dy, dz, p.t_min, best_t);
+        if (kk >= 0) slot = (list ? list[j] : j) * p.cs + kk;
       }
     }
+    j = jn;
+    mine = mine_next;
+    cur ^= 1;
   }
-  if (!live) return;
-  const int lane = ray_id[i];
-  if (OCCL) {
-    out[lane] = occ ? 1.0f : 0.0f;
-  } else {
-    const int R = p.R;
-    out[lane] = best_t;
-    out[R + lane] = bnx;
-    out[2 * R + lane] = bny;
-    out[3 * R + lane] = bnz;
-    out[4 * R + lane] = bmid;
+  if (K == 1) {
+    if (!live) return;
+    if (OCCL)
+      out[ray_id[i]] = occ ? 1.0f : 0.0f;
+    else
+      write_nearest(tri, out, p.R, ray_id[i], best_t, slot);
+    return;
   }
+  if (live && !OCCL) {
+    part[(size_t)(2 * k) * cap + i] = __float_as_int(best_t);
+    part[(size_t)(2 * k + 1) * cap + i] = slot;
+  }
+  __threadfence();     // the partials are visible before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + rb, 1) == K - 1;
+  __syncthreads();
+  if (last && live) combine_ray<OCCL>(p, tri, ray_id, cap, K, part, out, i);
 }
 
 // --- K1b: merge, shading point, NEE sample, shadow predicate, pack ---------
@@ -694,19 +870,52 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+size_t sweep_smem(int cs) { return 2 * (size_t)cs * NF * sizeof(float); }
+
+// Resident blocks of the sweep on this device: (blocks per SM, SMs), asked
+// of the runtime once per device and cluster size.
 template <bool OCCL>
-int sweep(const Params* p, const float* tri, const float* rays,
-          const int* ray_id, int cap, const int* cnt, const int* ids,
-          const int* cnts, float* out, void* stream) {
-  if (cap <= 0 || p->cs <= 0 || p->cs * NF % 4 != 0 ||
+cudaError_t sweep_slots(int cs, int* per_sm, int* n_sm) {
+  static int seen_dev = -1, seen_cs = -1, seen_per_sm = 0, seen_n_sm = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev != seen_dev || cs != seen_cs) {
+    e = cudaDeviceGetAttribute(&seen_n_sm, cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e == cudaSuccess) e = allow_smem(sweep_kernel<OCCL>, sweep_smem(cs));
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &seen_per_sm, sweep_kernel<OCCL>, SWEEP_BLOCK, sweep_smem(cs));
+    if (e != cudaSuccess) return e;
+    seen_dev = dev;
+    seen_cs = cs;
+  }
+  *per_sm = seen_per_sm;
+  *n_sm = seen_n_sm;
+  return cudaSuccess;
+}
+
+template <bool OCCL>
+int sweep(const Params* p, const float* tri, const float* aabb,
+          const float* rays, const int* ray_id, int cap, const int* cnt,
+          const int* ids, const int* cnts, int k_max, int* part,
+          int* tickets, float* out, void* stream) {
+  if (cap <= 0 || p->cs <= 0 || p->cs * NF % 4 != 0 || k_max < 1 ||
+      k_max > SPLIT_MAX ||
+      (k_max > 1 && (part == nullptr || tickets == nullptr)) ||
       (ids != nullptr && cap % LIST_TILE != 0))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)p->cs * NF * sizeof(float);
-  const cudaError_t e = allow_smem(sweep_kernel<OCCL>, smem);
+  int per_sm = 0, n_sm = 0;
+  const cudaError_t e = sweep_slots<OCCL>(p->cs, &per_sm, &n_sm);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (cap + SWEEP_BLOCK - 1) / SWEEP_BLOCK;
-  sweep_kernel<OCCL><<<blocks, SWEEP_BLOCK, smem, (cudaStream_t)stream>>>(
-      *p, tri, rays, ray_id, cap, cnt, ids, cnts, out);
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int target = per_sm * n_sm * SWEEP_WAVES;
+  const int ray_blocks = (cap + SWEEP_BLOCK - 1) / SWEEP_BLOCK;
+  sweep_kernel<OCCL><<<ray_blocks * k_max, SWEEP_BLOCK, sweep_smem(p->cs),
+                       (cudaStream_t)stream>>>(*p, tri, aabb, rays, ray_id,
+                                               cap, cnt, ids, cnts, target,
+                                               k_max, part, tickets, out);
   return (int)cudaGetLastError();
 }
 
@@ -733,41 +942,34 @@ extern "C" int fused_mesh_k1(const Params* p, const float* tables,
   return (int)cudaGetLastError();
 }
 
-// The nearest sweep: rays (6, cap) [o d] -> (t, n, material id) into
-// out (5, R) at the rays' lanes.
-extern "C" int fused_mesh_nearest(const Params* p, const float* tri,
-                                  const float* rays, const int* ray_id,
-                                  int cap, const int* cnt, float* out,
-                                  void* stream) {
-  return sweep<false>(p, tri, rays, ray_id, cap, cnt, nullptr, nullptr, out,
-                      stream);
+// The cluster sweep.  tri (n_clusters, cs, 16) and its cluster boxes aabb
+// (n_clusters, 8).  occl 0, nearest: rays (6, cap) [o d] -> (t, n,
+// material id) into out (5, R) at the rays' lanes; occl 1: rays (7, cap)
+// [p w_l lim] -> 1.0 / 0.0 into out (R,) at the rays' lanes.  ids / cnts
+// null: every cluster; else the shortlists, ids (cap / 4096, n_clusters)
+// and cnts (cap / 4096,), cap a whole number of tiles.  k_max (1 to 16)
+// bounds the list slices per ray block; part (2 k_max cap i32 nearest; cap
+// i32 occlusion, zero) and tickets (ray blocks i32, zero) are scratch for
+// k_max > 1.
+extern "C" int fused_mesh_sweep(const Params* p, int occl, const float* tri,
+                                const float* aabb, const float* rays,
+                                const int* ray_id, int cap, const int* cnt,
+                                const int* ids, const int* cnts, int k_max,
+                                int* part, int* tickets, float* out,
+                                void* stream) {
+  if ((ids == nullptr) != (cnts == nullptr)) return (int)cudaErrorInvalidValue;
+  return occl ? sweep<true>(p, tri, aabb, rays, ray_id, cap, cnt, ids, cnts,
+                            k_max, part, tickets, out, stream)
+              : sweep<false>(p, tri, aabb, rays, ray_id, cap, cnt, ids, cnts,
+                             k_max, part, tickets, out, stream);
 }
 
-// The occlusion sweep: rays (7, cap) [p w_l lim] -> 1.0 / 0.0 into
-// out (R,) at the rays' lanes.
-extern "C" int fused_mesh_occl(const Params* p, const float* tri,
-                               const float* rays, const int* ray_id, int cap,
-                               const int* cnt, float* out, void* stream) {
-  return sweep<true>(p, tri, rays, ray_id, cap, cnt, nullptr, nullptr, out,
-                     stream);
-}
-
-// The shortlist-streaming sweeps: as the two above, each 4,096-ray tile over
-// the clusters of its list, ids (cap / 4096, n_clusters) and cnts
-// (cap / 4096,); cap a whole number of tiles.
-extern "C" int fused_mesh_nearest_sl(const Params* p, const float* tri,
-                                     const float* rays, const int* ray_id,
-                                     int cap, const int* cnt, const int* ids,
-                                     const int* cnts, float* out,
-                                     void* stream) {
-  return sweep<false>(p, tri, rays, ray_id, cap, cnt, ids, cnts, out, stream);
-}
-
-extern "C" int fused_mesh_occl_sl(const Params* p, const float* tri,
-                                  const float* rays, const int* ray_id,
-                                  int cap, const int* cnt, const int* ids,
-                                  const int* cnts, float* out, void* stream) {
-  return sweep<true>(p, tri, rays, ray_id, cap, cnt, ids, cnts, out, stream);
+// The sweep's resident blocks per SM for clusters of cs triangles, and the
+// SM count: out[0], out[1].  Launches nothing.
+extern "C" int fused_mesh_sweep_slots(int occl, int cs, int* out) {
+  if (cs <= 0 || cs * NF % 4 != 0) return (int)cudaErrorInvalidValue;
+  return (int)(occl ? sweep_slots<true>(cs, out, out + 1)
+                    : sweep_slots<false>(cs, out, out + 1));
 }
 
 // K1b: reads sf rows 0-5, si (4, R) rows 0-1 and hf; writes kb (9, R),

@@ -52,7 +52,13 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
     ``intersect_fn(scene, o, d, t_min) -> Hit`` and ``nearest_t_fn(scene,
     o, d, t_min) -> t`` default to exact brute force.  Returns
     ``(radiance_delta, o', d', throughput', continues, n_main, n_shadow)``;
-    the n_* are the ray counts of this step."""
+    the n_* are the ray counts of this step.  Every plain engine steps
+    through here, so here it refuses ``soft_shadow_beta > 0``."""
+    if cfg.soft_shadow_beta > 0.0:
+        raise NotImplementedError(
+            "soft_shadow_beta > 0 (sigmoid-relaxed visibility) waits for the "
+            "port of soft_visibility with the gradient slice; the plain "
+            "engines implement the reference's hard shadow test only")
     mats = scene.materials
     if intersect_fn is None:
         intersect_fn = lambda s, oo, dd, tm: intersect.intersect_scene(  # noqa: E731

@@ -35,12 +35,18 @@ with the same triangle loops and so the same results.
 - ``csrc/fused_mesh.cu`` holds the kernel bodies (K1, the templated sweep
   with or without lists, K1b, K2), CUDA C++ for sm_90a loaded with
   ``ctypes``; ``csrc/coherent.cu`` the mask pass.
-  ``wavefront_steps_fused_mesh`` launches them for CUDA tensors.
+  ``wavefront_steps_fused_mesh`` launches them for CUDA tensors.  The
+  sweep cuts each ray block's cluster list into slices swept by blocks of
+  their own (the packed rays alone are too few blocks to fill the card)
+  and combines them in list order; a warp skips every cluster whose box
+  (padded: ``crosses_box_plain``) none of its rays crosses.
 - ``_k1_plain``, ``_sweep_plain``, ``_k1b_plain`` and ``_k2_plain`` (and
   ``coherent.mask_plain``) are the same arithmetic in PyTorch, with the
   same inputs and outputs as the kernels;
   ``wavefront_steps_fused_mesh_plain`` steps with them on any device.  The
-  entry points run them only for CPU tensors.
+  entry points run them only for CPU tensors.  ``split_sweep_plain`` is
+  the sweep sliced and combined as the kernel does, and
+  ``crosses_box_plain`` the kernel's box cull, for the tests.
 
 Capacity: the packed buffers have a fixed size per call.  A step whose
 predicate population exceeds one reports overflow (``render_turbo_mesh``
@@ -71,6 +77,8 @@ MESH_NF = 16            # floats per cluster triangle row: v0 e1 e2 n mid idx pa
 LANES_PER_TILE = 4096   # the caps are whole multiples of this many lanes
 PACK_BLOCK = 256        # lanes per K1/K1b block: one offsets-table row each
 SWEEP_BLOCK = 256       # packed rays per sweep block (csrc/fused_mesh.cu)
+SPLIT_MAX = 16          # most list slices per sweep ray block (the same)
+SWEEP_WAVES = 8         # the slices fill this many times the resident blocks
 _TILE_CHUNK = 16        # tiles per vectorized step of list_sweep_plain
 # The JAX package's SMEM budget for the cluster table: past it the sweeps
 # default to the shortlist-streaming mode.
@@ -84,6 +92,15 @@ LAUNCHES = {"k1": 0, "nearest": 0, "k1b": 0, "occl": 0, "k2": 0,
 # One record per chunk of the last render_turbo_mesh(_exact) call: the
 # steps, the caps, the overflow and the predicate populations.
 TRACE: list = []
+
+
+def split_count(n: int, target: int, k_max: int) -> int:
+    """Slices per ray block that the sweep kernel takes for ``n`` packed
+    rays and ``target`` block slots (csrc/fused_mesh.cu split_count)."""
+    nb = -(-int(n) // SWEEP_BLOCK)
+    if nb <= 0:
+        return 1
+    return max(1, min(-(-int(target) // nb), k_max))
 
 
 # --- host side ---------------------------------------------------------------
@@ -551,6 +568,74 @@ def list_sweep_plain(tri, rays, ids, cnts, t_min: float, *, occl: bool,
     return best, slot, tests
 
 
+def split_sweep_plain(tri, rays, ids, cnts, t_min: float, k: int, *,
+                      occl: bool, n_live: int | None = None):
+    """``list_sweep_plain`` as the split sweep kernel computes it: each
+    tile's list cut into ``k`` contiguous slices (slice i: positions
+    [n * i // k, n * (i + 1) // k) of a list of n), each slice swept alone,
+    then combined in slice order (nearest: a later slice wins only when
+    strictly nearer; occlusion: OR).  Same returns as
+    ``list_sweep_plain``; the tests are those of slices that each stop a
+    ray only at their own first occluder (the kernel's slices also stop
+    once another slice has found one, so they make at most these)."""
+    dev = rays.device
+    n_t, n_c = ids.shape
+    cn = cnts.to(torch.int64).to(dev)
+    pos = torch.arange(n_c, device=dev)
+    best = slot = tests = None
+    for i in range(k):
+        j0, j1 = cn * i // k, cn * (i + 1) // k
+        take = torch.clamp(j0[:, None] + pos, max=n_c - 1)
+        ids_i = torch.gather(ids.to(torch.int64), 1, take)
+        r, s, t = list_sweep_plain(tri, rays, ids_i, j1 - j0, t_min,
+                                   occl=occl, n_live=n_live)
+        if best is None:
+            best, slot, tests = r, s, t
+            continue
+        tests = tests + t
+        if occl:
+            best = best | r
+            continue
+        better = r < best
+        best = torch.where(better, r, best)
+        slot = torch.where(better, s, slot)
+    return best, slot, tests
+
+
+def crosses_box_plain(aabb, rays, t_min: float, *, occl: bool):
+    """The sweep kernel's cluster cull in PyTorch (csrc/fused_mesh.cu
+    ``crosses_box``): does each ray of rays (6 or 7, n) cross each box of
+    aabb (C, 8), every side pushed out by 1e-4 of the box's extent plus
+    the largest coordinate magnitude of the box and the ray's origin, and
+    1e-6?  The slab test of the mask pass, from min(t_min, 0) (occlusion:
+    up to lim with its slack).  -> (C, n) bool."""
+    ox, oy, oz, dx, dy, dz = rays[0:6]
+
+    def sinv(v):
+        tiny = torch.where(v < 0.0, -1e-20, 1e-20)
+        return 1.0 / torch.where(torch.abs(v) < 1e-20, tiny, v)
+
+    o_mag = torch.maximum(torch.maximum(torch.abs(ox), torch.abs(oy)),
+                          torch.abs(oz))
+    box = aabb[:, :6, None]
+    mag = torch.maximum(o_mag, torch.amax(torch.abs(box), 1))   # (C, n)
+    ts = []
+    for o, iv, j in ((ox, sinv(dx), 0), (oy, sinv(dy), 1), (oz, sinv(dz), 2)):
+        lo, hi = box[:, j], box[:, 3 + j]
+        m = 1e-4 * ((hi - lo) + mag) + 1e-6
+        ts.append(((lo - m - o) * iv, (hi + m - o) * iv))
+    t_in = torch.maximum(torch.maximum(torch.minimum(*ts[0]),
+                                       torch.minimum(*ts[1])),
+                         torch.minimum(*ts[2]))
+    t_out = torch.minimum(torch.minimum(torch.maximum(*ts[0]),
+                                        torch.maximum(*ts[1])),
+                          torch.maximum(*ts[2]))
+    crossed = (t_out >= min(float(t_min), 0.0)) & (t_in <= t_out)
+    if occl:
+        crossed &= t_in <= rays[6] * 1.000001 + 1e-5
+    return crossed
+
+
 def _sweep_plain(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
                  occl: bool, lists=None):
     """The cluster sweep over the first min(cnt, cap) packed rays, in tiles
@@ -561,9 +646,11 @@ def _sweep_plain(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
     (1, R) at the rays' lanes.  ``lists``: (ids (T * C,), cnts (T,)), each
     tile's clusters (the shortlist mode); default every cluster in order.
 
-    Returns the triangle tests the kernel makes, for its speed bound only:
-    the nearest sweep tests every listed triangle, the occlusion sweep
-    stops a ray at its first accepted triangle in list order."""
+    Returns the triangle tests of each of the n rays (n,) i64, for speed
+    bounds only: the serial sweep tests every listed triangle (nearest) or
+    stops a ray at its first accepted triangle in list order (occlusion);
+    the kernel also skips the clusters whose boxes no ray of a warp
+    crosses."""
     tri = tb.mp.smc_tri
     n_cl = tri.shape[0]
     n_planes, cap = rays.shape
@@ -583,13 +670,13 @@ def _sweep_plain(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
     lane = ray_id[:n].to(torch.int64)
     if occl:
         out[0, lane] = res.reshape(-1)[:n].to(torch.float32)
-        return tests.sum()
+        return tests.reshape(-1)[:n]
     s = slot.reshape(-1)[:n]
     attrs = tri.reshape(-1, MESH_NF)[s.clamp(min=0), 9:13]
     attrs = torch.where((s >= 0)[:, None], attrs,
                         torch.tensor([0.0, 0.0, 0.0, -1.0], device=rays.device))
     out[:, lane] = torch.cat([res.reshape(-1)[:n][None], attrs.T])
-    return tests.sum()
+    return tests.reshape(-1)[:n]
 
 
 def _k1b_plain(tb: _Tables, p: _Params, seed, sf, si, hf, kb, sr, sr_id,
@@ -698,12 +785,12 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     # (params, tables, sf, hf, mr, mr_id, offs, cnt, stream)
     "fused_mesh_k1": [_P] * 9,
-    # (params, tri, rays, ray_id, cap, cnt, out, stream)
-    "fused_mesh_nearest": [_P] * 4 + [ctypes.c_int] + [_P] * 3,
-    "fused_mesh_occl": [_P] * 4 + [ctypes.c_int] + [_P] * 3,
-    # (params, tri, rays, ray_id, cap, cnt, ids, cnts, out, stream)
-    "fused_mesh_nearest_sl": [_P] * 4 + [ctypes.c_int] + [_P] * 5,
-    "fused_mesh_occl_sl": [_P] * 4 + [ctypes.c_int] + [_P] * 5,
+    # (params, occl, tri, aabb, rays, ray_id, cap, cnt, ids, cnts, k_max,
+    #  part, tickets, out, stream)
+    "fused_mesh_sweep": ([_P, ctypes.c_int] + [_P] * 4 + [ctypes.c_int]
+                         + [_P] * 3 + [ctypes.c_int] + [_P] * 4),
+    # (occl, cs, out)
+    "fused_mesh_sweep_slots": [ctypes.c_int, ctypes.c_int, _P],
     # (params, tables, sf, si, hf, kb, sr, sr_id, offs, cnt, stream)
     "fused_mesh_k1b": [_P] * 11,
     # (params, tables, kb, sf, si, stream)
@@ -781,12 +868,27 @@ def _k1_kernel(tb: _Tables, p: _Params, sf, hf, mr, mr_id, offs, cnt):
             offs.data_ptr(), cnt.data_ptr(), _stream(sf))
 
 
+def sweep_slots(occl: bool, cs: int) -> tuple[int, int]:
+    """(resident sweep blocks per SM, SMs) of the current card for clusters
+    of ``cs`` triangles: the occupancy the split is sized by."""
+    out = (ctypes.c_int * 2)()
+    rc = _fn("fused_mesh_sweep_slots")(int(occl), cs, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"fused_mesh_sweep_slots failed: cudaError {rc}")
+    return out[0], out[1]
+
+
 def _sweep_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
-                  occl: bool, lists=None):
+                  occl: bool, lists=None, k_max: int = SPLIT_MAX):
+    """Launch the sweep (csrc/fused_mesh.cu) on CUDA tensors; as
+    ``_sweep_plain``.  Each ray block's list is cut into at most ``k_max``
+    slices (1: unsplit), enough to fill ``SWEEP_WAVES`` times the card's
+    resident sweep blocks."""
     key = ("occl" if occl else "nearest") + ("" if lists is None else "_sl")
     name = "fused_mesh_" + key
-    tensors = dict(tri=(tb.mp.smc_tri, _F), rays=(rays, _F),
-                   ray_id=(ray_id, _I), cnt=(cnt, _I), out=(out, _F))
+    tensors = dict(tri=(tb.mp.smc_tri, _F), aabb=(tb.mp.smc_aabb, _F),
+                   rays=(rays, _F), ray_id=(ray_id, _I), cnt=(cnt, _I),
+                   out=(out, _F))
     if lists is not None:
         tensors.update(ids=(lists[0], _I), cnts=(lists[1], _I))
     _check(name, tensors)
@@ -794,20 +896,33 @@ def _sweep_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
     _plane_rows(rays, 7 if occl else 6, cap, "rays")
     _plane_rows(out, 1 if occl else 5, out.shape[1], "out")
     if (ray_id.shape != (cap,) or tb.mp.smc_tri.shape
-            != (tb.mp.n_clusters, tb.mp.cs, MESH_NF)):
+            != (tb.mp.n_clusters, tb.mp.cs, MESH_NF)
+            or tb.mp.smc_aabb.shape != (tb.mp.n_clusters, 8)):
         raise ValueError("bad id buffer or cluster table shape")
-    args = [cnt.data_ptr()]
+    ids = cnts = None
     if lists is not None:
         n_t = cap // LANES_PER_TILE
         if (cap % LANES_PER_TILE or lists[0].numel() != n_t * tb.mp.n_clusters
                 or lists[1].numel() != n_t):
             raise ValueError("the shortlist sweep takes whole 4,096-ray "
                              "tiles, ids (T * C,) and cnts (T,)")
-        args += [lists[0].data_ptr(), lists[1].data_ptr()]
+        ids, cnts = lists[0].data_ptr(), lists[1].data_ptr()
+    k_max = max(1, min(k_max, SPLIT_MAX, tb.mp.n_clusters))
+    part = tickets = None
+    if k_max > 1:
+        # nearest: each slice's (t, row); occlusion: one flag per ray
+        part = (torch.zeros((cap,), dtype=_I, device=rays.device) if occl
+                else torch.empty((2 * k_max * cap,), dtype=_I,
+                                 device=rays.device))
+        tickets = torch.zeros((-(-cap // SWEEP_BLOCK),), dtype=_I,
+                              device=rays.device)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     cp = _cparams(tb, p, 0, out.shape[1])
-    _launch(name, key, ctypes.byref(cp), tb.mp.smc_tri.data_ptr(),
-            rays.data_ptr(), ray_id.data_ptr(), cap, *args, out.data_ptr(),
-            _stream(rays))
+    _launch("fused_mesh_sweep", key, ctypes.byref(cp), int(occl),
+            tb.mp.smc_tri.data_ptr(), tb.mp.smc_aabb.data_ptr(),
+            rays.data_ptr(), ray_id.data_ptr(),
+            cap, cnt.data_ptr(), ids, cnts, k_max, ptr(part), ptr(tickets),
+            out.data_ptr(), _stream(rays))
 
 
 def _nearest_kernel(tb, p, rays, ray_id, cnt, out):

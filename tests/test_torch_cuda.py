@@ -5,6 +5,8 @@ no CUDA device.  The file imports nothing of JAX, so it also runs on a
 machine with a card and no JAX, without the repository's conftest:
 ``python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -133,10 +135,11 @@ def test_packet_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got_t[hit], want_t[hit], rtol=1e-6, atol=0)
 
 
-def _mesh_step_inputs(device, steps_before=3):
+def _mesh_step_inputs(device, steps_before=3, sub=2):
     """A fused-mesh pack, its tables and one step's input state on
-    ``device``: the 64x64 Cornell mesh scene after a few plain steps."""
-    scene = cornell.cornell_mesh_scene(meshes.icosphere(2), device=device)
+    ``device``: the 64x64 Cornell mesh scene (an icosphere of ``sub``
+    subdivisions in 64-triangle clusters) after a few plain steps."""
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(sub), device=device)
     cam = cornell.cornell_camera(device)
     cfg = RenderConfig(width=64, height=64, spp=4, max_depth=6)
     mp = fused_mesh.pack_mesh_scene(scene, cluster_size=64)
@@ -341,6 +344,125 @@ def test_fused_mesh_shortlist_sweep_matches_plain(cuda, op):
     assert torch.equal(bk.hf, bp.hf) and torch.equal(bk.kb, bp.kb)
 
 
+@pytest.mark.parametrize("op", ["nearest", "occl"])
+@pytest.mark.parametrize("lists", [False, True])
+def test_fused_mesh_split_sweep_matches_plain(cuda, op, lists):
+    """The sweep with each ray block's list cut into 7 slices (more block
+    slots than the packed rays fill, so every ray block takes 7), combined
+    by the last slice to finish, against the unsplit plain sweep: outputs
+    bit equal (20 clusters)."""
+    tb, p, sf, si = _mesh_step_inputs(cuda, sub=3)
+    fm = fused_mesh
+    bp = fm.StepBuffers(*[torch.zeros_like(x) for x in
+                          fm.step_buffers(sf.shape[1], p, 1, cuda)])
+    for name in ["k1", "nearest", "k1b"][:1 if op == "nearest" else 3]:
+        fm.run_op(fm.PLAIN_OPS, name, tb, p, SEED, sf, si, bp)
+    occl = op == "occl"
+    rays, ids, cnt = ((bp.sr, bp.sr_id, bp.cnt[0, 1:2]) if occl
+                      else (bp.mr, bp.mr_id, bp.cnt[0, 0:1]))
+    want = (bp.kb[8:9] if occl else bp.hf[5:10]).clone()
+    got = torch.full_like(want, -7.0)
+    lst = fm._lists(tb, p, rays, cnt, kernel=False) if lists else None
+    fm._sweep_plain(tb, p, rays, ids, cnt, want, occl=occl, lists=lst)
+    per_sm, n_sm = fm.sweep_slots(occl, tb.mp.cs)
+    assert fm.split_count(int(cnt), fm.SWEEP_WAVES * per_sm * n_sm, 7) == 7
+    fm._sweep_kernel(tb, p, rays, ids, cnt, got, occl=occl, lists=lst,
+                     k_max=7)
+    torch.cuda.synchronize()
+    assert tb.mp.n_clusters >= 7 and int(cnt) > 0
+    lanes = ids[:int(cnt)].long()
+    assert torch.equal(got[:, lanes], want[:, lanes])
+
+
+def flat_far_clusters(tilt: float, n_rays: int = 4096, seed: int = 5):
+    """Three 16-triangle clusters about 300 from the origin, each a 4 x 2
+    grid of half-unit squares across axis x, y and z in turn, rising by
+    ``tilt`` a half unit (0: the cluster's box is flat in that axis), and
+    rays that graze them (a normal component of 1e-7 to 1e-2) towards
+    points within 2e-3 of an edge of the grid, inside and out, from 0.5 to
+    20 away.  -> tri (3, 16, 16), aabb (3, 8), rays (7, n) [o d lim], numpy
+    f32 (the sweep kernel's box cull on the worst case for its margin)."""
+    g = np.random.default_rng(seed)
+    tri = np.zeros((3, 16, fused_mesh.MESH_NF), np.float32)
+    aabb = np.zeros((3, 8), np.float32)
+    corner, span_u, span_v, normal = [], [], [], []
+    for c in range(3):
+        a, u, v = c, (c + 1) % 3, (c + 2) % 3
+
+        def at(i, j):
+            q = np.zeros(3)
+            q[a] = 300.0 + c + tilt * (i + j)
+            q[u], q[v] = 250.0 + 0.5 * i, -260.0 + 0.5 * j
+            return q.astype(np.float32).astype(np.float64)
+        k = 0
+        for i in range(4):
+            for j in range(2):
+                for q0, q1, q2 in ((at(i, j), at(i + 1, j), at(i + 1, j + 1)),
+                                   (at(i, j), at(i + 1, j + 1), at(i, j + 1))):
+                    n = np.cross(q1 - q0, q2 - q0)
+                    tri[c, k, 0:3], tri[c, k, 3:6] = q0, q1 - q0
+                    tri[c, k, 6:9] = q2 - q0
+                    tri[c, k, 9:12] = n / np.linalg.norm(n)
+                    tri[c, k, 12] = c
+                    k += 1
+        v0 = tri[c, :, 0:3].astype(np.float64)
+        vs = np.concatenate([v0, v0 + tri[c, :, 3:6], v0 + tri[c, :, 6:9]])
+        aabb[c, 0:3], aabb[c, 3:6] = vs.min(0), vs.max(0)
+        corner.append(at(0, 0))
+        span_u.append(at(4, 0) - at(0, 0))
+        span_v.append(at(0, 2) - at(0, 0))
+        n = np.cross(span_u[-1], span_v[-1])
+        normal.append(n / np.linalg.norm(n))
+    corner, span_u, span_v, normal = (np.array(x) for x in
+                                      (corner, span_u, span_v, normal))
+    c = g.integers(0, 3, n_rays)
+    iu, iv = g.uniform(0.0, 1.0, (2, n_rays))
+    side, off = g.integers(0, 4, n_rays), g.uniform(-2e-3, 2e-3, n_rays)
+    iu = np.where(side == 0, off, np.where(side == 1, 1.0 - off, iu))
+    iv = np.where(side == 2, off, np.where(side == 3, 1.0 - off, iv))
+    target = corner[c] + iu[:, None] * span_u[c] + iv[:, None] * span_v[c]
+    w = g.normal(size=(n_rays, 3))
+    w -= (w * normal[c]).sum(1, keepdims=True) * normal[c]
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    slope = 10.0 ** g.uniform(-7.0, -2.0, n_rays) * g.choice([-1.0, 1.0],
+                                                            n_rays)
+    d = w + slope[:, None] * normal[c]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t0 = g.uniform(0.5, 20.0, n_rays)
+    o = target - t0[:, None] * d
+    lim = t0 * g.uniform(0.9, 1.5, n_rays)
+    rays = np.concatenate([o.T, d.T, lim[None]]).astype(np.float32)
+    return tri, aabb, rays
+
+
+@pytest.mark.parametrize("tilt", [0.0, 1e-3])
+@pytest.mark.parametrize("op", ["nearest", "occl"])
+def test_fused_mesh_sweep_cull_on_flat_far_clusters(cuda, tilt, op):
+    """The sweep kernel, which skips the clusters whose padded boxes a
+    ray's warp does not cross, against the plain sweep, which tests every
+    cluster, on flat and nearly flat clusters far from the origin under
+    grazing rays near their edges: outputs bit equal."""
+    tb, p, _, _ = _mesh_step_inputs(cuda)
+    tri, aabb, rays = (torch.as_tensor(x, device=cuda)
+                       for x in flat_far_clusters(tilt))
+    tb = dataclasses.replace(tb, mp=dataclasses.replace(
+        tb.mp, smc_tri=tri, smc_aabb=aabb, cs=16))
+    occl = op == "occl"
+    rays = (rays if occl else rays[:6]).contiguous()
+    n = rays.shape[1]
+    ids = torch.arange(n, dtype=torch.int32, device=cuda)
+    cnt = torch.tensor([n], dtype=torch.int32, device=cuda)
+    want = torch.zeros((1 if occl else 5, n), device=cuda)
+    got = torch.full_like(want, -7.0)
+    fm = fused_mesh
+    fm._sweep_plain(tb, p, rays, ids, cnt, want, occl=occl)
+    fm._sweep_kernel(tb, p, rays, ids, cnt, got, occl=occl)
+    torch.cuda.synchronize()
+    hits = int((want[0] > 0.5).sum() if occl else (want[0] < fm.NO_HIT).sum())
+    assert hits > 500
+    assert torch.equal(got, want)
+
+
 def test_fused_mesh_stepper_shortlist_matches_resident(cuda):
     """resident=False against resident=True through the kernels: every
     field bit equal, overflow 0, the same populations."""
@@ -420,6 +542,30 @@ def test_rtiow_render_fused_on_card(cuda):
     plain = fused_rtiow.render_fused(scene, cam, cfg, SEED, device="cpu")
     np.testing.assert_allclose(img.cpu().numpy(), plain.numpy(), rtol=2e-3,
                                atol=2e-3)
+
+
+@pytest.mark.parametrize("chunks", [None, 1, 3])
+@pytest.mark.parametrize("case", list(RTIOW_CASES))
+def test_rtiow_render_matches_lockstep_kernel(cuda, case, chunks):
+    """The one-launch render (work items refilled from a counter, each step
+    branching on what its ray meets; each pixel's samples in 1, 3 or the
+    card's default number of chunks) against the step-mode kernel under
+    the lockstep chunk schedule: every state plane bit equal, one
+    launch."""
+    scene, cam, model = RTIOW_CASES[case]
+    cfg = RenderConfig(width=96, height=64, spp=4, max_depth=8,
+                       diffuse_model=model)
+    pk, cam24, sf, si, p = fused_rtiow._setup(
+        getattr(rtiow, scene)(), cam(), cfg, SEED, cuda)
+    want_f, want_i = fused_rtiow.render_lockstep(pk, cam24, SEED, sf.clone(),
+                                                 si.clone(), p)
+    launches = fused_rtiow.LAUNCHES
+    got_f, got_i = fused_rtiow._render_kernel(pk, cam24, SEED, sf, si, p,
+                                              chunks=chunks)
+    torch.cuda.synchronize()
+    assert fused_rtiow.LAUNCHES == launches + 1
+    assert bool((want_i[2] == cfg.spp).all())
+    assert torch.equal(got_i, want_i) and torch.equal(got_f, want_f)
 
 
 def test_single_path_kernel_matches_plain(cuda):

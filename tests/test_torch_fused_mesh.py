@@ -38,6 +38,7 @@ from cpu_based_ray_tracer_tpu_torch.scene import make_spheres
 from cpu_based_ray_tracer_tpu_torch.scenes import cornell, meshes
 
 import torch_ref as ref
+from test_torch_cuda import flat_far_clusters
 
 N_SMALLS = 22      # walls, light and tall box of cornell_mesh_scene
 SPHERE = ((1.0, 3.0, 2.0), 0.5, 0)    # a white sphere left of the mesh
@@ -473,6 +474,78 @@ def test_shortlist_sweep_matches_jax_pallas_interpret(occl):
     np.testing.assert_array_equal(got[0] < fused.NO_HIT, hit)
     np.testing.assert_allclose(got[0][hit], want[0][hit], rtol=1e-5)
     assert (got[1:] != want[1:]).any(0).mean() < 0.005
+
+
+def _split_inputs():
+    """Nine 16-triangle clusters, cluster 5 a copy of cluster 1, and two
+    tiles of 256 rays aimed at them: tile 0 lists the clusters in order,
+    tile 1 seven of them from the back, so a ray whose nearest triangle is
+    in cluster 1 meets the same t again in cluster 5, in another slice."""
+    g = np.random.default_rng(11)
+    c, cs, n_l = 9, 16, 256
+    tri = np.zeros((c, cs, fm.MESH_NF), np.float32)
+    tri[..., 0:3] = g.uniform(-1.0, 1.0, (c, cs, 3))
+    tri[..., 3:9] = g.uniform(-0.6, 0.6, (c, cs, 6))
+    tri[..., 9:12] = g.normal(size=(c, cs, 3))
+    tri[..., 12] = g.integers(0, 4, (c, cs))
+    tri[5] = tri[1]
+    o = g.uniform(-3.0, 3.0, (2, n_l, 3))
+    d = g.uniform(-0.5, 0.5, (2, n_l, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.concatenate([o.transpose(2, 0, 1), d.transpose(2, 0, 1),
+                           g.uniform(0.5, 5.0, (1, 2, n_l))]).astype(
+                               np.float32)
+    ids = np.stack([np.arange(c), np.array([8, 5, 7, 1, 6, 2, 4, 0, 3])])
+    return (torch.as_tensor(tri), torch.as_tensor(rays),
+            torch.as_tensor(ids, dtype=torch.int32), torch.tensor([c, 7]))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7])
+@pytest.mark.parametrize("occl", [False, True])
+def test_split_sweep_equals_serial(k, occl):
+    """The list cut into k slices, each swept alone and combined by the
+    kernel's rule, equals the serial list sweep bit for bit (t and winning
+    row; occlusion flags), exact-t ties between the copied clusters
+    included; k = 1 also makes the same tests."""
+    tri, rays, ids, cnts = _split_inputs()
+    rays = rays if occl else rays[:6]
+    want = fm.list_sweep_plain(tri, rays, ids, cnts, 1e-3, occl=occl,
+                               n_live=400)
+    got = fm.split_sweep_plain(tri, rays, ids, cnts, 1e-3, k, occl=occl,
+                               n_live=400)
+    assert torch.equal(got[0], want[0])
+    if occl:
+        assert 0 < int(want[0].sum()) < 400
+        assert int(got[2].sum()) >= int(want[2].sum())
+    else:
+        assert torch.equal(got[1], want[1])
+        row = want[1][want[1] >= 0] // 16
+        # ties: winners in the copied clusters, the earlier listed one wins
+        assert bool((row == 1).any()) and bool((row == 5).any())
+    if k == 1:
+        assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("tilt", [0.0, 1e-3])
+@pytest.mark.parametrize("occl", [False, True])
+def test_box_cull_keeps_every_hit(tilt, occl):
+    """The sweep kernel's cluster cull (``crosses_box_plain``, the same
+    test) on clusters whose boxes are flat or nearly flat, far from the
+    origin, under grazing rays near their edges: every ray that hits a
+    triangle of a cluster (the plain sweep of that cluster alone) crosses
+    its padded box, so the culled sweep's results are the unculled ones."""
+    tri, aabb, rays = (torch.as_tensor(x) for x in flat_far_clusters(tilt))
+    rays = rays if occl else rays[:6]
+    crossed = fm.crosses_box_plain(aabb, rays, 1e-3, occl=occl)
+    for c in range(3):
+        res, _, _ = fm.list_sweep_plain(
+            tri, rays[:, None], torch.tensor([[c]]), torch.tensor([1]), 1e-3,
+            occl=occl)
+        hit = res[0] if occl else res[0] < fm.NO_HIT
+        assert int(hit.sum()) > 100
+        assert bool(crossed[c][hit].all())
+    # the pad is thin: most rays cross only the box they aim at
+    assert int(crossed.sum()) < 1.2 * rays.shape[1]
 
 
 @pytest.mark.parametrize("n_clusters,cs", [(2, 64), (92, 128), (93, 128),

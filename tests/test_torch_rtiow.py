@@ -278,6 +278,71 @@ def test_render_fused_matches_scan_twin(case):
                                atol=ref.ATOL)
 
 
+# The one-launch render's schedule (pixels in sample chunks, refilled from a
+# queue, each step computing only what its ray needs): name -> (scene,
+# camera factory, diffuse model).  Thin lens and perspective, the three
+# diffuse models.
+REFILL = {
+    "thinlens_on_sphere": ("offline_two_sphere_scene",
+                           lambda m: m.offline_camera(40 / 36), 1),
+    "thinlens_aperture_in_sphere": (
+        "rtiow_classic_scene",
+        lambda m: m.offline_camera(40 / 36, aperture=0.4), DIFFUSE_IN_SPHERE),
+    "perspective_on_sphere": ("nppt_scene", lambda m: m.nppt_camera(), 1),
+    "perspective_in_hemisphere": ("nppt_scene", lambda m: m.nppt_camera(),
+                                  DIFFUSE_IN_HEMISPHERE),
+}
+
+
+def _refill_case(case, spp=8):
+    scene, cam, model = REFILL[case]
+    cfg = RenderConfig(width=40, height=36, spp=spp, max_depth=8,
+                       diffuse_model=model)
+    return fr._setup(getattr(rtiow, scene)(), cam(rtiow), cfg,
+                     ref.seed_word(5), torch.device("cpu"))
+
+
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("case", list(REFILL))
+def test_refill_twin_matches_lockstep(case, chunks):
+    """The refill twin against the lockstep schedule (``_steps_plain`` to
+    completion): every state plane bit equal, so the image and n_done."""
+    pk, cam24, sf, si, p = _refill_case(case)
+    want_f, want_i = fr.render_lockstep(pk, cam24, ref.seed_word(5),
+                                        sf.clone(), si.clone(), p)
+    got_f, got_i = fr.render_refill_plain(pk, cam24, ref.seed_word(5), sf,
+                                          si, p, chunks=chunks)
+    assert bool((want_i[2] == p.spp).all())
+    assert torch.equal(got_i, want_i) and torch.equal(got_f, want_f)
+
+
+def test_refill_twin_matches_jax_render_fused():
+    """The refill twin's image against JAX ``render_fused`` (its Pallas
+    kernel in interpret mode), 40x36, 8 spp: within 2e-3."""
+    pk, cam24, sf, si, p = _refill_case("perspective_on_sphere")
+    got_f, _ = fr.render_refill_plain(pk, cam24, ref.seed_word(5), sf, si, p,
+                                      chunks=3)
+    got = (got_f[9:12].T / 8.0).reshape(36, 40, 3).numpy()
+    want = np.asarray(jfr.render_fused(
+        jrtiow.nppt_scene(), jrtiow.nppt_camera(),
+        JConfig(width=40, height=36, spp=8, max_depth=8), jrng.render_key(5)))
+    np.testing.assert_allclose(got, want, rtol=ref.RTOL, atol=ref.ATOL)
+    assert want.mean() > 0.0
+
+
+def test_render_chunks_rule():
+    """Sample chunks: enough work items for the resident threads, at most
+    spp, within the scratch budget."""
+    threads, free = 132 * 4 * 256, 20 << 30
+    assert fr.render_chunks(400 * 225, 100, threads, free) > 1
+    assert fr.render_chunks(400 * 225, 4, threads, free) == 4
+    assert fr.render_chunks(3840 * 2160, 4096, threads, free) == 1
+    assert fr.render_chunks(0, 8, threads, free) == 1
+    # NPPT: 3 chunks take 2 x 727,592 x 86 x 16 bytes; 2 would take 1.49 GB
+    assert fr.render_chunks(883 * 824, 256, threads, free) == 3
+    assert fr.render_chunks(883 * 824, 256, threads, 1 << 30) == 1
+
+
 # tools/make_goldens.py's test tier: name -> (scene, camera, config, key)
 GOLDENS = {
     "offline_rtiow": (rtiow.offline_two_sphere_scene,
