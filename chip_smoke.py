@@ -11,14 +11,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. device     the card's name, power limit and clocks (nvidia-smi);
 2. build      every csrc/*.cu of the port, one nvcc each, started together,
-              into build/torch_kernels/;
+              into build/torch_kernels/; then sass: cuobjdump -sass of
+              fused_mc and fused_mesh (instructions per kernel; the
+              listing under build/chip_smoke/);
 3. parity     the fused_mc kernel against its plain version: Cornell at
               896x896 from wavefront_init for 32 steps (plain mode and
-              stop_after=4), and Cornell + one sphere at 256x256;
+              stop_after=4), and Cornell + one sphere at 256x256; then
+              render_turbo_exact's launches at 896x896 (32 and 64 steps,
+              stop_after=4; lanes retire) against the plain version in
+              lockstep: every plane bit equal after each;
 4. golden     render_turbo_exact at 128x128, 64 spp, RR 0.8, depth 16 against
               goldens/test/mc_cornell.png (mean abs diff <= 2, p99 <= 16);
 5. main       the MC main path at full width: render_turbo_exact at 896x896,
-              4 spp, depth 16, RR 0.8; the image goes to build/;
+              4 spp, depth 16, RR 0.8; the image goes to build/; its
+              fused_mc launches replayed alone (ms), their live
+              lane-steps and shadow rays counted untimed, and the bound
+              of that work;
 6. speed      the fused stepper at 896x896 as bench.py times the JAX one
               (256 steps per call, 4 calls after a warm-up), the kernel
               alone with CUDA events, and the plain version over 16 steps;
@@ -52,7 +60,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               wavefront_init: each of the five csrc/fused_mesh.cu entry
               points against its plain version for one step (outputs bit
               equal, packed lane sets equal, each block's slice in lane
-              order), then the whole stepper against
+              order; the grouping of the main rays against group_plain),
+              the grouped nearest sweep bit equal to its plain version at
+              every one of 16 steps, then the whole stepper against
               wavefront_steps_fused_mesh_plain for 16 steps, plain mode and
               stop_after=4 (integer state, overflow 0, populations);
 15. mesh_fused_main  render_turbo_mesh_exact at 896x896, 4 spp, depth 16,
@@ -69,7 +79,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               box tests over its list and the triangle tests of the
               clusters whose boxes it crosses, from the mask pass's
               per-ray planes); each sweep also unsplit (each output bit
-              equal to the plain one);
+              equal to the plain one); the nearest op's grouping and its
+              sweep each alone, the sweep also in pack order, and the
+              boxes a warp's rays cross before and after grouping;
 18. mesh_fused_whitted_main  mesh.render(prepare(bvh_stage_scene(4),
               method="fused")) at 896x896, depth 5 (7,424 triangles, 58
               clusters; no packet launch), against method="packet" at rtol
@@ -125,7 +137,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 27. denoiser_parity  the single_path mode of csrc/fused_mc.cu against its
               plain version at 896x896, depth 16, RR 0.8: ids and the
               contributor flag equal, color within 2e-3, position and normal
-              within 1e-4;
+              within 1e-4; every state and G-buffer plane bit equal;
 28. denoiser_golden  the three denoiser_* goldens (128x128, 4 frames, JBF
               16) through the fused engine (mean <= 2, p99 <= 16);
 29. denoiser_main  render_sequence(engine="fused") over 12 frames of a
@@ -211,10 +223,12 @@ def mc_ops(n_tri: int, n_sph: int, lane_steps: int, shadow_rays: int) -> int:
     per triangle, 28 per sphere) on each live lane-step; the shadow test
     (50 per triangle, 28 per sphere) and 150 of shading, NEE and scatter
     on each lane-step that traced a shadow ray (a live hit on a
-    non-emissive surface; si plane 3 counts them).  The kernel also runs
-    the latter on misses, emissive hits and idle lanes; the function does
-    not need it there.  A miss's sky, the winner's attributes, the
-    regeneration and the integer RNG are not counted: a floor."""
+    non-emissive surface; si plane 3 counts them).  The kernel runs the
+    latter only for such lanes, but a warp runs it when one of its lanes
+    does; in the gated modes a lane whose quota is met takes no step (its
+    path would only regenerate), and the plain mode steps every lane.  A
+    miss's sky, the winner's attributes, the regeneration and the integer
+    RNG are not counted: a floor."""
     return ((47 * n_tri + 28 * n_sph) * lane_steps
             + (150 + 50 * n_tri + 28 * n_sph) * shadow_rays)
 
@@ -255,6 +269,58 @@ def build_phase():
                 for k, v in kernels.BUILD_LOG.items()})
 
 
+def sass_phase(names=("fused_mc", "fused_mesh")) -> dict:
+    """cuobjdump -sass of the built libraries: each kernel's static
+    instruction count, and its loops (a branch back to an earlier address)
+    of 30 or more instructions with their f32 arithmetic, shared loads and
+    special functions: the triangle loops, whose length is what a lane
+    issues per triangle (per two where a loop is unrolled).  The whole
+    listing goes under build/chip_smoke/."""
+    import re
+
+    from cpu_based_ray_tracer_tpu_torch.utils import kernels
+
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    os.makedirs(OUT, exist_ok=True)
+    res = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass", kernels._target(name)[1]],
+                              check=True, capture_output=True, text=True,
+                              timeout=120).stdout
+        with open(os.path.join(OUT, f"{name}.sass"), "w") as f:
+            f.write(sass)
+        code = {}
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                kern = ln.split("Function :")[1].strip()
+                code[kern] = []
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+            if m and code:
+                ins = m.group(2).split()
+                op = ins[1] if ins[0].startswith("@") else ins[0]
+                code[kern].append((int(m.group(1), 16), op.split(".")[0],
+                                   m.group(2)))
+        res[name] = {}
+        for kern, ins in code.items():
+            at = {a: i for i, (a, _, _) in enumerate(ins)}
+            loops = []
+            for i, (a, op, text) in enumerate(ins):
+                m = re.search(r"BRA\b.*?0x([0-9a-f]+)", text)
+                if op == "BRA" and m and int(m.group(1), 16) < a:
+                    body = [o for _, o, _ in ins[at.get(int(m.group(1), 16),
+                                                        i):i + 1]]
+                    if 30 <= len(body) < len(ins) // 2:
+                        loops.append({"instructions": len(body), **{
+                            k: body.count(k) for k in ("FMUL", "FADD",
+                                                       "FFMA", "LDS",
+                                                       "MUFU")}})
+            res[name][kern] = {"instructions": len(ins), "loops": loops}
+    emit(phase="sass", kernels=res,
+         listing={n: os.path.relpath(os.path.join(OUT, f"{n}.sass"), ROOT)
+                  for n in names})
+    return res
+
+
 def parity_phase(dev, full: RenderConfig, sphere_size: int,
                  n_steps: int) -> float:
     """The kernel against its plain version; returns the max abs error."""
@@ -282,14 +348,59 @@ def parity_phase(dev, full: RenderConfig, sphere_size: int,
                                           device=dev)
         sync(dev)
         res = compare_states(got, want)
+        res["bit_equal"] = states_bit_equal(got, want)
         emit(phase="parity", case=label, n_steps=n_steps,
              stop_after=stop_after, **res)
         if (res["int_mismatch_share"] > MAX_INT_MISMATCH
-                or not res["float_within_tol"]):
+                or not res["float_within_tol"] or not res["bit_equal"]):
             raise RuntimeError(f"fused_mc disagrees with its plain version "
                                f"on {label}: {res}")
         max_err = max(max_err, res["max_abs_err"])
+
+    # The main path's launches: render_turbo_exact's chunks at full width
+    # (lanes retire; most enter the second launch done), against the plain
+    # version run in lockstep: every plane bit equal after each launch.
+    fs = fused.pack_scene(scene)
+    got = want = mc.wavefront_init(scene, cam, full, SEED_KEY0, device=dev)
+    for chunk in render_chunks(full):
+        want = fused.wavefront_steps_fused_plain(fs, cam, full, SEED_KEY0,
+                                                 want, chunk,
+                                                 stop_after=full.spp)
+        got = fused.wavefront_steps_fused(fs, cam, full, SEED_KEY0, got,
+                                          chunk, stop_after=full.spp,
+                                          device=dev)
+        sync(dev)
+        res = compare_states(got, want)
+        res["bit_equal"] = states_bit_equal(got, want)
+        emit(phase="parity", case=f"render_launch_{full.width}",
+             n_steps=chunk, stop_after=full.spp,
+             lanes_done=int((want.n_done >= full.spp).sum()), **res)
+        if not res["bit_equal"]:
+            raise RuntimeError(f"fused_mc's render launch of {chunk} steps "
+                               f"differs from its plain version: {res}")
+        if int(torch.min(want.n_done)) >= full.spp:
+            break
     return max_err
+
+
+def render_chunks(cfg: RenderConfig):
+    """render_turbo_exact's launch sizes (it stops at the first whose end
+    finds every pixel done)."""
+    chunk = max(32, cfg.max_depth)
+    for _ in range(cfg.spp * cfg.max_depth):
+        yield chunk
+        chunk = min(2 * chunk, 4096)
+
+
+def states_bit_equal(got, want) -> bool:
+    """Every plane of two lane states equal bit for bit (floats as int32
+    words: -0.0 and +0.0 differ)."""
+    for f in ("s", "b", "n_done", "nrays"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            return False
+    return all(torch.equal(getattr(got, f).contiguous().view(torch.int32),
+                           getattr(want, f).contiguous().view(torch.int32))
+               for f in ("o", "d", "tp", "cur", "acc"))
 
 
 def golden_phase(dev, gcfg: RenderConfig, mean_tol=2.0, p99_tol=16):
@@ -340,16 +451,67 @@ def main_phase(dev, full: RenderConfig) -> int:
     im.write_png(png, tonemap.quantize_u8(img, gamma=2.0).cpu().numpy())
     finite = bool(torch.isfinite(img).all())
     mean_rad = float(img.mean())
+    work = render_work(dev, full, scene, cam, launches)
     emit(phase="main", config=f"{full.width}x{full.height} {full.spp}spp "
          f"depth{full.max_depth} rr{full.rr_survival}", seconds=secs,
          shape=list(img.shape), finite=finite, mean_radiance=mean_rad,
-         launches={"fused_mc": launches}, png=os.path.relpath(png, ROOT))
+         launches={"fused_mc": launches}, png=os.path.relpath(png, ROOT),
+         **work)
     if dev.type == "cuda" and launches <= 0:
         raise RuntimeError("the main path launched no fused_mc kernel")
     if (tuple(img.shape) != (full.height, full.width, 3) or not finite
             or not mean_rad > 0.0):
         raise RuntimeError("the main path's image is wrong")
-    return launches
+    return launches, work
+
+
+def render_work(dev, full: RenderConfig, scene, cam, launches: int,
+                n_iters: int = 5) -> dict:
+    """The 4-spp render's fused_mc launches replayed alone from
+    wavefront_init (CUDA events, ms for all of them), and the work they
+    need, counted untimed by stepping the kernel one step a launch: the
+    live lane-steps (a lane whose quota is not met at the step's start)
+    and the shadow rays; the bound charges mc_ops to those, and the lane
+    state read and written once a launch."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.ops import fused, fused_mesh
+
+    fs = fused.pack_scene(scene)
+    cam16 = fused._camera_words(cam)
+    sf0, si0 = fused_mesh.state_planes(mc.wavefront_init(
+        scene, cam, full, SEED_KEY0, device=dev))
+    r = full.width * full.height
+    p = fused._Params(1, full.width, full.height, r, full.t_min,
+                      full.eps_offset, full.rr_survival,
+                      full.shadow_tolerance, full.max_depth, full.spp)
+    chunks = list(render_chunks(full))[:launches]
+    n = torch.zeros(2, dtype=torch.int64, device=dev)
+    sf, si = sf0.clone(), si0.clone()
+    for _ in range(sum(chunks)):
+        live = (si[2] < full.spp).sum()
+        fused._steps_kernel(fs, cam16, SEED_KEY0, sf, si, p)
+        n += torch.stack([live, si[3].sum()])
+    live, shadow = (int(x) for x in n)
+
+    def replay():
+        for c in chunks:
+            fused._steps_kernel(fs, cam16, SEED_KEY0, sf, si,
+                                p._replace(n_steps=c))
+    ms = 0.0
+    for i in range(n_iters + 1):                        # the first warms up
+        sf.copy_(sf0)
+        si.copy_(si0)
+        t = timed(replay)
+        ms += t / n_iters if i else 0.0
+    nbytes = (15 + 4) * 4 * 2 * r * len(chunks)
+    return dict(kernel_ms=ms, kernel_launch_steps=chunks,
+                live_lane_steps=live, lane_steps_launched=r * sum(chunks),
+                live_share=live / (r * sum(chunks)),
+                live_steps_per_pixel=live / r, shadow_rays=shadow,
+                **{"kernel_" + k: v for k, v in bound(
+                    mc_ops(fs.n_tri, fs.n_sph, live, shadow),
+                    nbytes).items()})
+
 
 
 def speed_phase(dev, full: RenderConfig, max_sm_mhz: float, smi: str,
@@ -867,7 +1029,10 @@ def packet_speed_phase(dev, cases, smi, n_iters=10) -> dict:
 
 MESH_TPU = {"k1": ("_k1_kernel", 226), "nearest": ("_mesh_nearest_kernel", 915),
             "k1b": ("_k1b_kernel", 1142), "occl": ("_mesh_occl_kernel", 943),
-            "k2": ("_k2_kernel", 388)}
+            "k2": ("_k2_kernel", 388),
+            # the grouping before the resident nearest sweep: part of #3's
+            # port (the TPU kernel sweeps the rays in pack order)
+            "group": ("_mesh_nearest_kernel", 915)}
 
 
 def mesh_setup(dev, cfg):
@@ -905,6 +1070,27 @@ def pack_check(ids_k, ids_p, rays_k, rays_p, offs_k, offs_p) -> bool:
     return ok
 
 
+def grouping_equal(got, want, rays, ray_id, n: int) -> bool:
+    """The grouping kernel's output holds the plain grouping's: the same
+    keys (in pack order), the same key runs, the same lane ids in each run
+    (the order inside a run is the atomics'), each with its own ray."""
+    (rk, ik, kk), (_, ip, kp) = got, want
+    if n == 0:
+        return True
+    if not torch.equal(kk[:n].long(), kp):
+        return False
+    key_of = torch.zeros(int(ray_id[:n].max()) + 1, dtype=torch.int64,
+                         device=rays.device)
+    key_of[ray_id[:n].long()] = kp
+    pos = torch.zeros_like(key_of)
+    pos[ray_id[:n].long()] = torch.arange(n, device=rays.device)
+    run_k, run_p = key_of[ik[:n].long()], key_of[ip[:n].long()]
+    return (torch.equal(run_k, run_p)
+            and torch.equal(torch.sort(run_k * (1 << 32) + ik[:n]).values,
+                            torch.sort(run_p * (1 << 32) + ip[:n]).values)
+            and torch.equal(rk[:, :n], rays[:, pos[ik[:n].long()]]))
+
+
 def mesh_fused_parity_phase(dev, cfg, n_steps=16) -> dict:
     """(a) each of the five entry points against its plain version on the
     same inputs, one step from wavefront_init; (b) the whole stepper,
@@ -917,8 +1103,19 @@ def mesh_fused_parity_phase(dev, cfg, n_steps=16) -> dict:
     sf, si = fm.state_planes(st)
     bp = fm.StepBuffers(*[torch.zeros_like(x)
                           for x in fm.step_buffers(r, p, 1, dev)])
-    errs, res = {}, {}
+    errs, res = {"group": 0.0}, {}
     for name in fm.OP_NAMES:
+        if name == "nearest":
+            # the grouping alone, on the plain K1's pack
+            c1 = bp.cnt[0, 0:1]
+            got = fm._group_kernel(tb, p, bp.mr, bp.mr_id, c1)
+            want = fm.group_plain(tb, p, bp.mr, bp.mr_id, c1)
+            sync(dev)
+            res["group"] = {"equal": grouping_equal(got, want, bp.mr,
+                                                    bp.mr_id, int(c1))}
+            if not res["group"]["equal"]:
+                raise RuntimeError("the grouping kernel disagrees with "
+                                   "group_plain")
         bk = fm.StepBuffers(*[x.clone() for x in bp])
         sf_k, si_k = sf.clone(), si.clone()
         fm.run_op(fm.KERNEL_OPS, name, tb, p, SEED_KEY0, sf_k, si_k, bk)
@@ -947,6 +1144,34 @@ def mesh_fused_parity_phase(dev, cfg, n_steps=16) -> dict:
                                f"{errs[name]}")
     emit(phase="mesh_fused_parity", part="each_kernel", lanes=r,
          caps=list(caps), max_abs_err=errs, **res)
+
+    # Every step of the stepper: the grouped resident sweep's t, normal
+    # and material id (hf rows 5-9) bit equal to the plain version's.
+    sf_k, si_k = fm.state_planes(st)
+    sf_p, si_p = sf_k.clone(), si_k.clone()
+    bk = fm.step_buffers(r, p, n_steps, dev)
+    bp = fm.step_buffers(r, p, n_steps, dev)
+    same_steps = 0
+    for k in range(n_steps):
+        for name in fm.OP_NAMES:
+            fm.run_op(fm.KERNEL_OPS, name, tb, p, SEED_KEY0, sf_k, si_k, bk,
+                      k)
+            fm.run_op(fm.PLAIN_OPS, name, tb, p, SEED_KEY0, sf_p, si_p, bp,
+                      k)
+            if name == "nearest":
+                sync(dev)
+                same_steps += int(torch.equal(bk.hf[5:10].view(torch.int32),
+                                              bp.hf[5:10].view(torch.int32)))
+    sync(dev)
+    emit(phase="mesh_fused_parity", part="grouped_sweep_every_step",
+         n_steps=n_steps, steps_bit_equal=same_steps,
+         packed_main=bp.cnt[:, 0].tolist(),
+         state_bit_equal=bool(torch.equal(sf_k.view(torch.int32),
+                                          sf_p.view(torch.int32))
+                              and torch.equal(si_k, si_p)))
+    if same_steps != n_steps:
+        raise RuntimeError(f"the grouped nearest sweep differs from its "
+                           f"plain version on {n_steps - same_steps} steps")
 
     for stop_after in (0, 4):
         kw = dict(cap_main=caps[0], cap_shadow=caps[1],
@@ -1096,7 +1321,34 @@ def mesh_bounds(mp, r, n_main, n_shadow, near, occl) -> dict:
                  + occl["box_tests"] * SLAB_OPS,
                  n_shadow * (32 + 4) + table),
         "k2": (r * (150 + 50 * mp.n_stri + 28 * mp.n_sph), r * (100 + 76)),
+        # each packed main ray's box tests; its rays and id read once and
+        # written once in key order (the key between the kernels is this
+        # design's, not the sort's)
+        "group": (n_main * mp.n_clusters * SLAB_OPS,
+                  n_main * (28 + 28)),
     }
+
+
+def group_speed(tb, p, rays, ray_id, cnt, n_iters: int) -> dict:
+    """The grouping kernel alone (CUDA events, ms per launch: its three
+    kernels; the card kept busy while the host enqueues them, and also
+    back to back with the host's work between), its plain version, and
+    each equal to the other."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+
+    got = fm._group_kernel(tb, p, rays, ray_id, cnt)            # warm-up
+    ms = timed(lambda: [fm._group_kernel(tb, p, rays, ray_id, cnt)
+                        for _ in range(n_iters)], busy_ms=20.0) / n_iters
+    host_ms = timed(lambda: [fm._group_kernel(tb, p, rays, ray_id, cnt)
+                             for _ in range(n_iters)]) / n_iters
+    out = {}
+    plain_ms = timed(lambda: out.update(
+        want=fm.group_plain(tb, p, rays, ray_id, cnt)))
+    sync(rays.device)
+    if not grouping_equal(got, out["want"], rays, ray_id, int(cnt)):
+        raise RuntimeError("the grouping kernel disagrees with group_plain")
+    return dict(ms=ms, with_host_ms=host_ms, plain_ms=plain_ms, keys=int(
+        torch.unique(out["want"][2]).numel()))
 
 
 def sweep_splits(tb, p, rays, ray_id, cnt, want, occl: bool, lists,
@@ -1193,22 +1445,34 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
         if name in ("nearest", "occl"):
             occl = name == "occl"
             packed = b.sr if occl else b.mr
+            ids = b.sr_id if occl else b.mr_id
             cnt = b.cnt[0, 1:2] if occl else b.cnt[0, 0:1]
-            res[name]["splits"] = sweep_splits(
-                tb, p, packed, b.sr_id if occl else b.mr_id, cnt,
-                bp.kb[8:9] if occl else bp.hf[5:10], occl, None, n_iters)
+            want = bp.kb[8:9] if occl else bp.hf[5:10]
             serial = plain_out[name]
             tests[name] = sweep_tests(
                 mp, p, packed, cnt, serial,
                 torch.full_like(serial, mp.n_clusters))
             res[name].update(serial_triangle_tests=int(serial.sum()),
                              **tests[name])
+            if not occl:
+                # The nearest op is the grouping, then the sweep over the
+                # grouped rays: each alone, and the sweep in pack order.
+                res["group"] = group_speed(tb, p, packed, ids, cnt, n_iters)
+                g_rays, g_id, _ = fm._group_kernel(tb, p, packed, ids, cnt)
+                res[name]["pack_order_splits"] = sweep_splits(
+                    tb, p, packed, ids, cnt, want, occl, None, n_iters)
+                packed, ids = g_rays, g_id
+                res[name]["boxes_crossed_per_warp_grouped"] = crossed_counts(
+                    mp, p, packed, cnt)[1]
+            res[name]["splits"] = sweep_splits(
+                tb, p, packed, ids, cnt, want, occl, None, n_iters)
+            res[name]["sweep_ms"] = res[name]["splits"]["default"]["ms"]
             if occl:
                 occl_tests = int(serial.sum())
                 occluded = int(bp.kb[8].sum())
     bounds = mesh_bounds(mp, r, n_main, n_shadow, tests["nearest"],
                          tests["occl"])
-    for name in fm.OP_NAMES:
+    for name in list(fm.OP_NAMES) + ["group"]:
         ops, nbytes = bounds[name]
         t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
         res[name].update(bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -1222,8 +1486,8 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
          occl_tests_per_shadow_ray=occl_tests / max(n_shadow, 1),
          occl_tests_all_clusters=n_shadow * mp.n_clusters * mp.cs,
          occluded_share=occluded / max(n_shadow, 1),
-         kernel_ms_per_step=sum(v["ms"] for v in res.values()),
-         bound_ms_per_step=sum(v["bound_ms"] for v in res.values()),
+         kernel_ms_per_step=sum(res[k]["ms"] for k in fm.OP_NAMES),
+         bound_ms_per_step=sum(res[k]["bound_ms"] for k in fm.OP_NAMES),
          per_kernel=res)
     return res
 
@@ -1497,6 +1761,7 @@ def mesh_fused_164k_phase(dev, cfg, n_steps=16) -> dict:
          png=save_png(img, f"mesh_fused_164k_{cfg.width}.png", 2.0))
     fmesh = launches["fused_mesh"]
     if (launches["packet"] != 0 or fmesh["nearest"] or fmesh["occl"]
+            or fmesh["group"]
             or any(fmesh[k] != steps for k in ("k1", "k1b", "k2",
                                               "nearest_sl", "occl_sl"))
             or launches["coherent"]["mask"] != 2 * steps or steps <= 0):
@@ -2060,6 +2325,19 @@ def denoiser_parity_phase(dev, cfg) -> dict:
         err = (got[i] - want[i]).abs()
         res[name + "_max_abs_err"] = float(err.max())
         ok &= bool((err <= tol + tol * want[i].abs()).all())
+    # The launch itself: every state plane and G-buffer plane bit equal
+    # (lanes retire when their one path ends).
+    cam16, sf, si, gb, p = fused._gbuffer_setup(cam, cfg, 3, dev)
+    gb_k = gb.clone()
+    planes_p = fused._steps_plain(fs, cam16, SEED_KEY0, sf.clone(),
+                                  si.clone(), p, gb=gb)
+    planes_k = fused._steps_kernel(fs, cam16, SEED_KEY0, sf.clone(),
+                                   si.clone(), p, gb=gb_k)
+    sync(dev)
+    res["planes_bit_equal"] = all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(planes_k + (gb_k,), planes_p + (gb,)))
+    ok &= res["planes_bit_equal"]
     emit(phase="denoiser_parity", config=f"{cfg.width}x{cfg.height} "
          f"depth{cfg.max_depth} rr{cfg.rr_survival}", **res)
     if not ok:
@@ -2192,9 +2470,14 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def timed(fn) -> float:
-    """Milliseconds of fn() on the card, by CUDA events."""
+def timed(fn, busy_ms: float = 0.0) -> float:
+    """Milliseconds of fn() on the card, by CUDA events.  busy_ms > 0
+    first keeps the card busy that long (torch.cuda._sleep), so that the
+    host has enqueued fn's launches before the first event fires: the time
+    of launches too small to hide the host's own work between them."""
     ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if busy_ms > 0.0:
+        torch.cuda._sleep(int(busy_ms * 1e-3 * 1.98e9))
     ev0.record()
     fn()
     ev1.record()
@@ -2219,12 +2502,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     build_phase()
+    sass_phase()
     full = RenderConfig(width=896, height=896, spp=4, max_depth=16,
                         rr_survival=0.8)
     max_err = parity_phase(dev, full, sphere_size=256, n_steps=32)
     golden_phase(dev, RenderConfig(width=128, height=128, spp=64,
                                    max_depth=16, rr_survival=0.8))
-    launches = main_phase(dev, full)
+    launches, mc_render = main_phase(dev, full)
     sp = speed_phase(dev, full, max_sm_mhz, smi)
 
     wfull = RenderConfig(width=896, height=896, whitted_depth=5)
@@ -2279,6 +2563,13 @@ def main():
         **({"slices": msp[k]["splits"]["default"]["k"],
             "unsplit_ms": msp[k]["splits"]["unsplit"]["ms"]}
            if "splits" in msp[k] else {}),
+        **({"sweep_ms": msp[k]["sweep_ms"], "group_ms": msp["group"]["ms"],
+            "pack_order_sweep_ms":
+                msp[k]["pack_order_splits"]["default"]["ms"],
+            "boxes_crossed_per_warp": msp[k]["boxes_crossed_per_warp"],
+            "boxes_crossed_per_warp_grouped":
+                msp[k]["boxes_crossed_per_warp_grouped"]}
+           if k == "nearest" else {}),
         "library_ms": None} for k in MESH_TPU]
     coherent_src = "cpu_based_ray_tracer_tpu_torch/csrc/coherent.cu"
     coherent_kernels = [{
@@ -2322,7 +2613,12 @@ def main():
         "single_path_launches": d_launches, "single_path_max_abs_err": d_err,
         "single_path_ms": dsp["ms"], "single_path_plain_ms": dsp["plain_ms"],
         "single_path_bound_ms": dsp["bound_ms"],
-        "single_path_bound_by": dsp["bound_by"]}, {
+        "single_path_bound_by": dsp["bound_by"],
+        "render_unit": f"ms of the {full.width}x{full.height} {full.spp}-spp "
+                       f"render's launches {mc_render['kernel_launch_steps']}",
+        "render_ms": mc_render["kernel_ms"],
+        "render_bound_ms": mc_render["kernel_bound_ms"],
+        "render_live_lane_steps": mc_render["live_lane_steps"]}, {
         "name": "fused_rtiow", "route": "cuda",
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_rtiow.cu",
         "replaces": RTIOW_TPU, "tpu_kernel": "ops/fused_rtiow.py::_kernel",

@@ -7,24 +7,43 @@
 // sample index pinned, the primary hit's 8-plane G-buffer written at the
 // launch's first step — the Denoiser frame).
 //
-// What bounds it on this card: arithmetic.  Each lane-step runs two
+// What bounds it on this card: arithmetic.  Each live lane-step runs two
 // Moller-Trumbore passes over every triangle (main hit, then the shadow
 // ray), ~100 f32 operations per triangle, about 3,200 per lane-step on the
 // 32-triangle Cornell box, against 76 bytes of lane state read and written
-// once per launch (not per step).  It is bound by the FP32 pipes
-// (132 SMs x 128 lanes per clock), not by memory.
+// once per lane (not per step).  It is bound by the FP32 pipes
+// (132 SMs x 128 lanes per clock), not by memory.  In the gated modes most
+// lane-steps of a launch fall on lanes whose quota is met: a 16-step
+// single_path launch holds paths of about 3 steps, and the 4-spp render's
+// 96 steps about 12 live steps a pixel.
 //
 // What the design does about it:
-//   - one thread per lane; the lane state (15 f32 + 4 i32) stays in
-//     registers for all n_steps bounces and touches device memory once
-//     in, once out;
+//   - persistent threads, as many as the card keeps resident, take lanes
+//     from a counter; a thread steps its lane in registers until the lane
+//     has run the launch's n_steps or has retired, writes it once and
+//     takes the next.  A lane retires (stop_after and single_path) at the
+//     end of the step that meets its quota: that step regenerated its path
+//     and left cur and acc unchanged by adding 0, so every later step would
+//     regenerate the same camera ray, add +0 and count nothing, and the
+//     planes are those of the lockstep launch, bit for bit (a lane that
+//     enters the launch at that fixed point takes no step).  As in the TPU
+//     kernel, the NEE term and the finished sample are added masked (+0
+//     where they add nothing).  Finished lanes cost no steps, and no
+//     thread waits for its warp's slowest lane (the refill is inside the
+//     step loop).  The plain mode keeps every lane for n_steps;
 //   - the scene pack (triangles, spheres, lights, sky, camera words) is
 //     copied into shared memory at block start; every thread of a warp
 //     reads the same primitive at the same time, so each read is a
 //     broadcast;
 //   - the shadow test is the division-free accept of the TPU kernel: sign
 //     comparisons of the numerators against |det|-scaled bounds, no
-//     reciprocal per triangle.
+//     reciprocal per triangle;
+//   - the triangle rows are read from shared memory as float4; the main
+//     pass keeps the winning triangle's index and reads its attributes
+//     once after the loop, and is unrolled by two; the light sample and
+//     the shadow test run only for a lane that traces a shadow ray (alive
+//     and a light to sample), the NEE term added only there.  Each leaves
+//     every result as it was, bit for bit.
 //
 // Numerics: built with -fmad=false and without --use_fast_math, so every
 // a*b+c rounds twice, as in the JAX package and in the plain PyTorch
@@ -33,6 +52,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -98,201 +118,287 @@ __device__ __forceinline__ void norm3(float& x, float& y, float& z) {
   z = z * inv;
 }
 
-// SINGLE_PATH: a template parameter, so the plain and stop_after modes
-// compile to the kernel they were before the mode existed.
-template <bool SINGLE_PATH>
-__global__ void __launch_bounds__(256)
-fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
-                float* __restrict__ sf, int* __restrict__ si,
-                float* __restrict__ gb) {
-  extern __shared__ float sm[];
-  for (int i = threadIdx.x; i < p.scene_words; i += blockDim.x)
-    sm[i] = scene_g[i];
-  __syncthreads();
+// A lane's state: the (15, R) f32 planes [o d tp cur acc] and the (4, R)
+// i32 planes [s b n_done shadow rays of this launch].
+struct Lane {
+  float ox, oy, oz, dx, dy, dz, tpx, tpy, tpz, cux, cuy, cuz, axp, ayp, azp;
+  int s, bb, nd, nsh;
+};
 
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.R) return;
-  const int R = p.R;
-  const float* tri = sm;
-  const float* sph = sm + p.off_sph;
-  const float* lgt = sm + p.off_light;
-  const float* sky = sm + p.off_sky;
-  const float* cam = sm + p.off_cam;
+__device__ __forceinline__ void load_lane(const float* sf, const int* si,
+                                          int R, int lane, Lane& L) {
+  L.s = si[lane]; L.bb = si[R + lane]; L.nd = si[2 * R + lane]; L.nsh = 0;
+  L.ox = sf[0 * R + lane]; L.oy = sf[1 * R + lane]; L.oz = sf[2 * R + lane];
+  L.dx = sf[3 * R + lane]; L.dy = sf[4 * R + lane]; L.dz = sf[5 * R + lane];
+  L.tpx = sf[6 * R + lane]; L.tpy = sf[7 * R + lane];
+  L.tpz = sf[8 * R + lane];
+  L.cux = sf[9 * R + lane]; L.cuy = sf[10 * R + lane];
+  L.cuz = sf[11 * R + lane];
+  L.axp = sf[12 * R + lane]; L.ayp = sf[13 * R + lane];
+  L.azp = sf[14 * R + lane];
+}
 
-  const float px_ = cam[0], py_ = cam[1], pz_ = cam[2];
-  const float rx_ = cam[3], ry_ = cam[4], rz_ = cam[5];
-  const float ux_ = cam[6], uy_ = cam[7], uz_ = cam[8];
-  const float fx_ = cam[9], fy_ = cam[10], fz_ = cam[11];
+__device__ __forceinline__ void store_lane(float* sf, int* si, int R,
+                                           int lane, const Lane& L) {
+  si[lane] = L.s; si[R + lane] = L.bb; si[2 * R + lane] = L.nd;
+  si[3 * R + lane] = L.nsh;
+  sf[0 * R + lane] = L.ox; sf[1 * R + lane] = L.oy; sf[2 * R + lane] = L.oz;
+  sf[3 * R + lane] = L.dx; sf[4 * R + lane] = L.dy; sf[5 * R + lane] = L.dz;
+  sf[6 * R + lane] = L.tpx; sf[7 * R + lane] = L.tpy;
+  sf[8 * R + lane] = L.tpz;
+  sf[9 * R + lane] = L.cux; sf[10 * R + lane] = L.cuy;
+  sf[11 * R + lane] = L.cuz;
+  sf[12 * R + lane] = L.axp; sf[13 * R + lane] = L.ayp;
+  sf[14 * R + lane] = L.azp;
+}
+
+// v0, e1, e2 of a triangle row (TRI_W floats, 16-byte aligned).
+__device__ __forceinline__ void tri_edges(const float* T, float v[9]) {
+  const float4 a = *reinterpret_cast<const float4*>(T);
+  const float4 b = *reinterpret_cast<const float4*>(T + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  v[8] = T[8];
+}
+
+// The camera ray of sample s of pixel pix (the JITTER stream), in the
+// operation order of camera.perspective_ray_at.
+__device__ __forceinline__ void camera_ray(const Params& p, const float* cam,
+                                           uint32_t pix, int s, float pxf,
+                                           float pyf, float& x, float& y,
+                                           float& z) {
+  float uj[4];
+  uniforms4(p.seed, pix, s, 0, JITTER, uj);
   const float tan_half = cam[12];
+  const float ndc_x = (pxf + uj[0]) / (float)p.width * 2.0f - 1.0f;
+  const float ndc_y = -((pyf + uj[1]) / (float)p.height * 2.0f - 1.0f);
+  const float ta = tan_half * p.aspect;
+  const float a = ndc_x * ta;
+  const float b = ndc_y * tan_half;
+  x = a * cam[3] + b * cam[6] + cam[9];
+  y = a * cam[4] + b * cam[7] + cam[10];
+  z = a * cam[5] + b * cam[8] + cam[11];
+  norm3(x, y, z);
+}
+
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+
+// x + 0 == x bit for bit (false for -0.0 and for a NaN the add would
+// change).
+__device__ __forceinline__ bool adds_zero_exactly(float x) {
+  return same_bits(x + 0.0f, x);
+}
+
+// cur and acc unchanged by adding 0, what a step of a lane whose quota is
+// met adds to each.
+__device__ __forceinline__ bool sums_settled(const Lane& L) {
+  return adds_zero_exactly(L.cux) && adds_zero_exactly(L.cuy) &&
+         adds_zero_exactly(L.cuz) && adds_zero_exactly(L.axp) &&
+         adds_zero_exactly(L.ayp) && adds_zero_exactly(L.azp);
+}
+
+// A stop_after lane that a step leaves as it is: quota met, its path just
+// regenerated (b = 0, o the camera, d the camera ray of sample s, tp = 1),
+// and its sums settled.  It also counts nothing, and regenerates the same
+// ray at every later step.  A step at whose end a lane's quota is met
+// leaves the lane there but for its sums: the step that meets the quota
+// adds cur to acc, and -0.0 + -0.0 stays -0.0 where the next step's +0
+// would make it +0.0.
+__device__ __forceinline__ bool at_fixed_point(const Params& p,
+                                               const float* cam, uint32_t pix,
+                                               float pxf, float pyf,
+                                               const Lane& L) {
+  if (!(L.nd >= p.stop_after && L.bb == 0 && sums_settled(L) &&
+        same_bits(L.ox, cam[0]) &&
+        same_bits(L.oy, cam[1]) && same_bits(L.oz, cam[2]) &&
+        same_bits(L.tpx, 1.0f) && same_bits(L.tpy, 1.0f) &&
+        same_bits(L.tpz, 1.0f)))
+    return false;
+  float x, y, z;
+  camera_ray(p, cam, pix, L.s, pxf, pyf, x, y, z);
+  return same_bits(L.dx, x) && same_bits(L.dy, y) && same_bits(L.dz, z);
+}
+
+// One bounce step of one lane, the TPU kernel's step in its operation
+// order.  SINGLE_PATH: a template parameter, so the plain and stop_after
+// modes compile without the G-buffer code.  `first`: the lane's first step
+// of the launch (single_path writes the G-buffer there).
+template <bool SINGLE_PATH>
+__device__ __forceinline__ void mc_step(const Params& p, const float* tri,
+                                        const float* sph, const float* lgt,
+                                        const float* sky, const float* cam,
+                                        uint32_t pix, bool valid, float pxf,
+                                        float pyf, bool first, float* gb,
+                                        int lane, Lane& L) {
+  const int R = p.R;
   const float light_total = sky[6];
   const bool light_valid = light_total > 0.0f;
   const float light_pdf =
       light_valid ? 1.0f / fmaxf(light_total, 1e-20f) : 0.0f;
-  const float width_f = (float)p.width, height_f = (float)p.height;
   const int quota = SINGLE_PATH ? 1 : p.stop_after;
   const bool gated = quota > 0;
+  const float ox = L.ox, oy = L.oy, oz = L.oz;
+  const float dx = L.dx, dy = L.dy, dz = L.dz;
+  const bool armed = L.nd < quota;
+  const bool alive0 = gated ? (valid && armed) : valid;
 
-  const uint32_t pix = (uint32_t)lane;
-  const bool valid = pix < (uint32_t)p.n_pix;
-  const float pxf = (float)(lane % p.width);
-  const float pyf = (float)(lane / p.width);
-
-  int s = si[lane], bb = si[R + lane], nd = si[2 * R + lane], nsh = 0;
-  float ox = sf[0 * R + lane], oy = sf[1 * R + lane], oz = sf[2 * R + lane];
-  float dx = sf[3 * R + lane], dy = sf[4 * R + lane], dz = sf[5 * R + lane];
-  float tpx = sf[6 * R + lane], tpy = sf[7 * R + lane], tpz = sf[8 * R + lane];
-  float cux = sf[9 * R + lane], cuy = sf[10 * R + lane];
-  float cuz = sf[11 * R + lane];
-  float axp = sf[12 * R + lane], ayp = sf[13 * R + lane];
-  float azp = sf[14 * R + lane];
-
-  for (int step = 0; step < p.n_steps; ++step) {
-    const bool armed = nd < quota;
-    const bool alive0 = gated ? (valid && armed) : valid;
-
-    // --- main intersect: Moller-Trumbore over triangles, then spheres -----
-    float best_t = NO_HIT, bnx = 0.f, bny = 0.f, bnz = 0.f;
-    float al0 = 0.f, al1 = 0.f, al2 = 0.f, em0 = 0.f, em1 = 0.f, em2 = 0.f;
-    float bef = 0.f;
-    float bpid = 0.f;  // global primitive id (single_path's G-buffer)
-    for (int n = 0; n < p.n_tri; ++n) {
-      const float* T = tri + n * TRI_W;
-      const float v0x = T[0], v0y = T[1], v0z = T[2];
-      const float e1x = T[3], e1y = T[4], e1z = T[5];
-      const float e2x = T[6], e2y = T[7], e2z = T[8];
-      const float s1x = dy * e2z - dz * e2y;
-      const float s1y = dz * e2x - dx * e2z;
-      const float s1z = dx * e2y - dy * e2x;
-      const float det = s1x * e1x + s1y * e1y + s1z * e1z;
-      const bool okd = fabsf(det) > DET_EPS;
-      const float inv = 1.0f / (okd ? det : 1.0f);
-      const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-      const float s2x = sy * e1z - sz * e1y;
-      const float s2y = sz * e1x - sx * e1z;
-      const float s2z = sx * e1y - sy * e1x;
-      const float t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv;
-      const float b1 = (s1x * sx + s1y * sy + s1z * sz) * inv;
-      const float b2 = (s2x * dx + s2y * dy + s2z * dz) * inv;
-      const bool ok = okd && (t > p.t_min) && (b1 >= 0.0f) && (b2 >= 0.0f) &&
-                      (1.0f - b1 - b2 >= 0.0f) && (t < best_t);
-      if (ok) {
-        best_t = t;
-        bnx = T[9]; bny = T[10]; bnz = T[11];
-        al0 = T[12]; al1 = T[13]; al2 = T[14];
-        em0 = T[15]; em1 = T[16]; em2 = T[17];
-        bef = T[18];
-        if (SINGLE_PATH) bpid = (float)(n + 1);
-      }
+  // --- main intersect: Moller-Trumbore over triangles, then spheres ---------
+  float best_t = NO_HIT, bnx = 0.f, bny = 0.f, bnz = 0.f;
+  float al0 = 0.f, al1 = 0.f, al2 = 0.f, em0 = 0.f, em1 = 0.f, em2 = 0.f;
+  float bef = 0.f;
+  float bpid = 0.f;  // global primitive id (single_path's G-buffer)
+  int best_n = -1;   // the winning triangle, its attributes read after
+#pragma unroll 2
+  for (int n = 0; n < p.n_tri; ++n) {
+    float v[9];
+    tri_edges(tri + n * TRI_W, v);
+    const float v0x = v[0], v0y = v[1], v0z = v[2];
+    const float e1x = v[3], e1y = v[4], e1z = v[5];
+    const float e2x = v[6], e2y = v[7], e2z = v[8];
+    const float s1x = dy * e2z - dz * e2y;
+    const float s1y = dz * e2x - dx * e2z;
+    const float s1z = dx * e2y - dy * e2x;
+    const float det = s1x * e1x + s1y * e1y + s1z * e1z;
+    const bool okd = fabsf(det) > DET_EPS;
+    const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
+    const float s2x = sy * e1z - sz * e1y;
+    const float s2y = sz * e1x - sx * e1z;
+    const float s2z = sx * e1y - sy * e1x;
+    const float tn = s2x * e2x + s2y * e2y + s2z * e2z;
+    const float b1n = s1x * sx + s1y * sy + s1z * sz;
+    const float b2n = s2x * dx + s2y * dy + s2z * dz;
+    const float inv = 1.0f / (okd ? det : 1.0f);
+    const float t = tn * inv;
+    const float b1 = b1n * inv;
+    const float b2 = b2n * inv;
+    const bool ok = okd && (t > p.t_min) && (b1 >= 0.0f) && (b2 >= 0.0f) &&
+                    (1.0f - b1 - b2 >= 0.0f) && (t < best_t);
+    if (ok) {
+      best_t = t;
+      best_n = n;
     }
-    for (int m = 0; m < p.n_sph; ++m) {
-      const float* S = sph + m * SPH_W;
-      const float cx = S[0], cy = S[1], cz = S[2], rad = S[3];
-      const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-      const float a_q = dx * dx + dy * dy + dz * dz;
-      const float hb = ocx * dx + ocy * dy + ocz * dz;
-      const float c_q = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
-      const float disc = hb * hb - a_q * c_q;
-      const bool okq = disc > 0.0f;
-      const float sq = sqrtf(okq ? disc : 1.0f);
-      const float t_near = (-hb - sq) / a_q;
-      const float t_far = (-hb + sq) / a_q;
-      const bool near_ok = okq && (t_near > p.t_min);
-      const bool far_ok = okq && (t_far > p.t_min);
-      const float ts = near_ok ? t_near : (far_ok ? t_far : NO_HIT);
-      if (ts < best_t) {
-        // Geometric normal (p - c) / radius: a negative radius flips it.
-        const float inv_r = 1.0f / (rad == 0.0f ? 1.0f : rad);
-        const float hpx = ox + ts * dx, hpy = oy + ts * dy, hpz = oz + ts * dz;
-        best_t = ts;
-        bnx = (hpx - cx) * inv_r;
-        bny = (hpy - cy) * inv_r;
-        bnz = (hpz - cz) * inv_r;
-        al0 = S[4]; al1 = S[5]; al2 = S[6];
-        em0 = S[7]; em1 = S[8]; em2 = S[9];
-        bef = S[10];
-        if (SINGLE_PATH) bpid = (float)(p.n_tri + m + 1);
-      }
+  }
+  if (best_n >= 0) {
+    const float* T = tri + best_n * TRI_W;
+    bnx = T[9]; bny = T[10]; bnz = T[11];
+    al0 = T[12]; al1 = T[13]; al2 = T[14];
+    em0 = T[15]; em1 = T[16]; em2 = T[17];
+    bef = T[18];
+  }
+  if (SINGLE_PATH) bpid = (float)(best_n + 1);
+  for (int m = 0; m < p.n_sph; ++m) {
+    const float* S = sph + m * SPH_W;
+    const float cx = S[0], cy = S[1], cz = S[2], rad = S[3];
+    const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+    const float a_q = dx * dx + dy * dy + dz * dz;
+    const float hb = ocx * dx + ocy * dy + ocz * dz;
+    const float c_q = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad;
+    const float disc = hb * hb - a_q * c_q;
+    const bool okq = disc > 0.0f;
+    const float sq = sqrtf(okq ? disc : 1.0f);
+    const float t_near = (-hb - sq) / a_q;
+    const float t_far = (-hb + sq) / a_q;
+    const bool near_ok = okq && (t_near > p.t_min);
+    const bool far_ok = okq && (t_far > p.t_min);
+    const float ts = near_ok ? t_near : (far_ok ? t_far : NO_HIT);
+    if (ts < best_t) {
+      // Geometric normal (p - c) / radius: a negative radius flips it.
+      const float inv_r = 1.0f / (rad == 0.0f ? 1.0f : rad);
+      const float hpx = ox + ts * dx, hpy = oy + ts * dy, hpz = oz + ts * dz;
+      best_t = ts;
+      bnx = (hpx - cx) * inv_r;
+      bny = (hpy - cy) * inv_r;
+      bnz = (hpz - cz) * inv_r;
+      al0 = S[4]; al1 = S[5]; al2 = S[6];
+      em0 = S[7]; em1 = S[8]; em2 = S[9];
+      bef = S[10];
+      if (SINGLE_PATH) bpid = (float)(p.n_tri + m + 1);
     }
+  }
 
-    const bool hit = best_t < NO_HIT;
-    const bool hit_emissive = hit && (bef > 0.5f);
-    const bool is_primary = bb == 0;
+  const bool hit = best_t < NO_HIT;
+  const bool hit_emissive = hit && (bef > 0.5f);
+  const bool is_primary = L.bb == 0;
 
-    // Primary miss -> sky; primary emissive hit -> emission.
-    float dux = dx, duy = dy, duz = dz;
-    norm3(dux, duy, duz);
-    const float skyw = 0.5f * (duy + 1.0f);
-    const bool add_sky = alive0 && !hit && is_primary;
-    const bool add_emi = alive0 && hit_emissive && is_primary;
-    const float drx = (add_sky ? ((1.0f - skyw) * sky[0] + skyw * sky[3]) : 0.0f)
-                      + (add_emi ? em0 : 0.0f);
-    const float dry = (add_sky ? ((1.0f - skyw) * sky[1] + skyw * sky[4]) : 0.0f)
-                      + (add_emi ? em1 : 0.0f);
-    const float drz = (add_sky ? ((1.0f - skyw) * sky[2] + skyw * sky[5]) : 0.0f)
-                      + (add_emi ? em2 : 0.0f);
-    cux = cux + tpx * drx;
-    cuy = cuy + tpy * dry;
-    cuz = cuz + tpz * drz;
+  // Primary miss -> sky; primary emissive hit -> emission.
+  float dux = dx, duy = dy, duz = dz;
+  norm3(dux, duy, duz);
+  const float skyw = 0.5f * (duy + 1.0f);
+  const bool add_sky = alive0 && !hit && is_primary;
+  const bool add_emi = alive0 && hit_emissive && is_primary;
+  const float drx = (add_sky ? ((1.0f - skyw) * sky[0] + skyw * sky[3]) : 0.0f)
+                    + (add_emi ? em0 : 0.0f);
+  const float dry = (add_sky ? ((1.0f - skyw) * sky[1] + skyw * sky[4]) : 0.0f)
+                    + (add_emi ? em1 : 0.0f);
+  const float drz = (add_sky ? ((1.0f - skyw) * sky[2] + skyw * sky[5]) : 0.0f)
+                    + (add_emi ? em2 : 0.0f);
+  L.cux = L.cux + L.tpx * drx;
+  L.cuy = L.cuy + L.tpy * dry;
+  L.cuz = L.cuz + L.tpz * drz;
 
-    const bool alive = alive0 && hit && !hit_emissive;
-    nsh += alive ? 1 : 0;
+  const bool alive = alive0 && hit && !hit_emissive;
+  L.nsh += alive ? 1 : 0;
 
-    // Facing normal + epsilon-offset shading point.
-    const bool front = (bnx * dx + bny * dy + bnz * dz) < 0.0f;
-    float gnx = bnx, gny = bny, gnz = bnz;
-    norm3(gnx, gny, gnz);
-    const float nxp = front ? gnx : -gnx;
-    const float nyp = front ? gny : -gny;
-    const float nzp = front ? gnz : -gnz;
-    const float t_pt = hit ? best_t : 1.0f;
-    const float hx = ox + t_pt * dx + nxp * p.eps_offset;
-    const float hy = oy + t_pt * dy + nyp * p.eps_offset;
-    const float hz = oz + t_pt * dz + nzp * p.eps_offset;
-    if (SINGLE_PATH && step == 0) {
-      // The primary hit: world position without the eps offset, facing
-      // normal, global primitive id (-1 on a miss), contributor flag.
-      gb[0 * R + lane] = ox + t_pt * dx;
-      gb[1 * R + lane] = oy + t_pt * dy;
-      gb[2 * R + lane] = oz + t_pt * dz;
-      gb[3 * R + lane] = nxp;
-      gb[4 * R + lane] = nyp;
-      gb[5 * R + lane] = nzp;
-      gb[6 * R + lane] = hit ? bpid : -1.0f;
-      gb[7 * R + lane] = hit ? 1.0f : 0.0f;
-    }
+  // Facing normal + epsilon-offset shading point.
+  const bool front = (bnx * dx + bny * dy + bnz * dz) < 0.0f;
+  float gnx = bnx, gny = bny, gnz = bnz;
+  norm3(gnx, gny, gnz);
+  const float nxp = front ? gnx : -gnx;
+  const float nyp = front ? gny : -gny;
+  const float nzp = front ? gnz : -gnz;
+  const float t_pt = hit ? best_t : 1.0f;
+  const float hx = ox + t_pt * dx + nxp * p.eps_offset;
+  const float hy = oy + t_pt * dy + nyp * p.eps_offset;
+  const float hz = oz + t_pt * dz + nzp * p.eps_offset;
+  if (SINGLE_PATH && first) {
+    // The primary hit: world position without the eps offset, facing
+    // normal, global primitive id (-1 on a miss), contributor flag.
+    gb[0 * R + lane] = ox + t_pt * dx;
+    gb[1 * R + lane] = oy + t_pt * dy;
+    gb[2 * R + lane] = oz + t_pt * dz;
+    gb[3 * R + lane] = nxp;
+    gb[4 * R + lane] = nyp;
+    gb[5 * R + lane] = nzp;
+    gb[6 * R + lane] = hit ? bpid : -1.0f;
+    gb[7 * R + lane] = hit ? 1.0f : 0.0f;
+  }
 
-    // --- NEE: one area-light sample ------------------------------------------
+  // --- NEE: one area-light sample -------------------------------------------
+  if (alive && light_valid) {
     float ul[4];
-    uniforms4(p.seed, pix, s, bb, LIGHT, ul);
+    uniforms4(p.seed, pix, L.s, L.bb, LIGHT, ul);
     const float budget = ul[0] * light_total;
     int le = 0;
     for (int e = 1; e < p.n_light; ++e)
       if (lgt[(e - 1) * LGT_W + 15] <= budget) le = e;
-    const float* L = lgt + le * LGT_W;
+    const float* Lr = lgt + le * LGT_W;
     const float xw = 1.0f - sqrtf(ul[1]);
     const float w1 = (1.0f - xw) * ul[2];
     const float w2 = (1.0f - xw) * (1.0f - ul[2]);
-    const float lpx = L[0] + w1 * L[3] + w2 * L[6];
-    const float lpy = L[1] + w1 * L[4] + w2 * L[7];
-    const float lpz = L[2] + w1 * L[5] + w2 * L[8];
+    const float lpx = Lr[0] + w1 * Lr[3] + w2 * Lr[6];
+    const float lpy = Lr[1] + w1 * Lr[4] + w2 * Lr[7];
+    const float lpz = Lr[2] + w1 * Lr[5] + w2 * Lr[8];
     const float tlx = lpx - hx, tly = lpy - hy, tlz = lpz - hz;
     const float dist = sqrtf(fmaxf(tlx * tlx + tly * tly + tlz * tlz, 0.0f));
     const float invd = 1.0f / fmaxf(dist, 1e-20f);
     const float wlx = tlx * invd, wly = tly * invd, wlz = tlz * invd;
-    const bool flip_l = (L[9] * -wlx + L[10] * -wly + L[11] * -wlz) < 0.0f;
-    const float lnx2 = flip_l ? -L[9] : L[9];
-    const float lny2 = flip_l ? -L[10] : L[10];
-    const float lnz2 = flip_l ? -L[11] : L[11];
+    const bool flip_l = (Lr[9] * -wlx + Lr[10] * -wly + Lr[11] * -wlz) < 0.0f;
+    const float lnx2 = flip_l ? -Lr[9] : Lr[9];
+    const float lny2 = flip_l ? -Lr[10] : Lr[10];
+    const float lnz2 = flip_l ? -Lr[11] : Lr[11];
 
     // Shadow ray: occluded iff any hit lands at t <= dist - tol, with the
     // division-free accept (numerators against |det|-scaled bounds).
     bool occluded = false;
     const float lim = dist - p.shadow_tol;
     for (int n = 0; n < p.n_tri; ++n) {
-      const float* T = tri + n * TRI_W;
-      const float v0x = T[0], v0y = T[1], v0z = T[2];
-      const float e1x = T[3], e1y = T[4], e1z = T[5];
-      const float e2x = T[6], e2y = T[7], e2z = T[8];
+      float v[9];
+      tri_edges(tri + n * TRI_W, v);
+      const float v0x = v[0], v0y = v[1], v0z = v[2];
+      const float e1x = v[3], e1y = v[4], e1z = v[5];
+      const float e2x = v[6], e2y = v[7], e2z = v[8];
       const float s1x = wly * e2z - wlz * e2y;
       const float s1y = wlz * e2x - wlx * e2z;
       const float s1z = wlx * e2y - wly * e2x;
@@ -337,97 +443,221 @@ fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
     const float geom = cos_s * cos_l / fmaxf(dist * dist, 1e-20f);
     const float brdf_ok = (cos_s >= 0.0f ? 1.0f : 0.0f) * INV_PI;
     const float scale = (geom / fmaxf(light_pdf, 1e-20f)) * vis * brdf_ok;
-    if (alive && light_valid) {
-      cux = cux + tpx * (L[12] * al0 * scale);
-      cuy = cuy + tpy * (L[13] * al1 * scale);
-      cuz = cuz + tpz * (L[14] * al2 * scale);
-    }
-
-    // --- indirect: RR + uniform hemisphere -----------------------------------
-    float us[4];
-    uniforms4(p.seed, pix, s, bb, SCATTER, us);
-    const bool survive = us[2] < p.rr_survival;
-    const bool use_x = fabsf(nxp) > fabsf(nyp);
-    float yx = use_x ? nzp : 0.0f;
-    float yy = use_x ? 0.0f : nzp;
-    float yz = use_x ? -nxp : -nyp;
-    norm3(yx, yy, yz);
-    const float xx = yy * nzp - yz * nyp;
-    const float xy = yz * nxp - yx * nzp;
-    const float xz = yx * nyp - yy * nxp;
-    const float z = us[0];
-    const float r_xy = sqrtf(fmaxf(0.0f, 1.0f - z * z));
-    const float phi = TWO_PI * us[1];
-    const float cp = cosf(phi), sp = sinf(phi);
-    const float wix = r_xy * cp * xx + r_xy * sp * yx + z * nxp;
-    const float wiy = r_xy * cp * xy + r_xy * sp * yy + z * nyp;
-    const float wiz = r_xy * cp * xz + r_xy * sp * yz + z * nzp;
-    const float cos_i = wix * nxp + wiy * nyp + wiz * nzp;
-    const float w_ok = (cos_i >= 0.0f ? 1.0f : 0.0f) * INV_PI;
-    const float wt = cos_i * TWO_PI * p.inv_rr * w_ok;
-    const bool continues = alive && survive;
-    if (continues) {
-      tpx = tpx * (al0 * wt);
-      tpy = tpy * (al1 * wt);
-      tpz = tpz * (al2 * wt);
-    }
-
-    // --- persistent-wavefront bookkeeping ------------------------------------
-    const bool cont = continues && (bb + 1 < p.max_depth);
-    const bool done = gated ? (!cont && armed) : !cont;
-    if (done) {
-      axp = axp + cux;
-      ayp = ayp + cuy;
-      azp = azp + cuz;
-      nd += 1;
-      if (!SINGLE_PATH) s += 1;
-      cux = 0.0f;
-      cuy = 0.0f;
-      cuz = 0.0f;
-    }
-    if (cont) {
-      ox = hx; oy = hy; oz = hz;
-      dx = wix; dy = wiy; dz = wiz;
-      bb += 1;
-    } else {
-      // Regenerate the camera ray of the lane's next sample (s is already
-      // advanced), same operation order as camera.perspective_ray_at.
-      float uj[4];
-      uniforms4(p.seed, pix, s, 0, JITTER, uj);
-      const float ndc_x = (pxf + uj[0]) / width_f * 2.0f - 1.0f;
-      const float ndc_y = -((pyf + uj[1]) / height_f * 2.0f - 1.0f);
-      const float ta = tan_half * p.aspect;
-      const float a = ndc_x * ta;
-      const float b = ndc_y * tan_half;
-      float pdx = a * rx_ + b * ux_ + fx_;
-      float pdy = a * ry_ + b * uy_ + fy_;
-      float pdz = a * rz_ + b * uz_ + fz_;
-      norm3(pdx, pdy, pdz);
-      ox = px_; oy = py_; oz = pz_;
-      dx = pdx; dy = pdy; dz = pdz;
-      tpx = 1.0f; tpy = 1.0f; tpz = 1.0f;
-      bb = 0;
-    }
+    L.cux = L.cux + L.tpx * (Lr[12] * al0 * scale);
+    L.cuy = L.cuy + L.tpy * (Lr[13] * al1 * scale);
+    L.cuz = L.cuz + L.tpz * (Lr[14] * al2 * scale);
+  } else {
+    // The TPU kernel adds its masked NEE term, +0 here: -0.0 becomes +0.0.
+    L.cux = L.cux + 0.0f;
+    L.cuy = L.cuy + 0.0f;
+    L.cuz = L.cuz + 0.0f;
   }
 
-  si[lane] = s;
-  si[R + lane] = bb;
-  si[2 * R + lane] = nd;
-  si[3 * R + lane] = nsh;
-  sf[0 * R + lane] = ox;  sf[1 * R + lane] = oy;  sf[2 * R + lane] = oz;
-  sf[3 * R + lane] = dx;  sf[4 * R + lane] = dy;  sf[5 * R + lane] = dz;
-  sf[6 * R + lane] = tpx; sf[7 * R + lane] = tpy; sf[8 * R + lane] = tpz;
-  sf[9 * R + lane] = cux; sf[10 * R + lane] = cuy; sf[11 * R + lane] = cuz;
-  sf[12 * R + lane] = axp; sf[13 * R + lane] = ayp; sf[14 * R + lane] = azp;
+  // --- indirect: RR + uniform hemisphere ------------------------------------
+  float us[4];
+  uniforms4(p.seed, pix, L.s, L.bb, SCATTER, us);
+  const bool survive = us[2] < p.rr_survival;
+  const bool use_x = fabsf(nxp) > fabsf(nyp);
+  float yx = use_x ? nzp : 0.0f;
+  float yy = use_x ? 0.0f : nzp;
+  float yz = use_x ? -nxp : -nyp;
+  norm3(yx, yy, yz);
+  const float xx = yy * nzp - yz * nyp;
+  const float xy = yz * nxp - yx * nzp;
+  const float xz = yx * nyp - yy * nxp;
+  const float z = us[0];
+  const float r_xy = sqrtf(fmaxf(0.0f, 1.0f - z * z));
+  const float phi = TWO_PI * us[1];
+  const float cp = cosf(phi), sp = sinf(phi);
+  const float wix = r_xy * cp * xx + r_xy * sp * yx + z * nxp;
+  const float wiy = r_xy * cp * xy + r_xy * sp * yy + z * nyp;
+  const float wiz = r_xy * cp * xz + r_xy * sp * yz + z * nzp;
+  const float cos_i = wix * nxp + wiy * nyp + wiz * nzp;
+  const float w_ok = (cos_i >= 0.0f ? 1.0f : 0.0f) * INV_PI;
+  const float wt = cos_i * TWO_PI * p.inv_rr * w_ok;
+  const bool continues = alive && survive;
+  if (continues) {
+    L.tpx = L.tpx * (al0 * wt);
+    L.tpy = L.tpy * (al1 * wt);
+    L.tpz = L.tpz * (al2 * wt);
+  }
+
+  // --- persistent-wavefront bookkeeping -------------------------------------
+  const bool cont = continues && (L.bb + 1 < p.max_depth);
+  const bool done = gated ? (!cont && armed) : !cont;
+  // The masked adds of the TPU kernel, +0 where they add nothing.
+  L.axp = L.axp + (done ? L.cux : 0.0f);
+  L.ayp = L.ayp + (done ? L.cuy : 0.0f);
+  L.azp = L.azp + (done ? L.cuz : 0.0f);
+  if (done) {
+    L.nd += 1;
+    if (!SINGLE_PATH) L.s += 1;
+    L.cux = 0.0f;
+    L.cuy = 0.0f;
+    L.cuz = 0.0f;
+  }
+  if (cont) {
+    L.ox = hx; L.oy = hy; L.oz = hz;
+    L.dx = wix; L.dy = wiy; L.dz = wiz;
+    L.bb += 1;
+  } else {
+    // Regenerate the camera ray of the lane's next sample (s is already
+    // advanced).
+    camera_ray(p, cam, pix, L.s, pxf, pyf, L.dx, L.dy, L.dz);
+    L.ox = cam[0]; L.oy = cam[1]; L.oz = cam[2];
+    L.tpx = 1.0f; L.tpy = 1.0f; L.tpz = 1.0f;
+    L.bb = 0;
+  }
+}
+
+// The next lane for each calling thread, one atomicAdd per coalesced group
+// of a warp.
+__device__ __forceinline__ int claim(int* next) {
+  namespace cg = cooperative_groups;
+  cg::coalesced_group g = cg::coalesced_threads();
+  int base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(next, (int)g.size());
+  return g.shfl(base, 0) + (int)g.thread_rank();
+}
+
+// The scene pack into shared memory; its tables.
+struct Tables {
+  const float *tri, *sph, *lgt, *sky, *cam;
+};
+
+__device__ __forceinline__ Tables load_tables(const Params& p,
+                                              const float* scene_g,
+                                              float* sm) {
+  for (int i = threadIdx.x; i < p.scene_words; i += blockDim.x)
+    sm[i] = scene_g[i];
+  __syncthreads();
+  return Tables{sm, sm + p.off_sph, sm + p.off_light, sm + p.off_sky,
+                sm + p.off_cam};
+}
+
+// The plain mode (every lane regenerates forever, so none retires): one
+// thread per lane for all n_steps, the TPU kernel's schedule.
+__global__ void __launch_bounds__(256)
+fused_mc_kernel(const Params p, const float* __restrict__ scene_g,
+                float* __restrict__ sf, int* __restrict__ si) {
+  extern __shared__ float4 sm4[];
+  const Tables tb = load_tables(p, scene_g, reinterpret_cast<float*>(sm4));
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= p.R) return;
+  Lane L;
+  load_lane(sf, si, p.R, lane, L);
+  const uint32_t pix = (uint32_t)lane;
+  const bool valid = pix < (uint32_t)p.n_pix;
+  const float pxf = (float)(lane % p.width), pyf = (float)(lane / p.width);
+  for (int step = 0; step < p.n_steps; ++step)
+    mc_step<false>(p, tb.tri, tb.sph, tb.lgt, tb.sky, tb.cam, pix, valid,
+                   pxf, pyf, false, nullptr, lane, L);
+  store_lane(sf, si, p.R, lane, L);
+}
+
+// The gated modes (stop_after, single_path): persistent threads, as many
+// as the card keeps resident.  Each takes a lane from the counter `next`,
+// steps it until it has run the launch's n_steps or retires (its quota met
+// and its sums settled at the end of a step, which leaves it at the step's
+// fixed point, so the planes are the lockstep launch's), writes the lane's
+// state once and takes the next lane.  The refill sits inside the step
+// loop: a thread never waits for its warp.  A stop_after lane that enters
+// at the fixed point takes no step (its shadow-ray count is written as 0;
+// its other planes are already what the launch leaves).
+template <bool SINGLE_PATH>
+__global__ void __launch_bounds__(256)
+fused_mc_retire_kernel(const Params p, const float* __restrict__ scene_g,
+                       float* __restrict__ sf, int* __restrict__ si,
+                       float* __restrict__ gb, int* __restrict__ next) {
+  extern __shared__ float4 sm4[];
+  const Tables tb = load_tables(p, scene_g, reinterpret_cast<float*>(sm4));
+  const int R = p.R;
+  const int quota = SINGLE_PATH ? 1 : p.stop_after;
+  Lane L;
+  int lane = -1, step = 0;
+  uint32_t pix = 0;
+  bool valid = false;
+  float pxf = 0.0f, pyf = 0.0f;
+  bool need = true;
+  while (true) {
+    if (need) {
+      if (lane >= 0) store_lane(sf, si, R, lane, L);
+      lane = claim(next);
+      if (lane >= R) break;
+      load_lane(sf, si, R, lane, L);
+      pix = (uint32_t)lane;
+      valid = pix < (uint32_t)p.n_pix;
+      pxf = (float)(lane % p.width);
+      pyf = (float)(lane / p.width);
+      step = 0;
+      if (!SINGLE_PATH && at_fixed_point(p, tb.cam, pix, pxf, pyf, L)) {
+        si[3 * R + lane] = 0;
+        lane = -1;
+        continue;
+      }
+      need = false;
+    }
+    mc_step<SINGLE_PATH>(p, tb.tri, tb.sph, tb.lgt, tb.sky, tb.cam, pix,
+                         valid, pxf, pyf, step == 0, gb, lane, L);
+    ++step;
+    need = step >= p.n_steps || (L.nd >= quota && sums_settled(L));
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+constexpr int THREADS = 256;
+
+size_t scene_smem(const Params& p) {
+  return (size_t)p.scene_words * sizeof(float);
+}
+
+int launch_plain(const Params& p, const float* scene, float* sf, int* si,
+                 cudaStream_t stream) {
+  const cudaError_t e = allow_smem(fused_mc_kernel, scene_smem(p));
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (p.R + THREADS - 1) / THREADS;
+  fused_mc_kernel<<<blocks, THREADS, scene_smem(p), stream>>>(
+      p, scene, sf, si);
+  return (int)cudaGetLastError();
+}
+
+template <bool SINGLE_PATH>
+int launch_retire(const Params& p, const float* scene, float* sf, int* si,
+                  float* gb, int* next, cudaStream_t stream) {
+  const auto kernel = fused_mc_retire_kernel<SINGLE_PATH>;
+  const size_t smem = scene_smem(p);
+  cudaError_t e = allow_smem(kernel, smem);
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int need = (p.R + THREADS - 1) / THREADS;
+  const int blocks = per_sm * n_sm < need ? per_sm * n_sm : need;
+  kernel<<<blocks, THREADS, smem, stream>>>(p, scene, sf, si, gb, next);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Advances every lane of the (15, R) f32 / (4, R) i32 state planes by
-// n_steps bounces, in place, on `stream`.  `scene` is the concatenation
-// tri (n_tri, 20) | sph (max(n_sph, 1), 16) | light (n_light, 16) | sky (8)
-// | cam (16), `scene_words` floats in all.  With single_path != 0 the
-// (8, R) f32 G-buffer `gb` is written (stop_after is then ignored).
+// n_steps (>= 1) bounces, in place, on `stream`.  `scene` is the
+// concatenation tri (n_tri, 20) | sph (max(n_sph, 1), 16) | light
+// (n_light, 16) | sky (8) | cam (16), `scene_words` floats in all.  With
+// single_path != 0 the (8, R) f32 G-buffer `gb` is written (stop_after is
+// then ignored).  `next` is one int, zero: the lane counter of the gated
+// modes (stop_after > 0, single_path).
 // Returns cudaGetLastError().
 extern "C" int fused_mc_steps(const float* scene, int scene_words, int n_tri,
                               int n_sph, int n_light, uint32_t seed,
@@ -436,7 +666,7 @@ extern "C" int fused_mc_steps(const float* scene, int scene_words, int n_tri,
                               float eps_offset, float rr_survival,
                               float inv_rr, float shadow_tol, float aspect,
                               int max_depth, int stop_after, int single_path,
-                              float* gb, void* stream) {
+                              float* gb, int* next, void* stream) {
   Params p;
   p.n_tri = n_tri;
   p.n_sph = n_sph;
@@ -446,7 +676,8 @@ extern "C" int fused_mc_steps(const float* scene, int scene_words, int n_tri,
   p.off_sky = p.off_light + n_light * LGT_W;
   p.off_cam = p.off_sky + 8;
   p.scene_words = scene_words;
-  if (p.off_cam + 16 != scene_words) return (int)cudaErrorInvalidValue;
+  if (p.off_cam + 16 != scene_words || R <= 0 || n_steps < 1)
+    return (int)cudaErrorInvalidValue;
   p.seed = seed;
   p.R = R;
   p.n_pix = n_pix;
@@ -461,18 +692,14 @@ extern "C" int fused_mc_steps(const float* scene, int scene_words, int n_tri,
   p.aspect = aspect;
   p.max_depth = max_depth;
   p.stop_after = stop_after;
-  if (single_path && gb == nullptr) return (int)cudaErrorInvalidValue;
-  const auto kernel =
-      single_path ? fused_mc_kernel<true> : fused_mc_kernel<false>;
-  const size_t smem = (size_t)scene_words * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (single_path) {
+    if (gb == nullptr || next == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_retire<true>(p, scene, sf, si, gb, next, st);
   }
-  const int threads = 256;
-  const int blocks = (R + threads - 1) / threads;
-  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(p, scene, sf, si,
-                                                          gb);
-  return (int)cudaGetLastError();
+  if (stop_after > 0) {
+    if (next == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_retire<false>(p, scene, sf, si, nullptr, next, st);
+  }
+  return launch_plain(p, scene, sf, si, st);
 }

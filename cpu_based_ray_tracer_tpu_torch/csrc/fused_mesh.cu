@@ -9,6 +9,10 @@
 //   k1b_kernel         <- _k1b_kernel (:1142)
 //   sweep_kernel<true>  <- _mesh_occl_kernel (:943, _tri_loop_occl)
 //   k2_kernel          <- _k2_kernel (:388)
+//   group_*_kernel     the packed main rays sorted by the cluster boxes
+//                       they cross, before the resident nearest sweep (a
+//                       Hopper addition: the TPU kernel sweeps in pack
+//                       order);
 //   sweep_kernel<occl> with lists <- _mesh_sl_kernel (:984), the
 //                       shortlist-streaming sweep: each 4,096-ray tile
 //                       sweeps only the clusters its list names (the lists
@@ -525,6 +529,120 @@ sweep_kernel(const Params p, const float* __restrict__ tri,
   if (last && live) combine_ray<OCCL>(p, tri, ray_id, cap, K, part, out, i);
 }
 
+// --- grouping the packed main rays by the cluster boxes they cross --------
+//
+// Before the resident nearest sweep, the packed rays are sorted by a key of
+// the boxes each crosses (bit c % GROUP_BITS for cluster c, the sweep's own
+// padded crosses_box over the unbounded line), so that the 32 rays of a
+// warp cross the same few boxes and the sweep's per-warp cull skips the
+// rest.  A counting sort on the device: group_key_kernel computes the keys
+// and their histogram (per block in shared memory, then added to the
+// global one), group_scan_kernel turns the histogram into each key's first
+// position, group_scatter_kernel moves the (6, cap) rays and their lane
+// ids there (one atomicAdd per key per warp, __match_any_sync).  The order
+// inside a key is the atomics', so it varies from run to run: the sweep
+// writes by lane id, and a ray's tests do not depend on the warp that runs
+// them, so every order gives the same results.
+
+constexpr int GROUP_BITS = 12;
+constexpr int GROUP_KEYS = 1 << GROUP_BITS;
+
+// The keys a table of n_clusters clusters can give (fewer clusters than
+// GROUP_BITS: a smaller histogram).
+__host__ __device__ __forceinline__ int group_keys(int n_clusters) {
+  return 1 << (n_clusters < GROUP_BITS ? n_clusters : GROUP_BITS);
+}
+constexpr int GROUP_BLOCK = 256;
+constexpr int SCAN_THREADS = 1024;
+
+__global__ void __launch_bounds__(GROUP_BLOCK)
+group_key_kernel(const Params p, const float* __restrict__ aabb,
+                 const float* __restrict__ rays, int cap,
+                 const int* __restrict__ cnt, int* __restrict__ keys,
+                 int* __restrict__ hist) {
+  __shared__ int h[GROUP_KEYS];
+  const int n = min(*cnt, cap);
+  if ((int)blockIdx.x * GROUP_BLOCK >= n) return;
+  const int n_keys = group_keys(p.n_clusters);
+  for (int k = threadIdx.x; k < n_keys; k += GROUP_BLOCK) h[k] = 0;
+  __syncthreads();
+  const int i = blockIdx.x * GROUP_BLOCK + threadIdx.x;
+  if (i < n) {
+    const float ox = rays[i], oy = rays[cap + i], oz = rays[2 * cap + i];
+    const float ivx = sinv(rays[3 * cap + i]), ivy = sinv(rays[4 * cap + i]);
+    const float ivz = sinv(rays[5 * cap + i]);
+    const float o_mag = fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
+    const float t_lo = fminf(p.t_min, 0.0f);
+    int key = 0;
+    for (int c = 0; c < p.n_clusters; ++c)
+      if (crosses_box(aabb + (size_t)c * AABB_W, ox, oy, oz, o_mag, ivx, ivy,
+                      ivz, t_lo, 0.0f, false))
+        key |= 1 << (c % GROUP_BITS);
+    keys[i] = key;
+    atomicAdd(h + key, 1);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n_keys; k += GROUP_BLOCK)
+    if (h[k]) atomicAdd(hist + k, h[k]);
+}
+
+// hist[k] <- the sum of hist[j] for j < k, in place, for k < n_keys (one
+// block).
+__global__ void __launch_bounds__(SCAN_THREADS)
+group_scan_kernel(int* __restrict__ hist, int n_keys) {
+  constexpr int PER = GROUP_KEYS / SCAN_THREADS;
+  __shared__ int warp_sum[SCAN_THREADS / 32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int v[PER], own = 0;
+  for (int k = 0; k < PER; ++k) {
+    v[k] = t * PER + k < n_keys ? hist[t * PER + k] : 0;
+    own += v[k];
+  }
+  int x = own;   // inclusive scan of the threads' sums in the warp
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_sum[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sum[lane] = w;
+  }
+  __syncthreads();
+  int excl = x - own + (warp > 0 ? warp_sum[warp - 1] : 0);
+  for (int k = 0; k < PER; ++k) {
+    if (t * PER + k < n_keys) hist[t * PER + k] = excl;
+    excl += v[k];
+  }
+}
+
+__global__ void __launch_bounds__(GROUP_BLOCK)
+group_scatter_kernel(const float* __restrict__ rays,
+                     const int* __restrict__ ray_id, int cap,
+                     const int* __restrict__ cnt,
+                     const int* __restrict__ keys, int* __restrict__ cursor,
+                     float* __restrict__ g_rays, int* __restrict__ g_id) {
+  const int n = min(*cnt, cap);
+  const int i = blockIdx.x * GROUP_BLOCK + threadIdx.x;
+  if (i >= n) return;
+  const int key = keys[i];
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(__activemask(), key);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(cursor + key, __popc(peers));
+  base = __shfl_sync(peers, base, leader);
+  const int pos = base + __popc(peers & ((1u << lane) - 1u));
+  for (int k = 0; k < 6; ++k)
+    g_rays[(size_t)k * cap + pos] = rays[(size_t)k * cap + i];
+  g_id[pos] = ray_id[i];
+}
+
 // --- K1b: merge, shading point, NEE sample, shadow predicate, pack ---------
 
 __global__ void __launch_bounds__(PACK_BLOCK)
@@ -919,6 +1037,20 @@ int sweep(const Params* p, const float* tri, const float* aabb,
   return (int)cudaGetLastError();
 }
 
+int group(const Params* p, const float* aabb, const float* rays,
+          const int* ray_id, int cap, const int* cnt, int* keys, int* hist,
+          float* g_rays, int* g_id, cudaStream_t stream) {
+  if (cap <= 0 || p->n_clusters <= 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (cap + GROUP_BLOCK - 1) / GROUP_BLOCK;
+  group_key_kernel<<<blocks, GROUP_BLOCK, 0, stream>>>(*p, aabb, rays, cap,
+                                                       cnt, keys, hist);
+  group_scan_kernel<<<1, SCAN_THREADS, 0, stream>>>(
+      hist, group_keys(p->n_clusters));
+  group_scatter_kernel<<<blocks, GROUP_BLOCK, 0, stream>>>(
+      rays, ray_id, cap, cnt, keys, hist, g_rays, g_id);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches one kernel on `stream` and returns
@@ -970,6 +1102,21 @@ extern "C" int fused_mesh_sweep_slots(int occl, int cs, int* out) {
   if (cs <= 0 || cs * NF % 4 != 0) return (int)cudaErrorInvalidValue;
   return (int)(occl ? sweep_slots<true>(cs, out, out + 1)
                     : sweep_slots<false>(cs, out, out + 1));
+}
+
+// The grouping of the first min(*cnt, cap) packed main rays (6, cap) [o d]
+// and their lane ids by the boxes of the n_clusters cluster boxes aabb
+// (n_clusters, 8) they cross: keys (cap,) i32 in pack order; hist
+// (GROUP_KEYS,) i32, zero (GROUP_BITS is ops/fused_mesh.py's too), left
+// holding each key's first position plus its count; g_rays (6, cap) and
+// g_id (cap,) the rays and ids in key order.
+// Three launches.
+extern "C" int fused_mesh_group(const Params* p, const float* aabb,
+                                const float* rays, const int* ray_id, int cap,
+                                const int* cnt, int* keys, int* hist,
+                                float* g_rays, int* g_id, void* stream) {
+  return group(p, aabb, rays, ray_id, cap, cnt, keys, hist, g_rays, g_id,
+               (cudaStream_t)stream);
 }
 
 // K1b: reads sf rows 0-5, si (4, R) rows 0-1 and hf; writes kb (9, R),

@@ -12,9 +12,14 @@ pcg4d streams, the same estimator, the same masking.
 
 - ``csrc/fused_mc.cu`` is the kernel (CUDA C++ for sm_90a, loaded with
   ``ctypes``); ``wavefront_steps_fused`` launches it for CUDA tensors.
+  In the gated modes persistent threads take lanes from a counter and a
+  lane retires once its quota is met (the step's fixed point), so
+  finished lanes cost no steps.
 - ``wavefront_steps_fused_plain`` is the same arithmetic in PyTorch,
   vectorized over lanes, looping over primitives.  The wrapper runs it for
   CPU tensors only; ``chip_smoke.py`` holds the kernel against it.
+  ``_steps_plain(retire=True)`` runs the kernel's retiring schedule; the
+  tests hold it bit equal to the lockstep one.
 
 Modes: plain (lanes regenerate forever — equal-time progressive),
 ``stop_after`` (a lane that has completed that many samples idles — the
@@ -196,6 +201,28 @@ def lanes(r: int, width: int, n_pix: int, pixel_offset: int, device) -> Lanes:
                  (pix // width).to(torch.float32))
 
 
+def _camera_ray(cam16, seed: int, p, ln: Lanes, s):
+    """The camera ray of sample ``s`` of each lane's pixel (the JITTER
+    stream), in the operation order of camera.perspective_ray_at: the ray
+    a lane regenerates when its path ends."""
+    dev = s.device
+    c = cam16.unbind(0)
+    rx_, ry_, rz_ = c[3:6]
+    ux_, uy_, uz_ = c[6:9]
+    fx_, fy_, fz_ = c[9:12]
+    tan_half = c[12]
+    aspect = float(p.width) / float(p.height)
+    width_f = torch.tensor(p.width, dtype=torch.float32, device=dev)
+    height_f = torch.tensor(p.height, dtype=torch.float32, device=dev)
+    uj0, uj1, _, _ = rng_mod.uniforms4(seed, ln.pix, s, 0, rng_mod.JITTER)
+    ndc_x = (ln.pxf + uj0) / width_f * 2.0 - 1.0
+    ndc_y = -((ln.pyf + uj1) / height_f * 2.0 - 1.0)
+    a = ndc_x * (tan_half * aspect)
+    b = ndc_y * tan_half
+    return _norm3(a * rx_ + b * ux_ + fx_, a * ry_ + b * uy_ + fy_,
+                  a * rz_ + b * uz_ + fz_)
+
+
 def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
                    ln: Lanes, planes, s, bb, nd, hit, mat, nrm, pt, occluded,
                    single_path: bool = False):
@@ -214,19 +241,12 @@ def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
     where = torch.where
     dev = s.device
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
-    c = cam16.unbind(0)
-    px_, py_, pz_ = c[0:3]
-    rx_, ry_, rz_ = c[3:6]
-    ux_, uy_, uz_ = c[6:9]
-    fx_, fy_, fz_ = c[9:12]
-    tan_half = c[12]
+    px_, py_, pz_ = cam16.unbind(0)[0:3]
     skyb, skyt = sky[0:3], sky[3:6]
     light_total = sky[6]
     light_valid = light_total > 0.0
     light_pdf = where(light_valid, 1.0 / torch.clamp(light_total, min=1e-20),
                       f32(0.0))
-    aspect = float(p.width) / float(p.height)
-    width_f, height_f = f32(p.width), f32(p.height)
     two_pi, inv_pi = f32(2.0 * np.pi), f32(1.0 / np.pi)
     inv_rr = 1.0 / p.rr_survival
 
@@ -346,13 +366,7 @@ def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
     nd = nd + done.to(torch.int32)
     if not single_path:
         s = s + done.to(torch.int32)
-    uj0, uj1, _, _ = rng_mod.uniforms4(seed, ln.pix, s, 0, rng_mod.JITTER)
-    ndc_x = (ln.pxf + uj0) / width_f * 2.0 - 1.0
-    ndc_y = -((ln.pyf + uj1) / height_f * 2.0 - 1.0)
-    a = ndc_x * (tan_half * aspect)
-    b = ndc_y * tan_half
-    pdx, pdy, pdz = _norm3(a * rx_ + b * ux_ + fx_, a * ry_ + b * uy_ + fy_,
-                           a * rz_ + b * uz_ + fz_)
+    pdx, pdy, pdz = _camera_ray(cam16, seed, p, ln, s)
     planes = [
         where(cont, hx, px_), where(cont, hy, py_), where(cont, hz, pz_),
         where(cont, wix, pdx), where(cont, wiy, pdy), where(cont, wiz, pdz),
@@ -363,107 +377,186 @@ def _shade_advance(occ, light, n_light: int, sky, cam16, seed: int, p,
     return planes, s, bb, nd, alive
 
 
+def _step_plain(fs: FusedScene, cam16, seed: int, p: _Params, ln: Lanes,
+                planes, s, bb, nd, gb_lanes=None):
+    """One bounce step of the lanes ``ln`` (any subset of the launch's
+    lanes, with their 15 state planes and s, b, n_done): the kernel's
+    arithmetic, lane for lane.  ``gb_lanes``: (gb, their columns), to
+    write their single_path G-buffer (the launch's first step).  Returns
+    (planes, s, b, n_done, the lanes that traced a shadow ray)."""
+    where = torch.where
+    dev = s.device
+    r = s.shape[0]
+    ox, oy, oz, dx, dy, dz = planes[0:6]
+
+    # --- main intersect: Moller-Trumbore over triangles, then spheres ------
+    # The winning triangle's index is tracked and its attributes read once
+    # after the loop (the kernel selects them per triangle; the result is
+    # the same).
+    best_t = torch.full((r,), NO_HIT, dtype=torch.float32, device=dev)
+    best_n = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    for n in range(fs.n_tri):
+        (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y,
+         e2z) = fs.tri[n, :9].unbind(0)
+        s1x = dy * e2z - dz * e2y
+        s1y = dz * e2x - dx * e2z
+        s1z = dx * e2y - dy * e2x
+        det = s1x * e1x + s1y * e1y + s1z * e1z
+        okd = torch.abs(det) > _DET_EPS
+        inv = 1.0 / where(okd, det, 1.0)
+        sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+        s2x = sy * e1z - sz * e1y
+        s2y = sz * e1x - sx * e1z
+        s2z = sx * e1y - sy * e1x
+        t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv
+        b1 = (s1x * sx + s1y * sy + s1z * sz) * inv
+        b2 = (s2x * dx + s2y * dy + s2z * dz) * inv
+        ok = (okd & (t > p.t_min) & (b1 >= 0.0) & (b2 >= 0.0)
+              & (1.0 - b1 - b2 >= 0.0) & (t < best_t))
+        best_t = where(ok, t, best_t)
+        best_n = where(ok, n, best_n)
+    attrs = where((best_n >= 0)[:, None], fs.tri[best_n.clamp(min=0), 9:19],
+                  0.0)
+    bnx, bny, bnz, ar, ag, ab, er, eg, eb, bef = attrs.unbind(1)
+    bal, bem = [ar, ag, ab], [er, eg, eb]
+    bpid = (best_n + 1).to(torch.float32)
+    for m in range(fs.n_sph):
+        (cx, cy, cz, rad, ar, ag, ab, er, eg, eb,
+         ef) = fs.sph[m, :11].unbind(0)
+        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+        a_q = dx * dx + dy * dy + dz * dz
+        hb = ocx * dx + ocy * dy + ocz * dz
+        c_q = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+        disc = hb * hb - a_q * c_q
+        okq = disc > 0.0
+        sq = torch.sqrt(where(okq, disc, 1.0))
+        t_near = (-hb - sq) / a_q
+        t_far = (-hb + sq) / a_q
+        near_ok = okq & (t_near > p.t_min)
+        far_ok = okq & (t_far > p.t_min)
+        ts = where(near_ok, t_near, where(far_ok, t_far, NO_HIT))
+        ok = ts < best_t
+        inv_r = 1.0 / where(rad == 0.0, 1.0, rad)
+        hpx, hpy, hpz = ox + ts * dx, oy + ts * dy, oz + ts * dz
+        best_t = where(ok, ts, best_t)
+        bnx = where(ok, (hpx - cx) * inv_r, bnx)
+        bny = where(ok, (hpy - cy) * inv_r, bny)
+        bnz = where(ok, (hpz - cz) * inv_r, bnz)
+        bal = [where(ok, v, o) for v, o in zip((ar, ag, ab), bal)]
+        bem = [where(ok, v, o) for v, o in zip((er, eg, eb), bem)]
+        bef = where(ok, ef, bef)
+        bpid = where(ok, float(fs.n_tri + m + 1), bpid)
+    hit = best_t < NO_HIT
+
+    # Facing normal + epsilon-offset shading point.
+    front = (bnx * dx + bny * dy + bnz * dz) < 0.0
+    gnx, gny, gnz = _norm3(bnx, bny, bnz)
+    nxp, nyp, nzp = where(front, gnx, -gnx), where(front, gny, -gny), where(front, gnz, -gnz)
+    t_pt = where(hit, best_t, 1.0)
+    hx = ox + t_pt * dx + nxp * p.eps_offset
+    hy = oy + t_pt * dy + nyp * p.eps_offset
+    hz = oz + t_pt * dz + nzp * p.eps_offset
+    if gb_lanes is not None:
+        gb, cols = gb_lanes
+        gb[:, cols] = torch.stack([
+            ox + t_pt * dx, oy + t_pt * dy, oz + t_pt * dz, nxp, nyp, nzp,
+            where(hit, bpid, -1.0), hit.to(torch.float32)])
+
+    return _shade_advance(
+        (fs.tri, fs.n_tri, fs.sph, fs.n_sph), fs.light, fs.n_light, fs.sky,
+        cam16, seed, p, ln, planes, s, bb, nd, hit, (bal, bem, bef),
+        (nxp, nyp, nzp), (hx, hy, hz),
+        torch.zeros((r,), dtype=torch.bool, device=dev), p.single_path)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _adds_zero_exactly(x):
+    """x + 0 == x bit for bit, lane by lane over the rows of x (false for
+    -0.0 and for a NaN whose bits the add would change).  x (k, n) ->
+    (n,)."""
+    return (_bits(x + 0.0) == _bits(x)).all(0)
+
+
+def _sums_settled(planes):
+    """The lanes whose cur and acc adding 0 leaves as they are: what a
+    step of a lane whose quota is met adds to each."""
+    return _adds_zero_exactly(torch.stack(planes[9:15]))
+
+
+def _at_fixed_point(cam16, seed: int, p: _Params, ln: Lanes, planes, s, bb,
+                    nd):
+    """The lanes that a ``stop_after`` step leaves as they are, bit for
+    bit: the quota met, the path just regenerated (b = 0, o the camera, d
+    the camera ray of sample s, tp = 1), and the sums settled.  Such a
+    lane also counts nothing, and regenerates the same ray at every later
+    step."""
+    ok = (nd >= p.stop_after) & (bb == 0) & _sums_settled(planes)
+    for k in range(3):
+        ok &= _bits(planes[k]) == _bits(cam16[k].expand_as(planes[k]))
+        ok &= _bits(planes[6 + k]) == _bits(torch.ones_like(planes[6 + k]))
+    for k, dk in enumerate(_camera_ray(cam16, seed, p, ln, s)):
+        ok &= _bits(planes[3 + k]) == _bits(dk)
+    return ok
+
+
 def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
-                 gb=None):
+                 gb=None, retire: bool = False):
     """``n_steps`` bounces of every lane; sf (15, R) f32, si (4, R) i32 in
     the kernel's layout.  Returns new (sf, si) with si[3] = per-lane shadow
     rays traced.  ``single_path`` mode writes the (8, R) f32 G-buffer
     ``gb`` in place: world position, facing normal, global primitive id
     (triangle n -> n+1, live sphere m -> n_tri+m+1, miss -> -1) and the
-    contributor flag of each lane's ray at the first step."""
-    where = torch.where
+    contributor flag of each lane's ray at the first step.
+
+    ``retire``: the kernel's schedule in the gated modes (``stop_after``,
+    ``single_path``).  A lane stops stepping after a step at whose end its
+    quota is met and its sums are settled: that step regenerated its path,
+    so every later step leaves it as it is (``_at_fixed_point``).  The
+    step that meets the quota adds cur to acc, where -0.0 + -0.0 stays
+    -0.0: such a lane takes one more step, which adds +0.  A
+    ``stop_after`` lane that enters the launch at that fixed point takes
+    no step.  The planes are those of the lockstep
+    schedule (retire=False), bit for bit."""
     dev = sf.device
     r = sf.shape[1]
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
-    TRI = [[fs.tri[n, k] for k in range(9)] for n in range(fs.n_tri)]
-    SPH = [[fs.sph[m, k] for k in range(11)] for m in range(fs.n_sph)]
-    occ = (fs.tri, fs.n_tri, fs.sph, fs.n_sph)
     ln = lanes(r, p.width, p.n_pix, 0, dev)
-
     s, bb, nd = si[0], si[1], si[2]
     nsh = torch.zeros_like(s)
     planes = list(sf.unbind(0))
+    quota = 1 if p.single_path else p.stop_after
+    retire = retire and quota > 0
+    if not retire:
+        for step in range(p.n_steps):
+            first = p.single_path and step == 0
+            gb_lanes = (gb, slice(None)) if first else None
+            planes, s, bb, nd, alive = _step_plain(fs, cam16, seed, p, ln,
+                                                   planes, s, bb, nd, gb_lanes)
+            nsh = nsh + alive.to(torch.int32)
+        return (torch.stack(planes),
+                torch.stack([s, bb, nd, nsh]).to(torch.int32))
+
+    sf_out, si_out = sf.clone(), si.clone()
+    si_out[3] = 0
+    live = torch.ones((r,), dtype=torch.bool, device=dev)
+    if not p.single_path:
+        live = ~_at_fixed_point(cam16, seed, p, ln, planes, s, bb, nd)
     for step in range(p.n_steps):
-        ox, oy, oz, dx, dy, dz = planes[0:6]
-
-        # --- main intersect: Moller-Trumbore over triangles, then spheres --
-        # The winning triangle's index is tracked and its attributes read
-        # once after the loop (the kernel selects them per triangle; the
-        # result is the same).
-        best_t = torch.full((r,), NO_HIT, dtype=torch.float32, device=dev)
-        best_n = torch.full((r,), -1, dtype=torch.int64, device=dev)
-        for n in range(fs.n_tri):
-            (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z) = TRI[n]
-            s1x = dy * e2z - dz * e2y
-            s1y = dz * e2x - dx * e2z
-            s1z = dx * e2y - dy * e2x
-            det = s1x * e1x + s1y * e1y + s1z * e1z
-            okd = torch.abs(det) > _DET_EPS
-            inv = 1.0 / where(okd, det, 1.0)
-            sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-            s2x = sy * e1z - sz * e1y
-            s2y = sz * e1x - sx * e1z
-            s2z = sx * e1y - sy * e1x
-            t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv
-            b1 = (s1x * sx + s1y * sy + s1z * sz) * inv
-            b2 = (s2x * dx + s2y * dy + s2z * dz) * inv
-            ok = (okd & (t > p.t_min) & (b1 >= 0.0) & (b2 >= 0.0)
-                  & (1.0 - b1 - b2 >= 0.0) & (t < best_t))
-            best_t = where(ok, t, best_t)
-            best_n = where(ok, n, best_n)
-        attrs = where((best_n >= 0)[:, None],
-                      fs.tri[best_n.clamp(min=0), 9:19], 0.0)
-        bnx, bny, bnz, ar, ag, ab, er, eg, eb, bef = attrs.unbind(1)
-        bal, bem = [ar, ag, ab], [er, eg, eb]
-        bpid = (best_n + 1).to(torch.float32)
-        for m in range(fs.n_sph):
-            (cx, cy, cz, rad, ar, ag, ab, er, eg, eb, ef) = SPH[m]
-            ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-            a_q = dx * dx + dy * dy + dz * dz
-            hb = ocx * dx + ocy * dy + ocz * dz
-            c_q = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
-            disc = hb * hb - a_q * c_q
-            okq = disc > 0.0
-            sq = torch.sqrt(where(okq, disc, 1.0))
-            t_near = (-hb - sq) / a_q
-            t_far = (-hb + sq) / a_q
-            near_ok = okq & (t_near > p.t_min)
-            far_ok = okq & (t_far > p.t_min)
-            ts = where(near_ok, t_near, where(far_ok, t_far, NO_HIT))
-            ok = ts < best_t
-            inv_r = 1.0 / where(rad == 0.0, f32(1.0), rad)
-            hpx, hpy, hpz = ox + ts * dx, oy + ts * dy, oz + ts * dz
-            best_t = where(ok, ts, best_t)
-            bnx = where(ok, (hpx - cx) * inv_r, bnx)
-            bny = where(ok, (hpy - cy) * inv_r, bny)
-            bnz = where(ok, (hpz - cz) * inv_r, bnz)
-            bal = [where(ok, v, o) for v, o in zip((ar, ag, ab), bal)]
-            bem = [where(ok, v, o) for v, o in zip((er, eg, eb), bem)]
-            bef = where(ok, ef, bef)
-            bpid = where(ok, float(fs.n_tri + m + 1), bpid)
-        hit = best_t < NO_HIT
-
-        # Facing normal + epsilon-offset shading point.
-        front = (bnx * dx + bny * dy + bnz * dz) < 0.0
-        gnx, gny, gnz = _norm3(bnx, bny, bnz)
-        nxp, nyp, nzp = where(front, gnx, -gnx), where(front, gny, -gny), where(front, gnz, -gnz)
-        t_pt = where(hit, best_t, 1.0)
-        hx = ox + t_pt * dx + nxp * p.eps_offset
-        hy = oy + t_pt * dy + nyp * p.eps_offset
-        hz = oz + t_pt * dz + nzp * p.eps_offset
-        if p.single_path and step == 0:
-            gb[:] = torch.stack([
-                ox + t_pt * dx, oy + t_pt * dy, oz + t_pt * dz, nxp, nyp,
-                nzp, where(hit, bpid, -1.0), hit.to(torch.float32)])
-
-        planes, s, bb, nd, alive = _shade_advance(
-            occ, fs.light, fs.n_light, fs.sky, cam16, seed, p, ln, planes,
-            s, bb, nd, hit, (bal, bem, bef), (nxp, nyp, nzp), (hx, hy, hz),
-            torch.zeros((r,), dtype=torch.bool, device=dev), p.single_path)
-        nsh = nsh + alive.to(torch.int32)
-
-    sf_out = torch.stack(planes)
-    si_out = torch.stack([s, bb, nd, nsh]).to(torch.int32)
+        idx = live.nonzero()[:, 0]
+        if idx.numel() == 0:
+            break
+        sub = Lanes(*(x[idx] for x in ln))
+        gb_lanes = (gb, idx) if p.single_path and step == 0 else None
+        pl, s2, b2, nd2, alive = _step_plain(
+            fs, cam16, seed, p, sub, [x[idx] for x in sf_out.unbind(0)],
+            si_out[0, idx], si_out[1, idx], si_out[2, idx], gb_lanes)
+        sf_out[:, idx] = torch.stack(pl)
+        si_out[:, idx] = torch.stack(
+            [s2, b2, nd2, si_out[3, idx] + alive.to(torch.int32)]
+        ).to(torch.int32)
+        live[idx] = (nd2 < quota) | ~_sums_settled(pl)
     return sf_out, si_out
 
 
@@ -480,6 +573,7 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int,             # scene words
              ctypes.c_float, ctypes.c_float,            # shadow_tol aspect
              ctypes.c_int, ctypes.c_int,                # max_depth stop_after
              ctypes.c_int, ctypes.c_void_p,             # single_path gb
+             ctypes.c_void_p,                           # lane counter
              ctypes.c_void_p]                           # stream
 
 
@@ -495,7 +589,8 @@ def _lib():
 def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
                   gb=None):
     """Launch csrc/fused_mc.cu on CUDA tensors; updates sf/si (and, in
-    ``single_path`` mode, the (8, R) G-buffer ``gb``) in place."""
+    ``single_path`` mode, the (8, R) G-buffer ``gb``) in place, as
+    ``_steps_plain``."""
     global LAUNCHES
     planes = ((sf, torch.float32), (si, torch.int32))
     if p.single_path:
@@ -511,12 +606,19 @@ def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
             or (p.single_path and gb.shape != (8, r))):
         raise ValueError(f"bad state plane shapes {tuple(sf.shape)}, "
                          f"{tuple(si.shape)}")
+    gated = p.single_path or p.stop_after > 0
     if r == 0:
+        return sf, si
+    if p.n_steps == 0:
+        si[3] = 0
         return sf, si
     scene = torch.cat([fs.tri.reshape(-1), fs.sph.reshape(-1),
                        fs.light.reshape(-1), fs.sky.reshape(-1),
                        cam16.reshape(-1)]).to(device=sf.device,
                                               dtype=torch.float32)
+    # the gated modes' lane counter (persistent threads)
+    counter = (torch.zeros((1,), dtype=torch.int32, device=sf.device)
+               if gated else None)
     fn = _lib().fused_mc_steps
     rc = fn(scene.data_ptr(), scene.numel(), fs.n_tri, fs.n_sph, fs.n_light,
             seed, sf.data_ptr(), si.data_ptr(), r, p.n_pix, p.width,
@@ -524,6 +626,7 @@ def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
             1.0 / p.rr_survival, p.shadow_tol,
             float(p.width) / float(p.height), p.max_depth, p.stop_after,
             int(p.single_path), gb.data_ptr() if p.single_path else None,
+            None if counter is None else counter.data_ptr(),
             torch.cuda.current_stream(sf.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_mc kernel launch failed: cudaError {rc}")

@@ -11,7 +11,10 @@ walking a tree per lane.  One bounce step is five launches:
            AABB before the smalls winner?); stable pack of the crossing
            lanes' (o, d, lane id).
   nearest  sweep of the clusters over the packed rays -> nearest mesh
-           (t, n, material id), written back to full planes by lane id.
+           (t, n, material id), written back to full planes by lane id;
+           resident, the rays are first grouped by the cluster boxes
+           they cross (``group_plain``), so that a warp's rays cross the
+           same boxes.
   K1b      merge (the smalls win ties) + facing normal + shading point +
            NEE light sample + zero-weight pruning + shadow predicate +
            stable pack of the shadow rays (p, w_l, lim, lane id).
@@ -86,8 +89,11 @@ SMEM_RESIDENT_BUDGET = 736 * 1024
 
 # Launches of csrc/fused_mesh.cu since the last reset (callers set them to
 # 0), by entry point; "nearest_sl" and "occl_sl" are the shortlist sweeps.
-LAUNCHES = {"k1": 0, "nearest": 0, "k1b": 0, "occl": 0, "k2": 0,
-            "nearest_sl": 0, "occl_sl": 0}
+LAUNCHES = {"k1": 0, "group": 0, "nearest": 0, "k1b": 0, "occl": 0,
+            "k2": 0, "nearest_sl": 0, "occl_sl": 0}
+# Bits of the key by which the resident nearest sweep's rays are grouped:
+# cluster c sets bit c % GROUP_BITS (csrc/fused_mesh.cu GROUP_BITS).
+GROUP_BITS = 12
 
 # One record per chunk of the last render_turbo_mesh(_exact) call: the
 # steps, the caps, the overflow and the predicate populations.
@@ -636,6 +642,31 @@ def crosses_box_plain(aabb, rays, t_min: float, *, occl: bool):
     return crossed
 
 
+def group_keys_plain(aabb, rays, t_min: float):
+    """The grouping key of each ray of rays (6, n): bit c % GROUP_BITS set
+    where the ray crosses cluster c's padded box (``crosses_box_plain``
+    over the unbounded line) -> (n,) i64."""
+    crossed = crosses_box_plain(aabb, rays, t_min, occl=False)
+    key = torch.zeros((rays.shape[1],), dtype=torch.int64, device=rays.device)
+    for c in range(crossed.shape[0]):
+        key |= crossed[c].to(torch.int64) << (c % GROUP_BITS)
+    return key
+
+
+def group_plain(tb: _Tables, p: _Params, rays, ray_id, cnt):
+    """The grouping of the first min(cnt, cap) packed main rays (6, cap)
+    and their lane ids (cap,) by ``group_keys_plain``: a stable sort by
+    key.  Returns (grouped rays, grouped ids, the keys (n,) in pack order);
+    past the n rays the buffers are copies of the input's."""
+    n = min(int(cnt), rays.shape[1])
+    keys = group_keys_plain(tb.mp.smc_aabb, rays[:, :n], p.t_min)
+    order = torch.sort(keys, stable=True).indices
+    g_rays, g_id = rays.clone(), ray_id.clone()
+    g_rays[:, :n] = rays[:, order]
+    g_id[:n] = ray_id[order]
+    return g_rays, g_id, keys
+
+
 def _sweep_plain(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
                  occl: bool, lists=None):
     """The cluster sweep over the first min(cnt, cap) packed rays, in tiles
@@ -759,7 +790,13 @@ def _k2_plain(tb: _Tables, p: _Params, seed, kb, sf, si):
 
 
 def _nearest_plain(tb, p, rays, ray_id, cnt, out):
-    return _sweep_plain(tb, p, rays, ray_id, cnt, out, occl=False)
+    """The resident nearest sweep over the rays grouped by ``group_plain``
+    (the kernels' order), as ``_sweep_plain``; the triangle tests are
+    returned in pack order."""
+    g_rays, g_id, keys = group_plain(tb, p, rays, ray_id, cnt)
+    tests = _sweep_plain(tb, p, g_rays, g_id, cnt, out, occl=False)
+    order = torch.sort(keys, stable=True).indices
+    return torch.empty_like(tests).index_copy_(0, order, tests)
 
 
 def _occl_plain(tb, p, rays, ray_id, cnt, out):
@@ -791,6 +828,9 @@ _SIGNATURES = {
                          + [_P] * 3 + [ctypes.c_int] + [_P] * 4),
     # (occl, cs, out)
     "fused_mesh_sweep_slots": [ctypes.c_int, ctypes.c_int, _P],
+    # (params, aabb, rays, ray_id, cap, cnt, keys, hist, g_rays, g_id,
+    #  stream)
+    "fused_mesh_group": [_P] * 4 + [ctypes.c_int] + [_P] * 6,
     # (params, tables, sf, si, hf, kb, sr, sr_id, offs, cnt, stream)
     "fused_mesh_k1b": [_P] * 11,
     # (params, tables, kb, sf, si, stream)
@@ -925,9 +965,37 @@ def _sweep_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
             out.data_ptr(), _stream(rays))
 
 
+def _group_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt):
+    """Launch the grouping (csrc/fused_mesh.cu, three kernels) on CUDA
+    tensors: as ``group_plain``, but the order inside a key is the
+    atomics'.  Returns (grouped rays, grouped ids, the keys (cap,) i32 in
+    pack order; only the first min(cnt, cap) of each are written)."""
+    _check("fused_mesh group", dict(aabb=(tb.mp.smc_aabb, _F),
+                                    rays=(rays, _F), ray_id=(ray_id, _I),
+                                    cnt=(cnt, _I)))
+    cap = rays.shape[1]
+    _plane_rows(rays, 6, cap, "rays")
+    if (ray_id.shape != (cap,)
+            or tb.mp.smc_aabb.shape != (tb.mp.n_clusters, 8)):
+        raise ValueError("bad id buffer or cluster box table shape")
+    dev = rays.device
+    keys = torch.empty((cap,), dtype=_I, device=dev)
+    hist = torch.zeros((1 << GROUP_BITS,), dtype=_I, device=dev)
+    g_rays = torch.empty_like(rays)
+    g_id = torch.empty_like(ray_id)
+    cp = _cparams(tb, p, 0, cap)
+    _launch("fused_mesh_group", "group", ctypes.byref(cp),
+            tb.mp.smc_aabb.data_ptr(), rays.data_ptr(), ray_id.data_ptr(),
+            cap, cnt.data_ptr(), keys.data_ptr(), hist.data_ptr(),
+            g_rays.data_ptr(), g_id.data_ptr(), _stream(rays))
+    return g_rays, g_id, keys
+
+
 def _nearest_kernel(tb, p, rays, ray_id, cnt, out):
-    """Launch the nearest sweep on CUDA tensors; as ``_sweep_plain``."""
-    _sweep_kernel(tb, p, rays, ray_id, cnt, out, occl=False)
+    """Group the packed rays, then launch the nearest sweep over them, on
+    CUDA tensors; as ``_nearest_plain``."""
+    g_rays, g_id, _ = _group_kernel(tb, p, rays, ray_id, cnt)
+    _sweep_kernel(tb, p, g_rays, g_id, cnt, out, occl=False)
 
 
 def _occl_kernel(tb, p, rays, ray_id, cnt, out):
@@ -1005,7 +1073,7 @@ KERNEL_OPS = _Ops(_k1_kernel, _nearest_kernel, _k1b_kernel, _occl_kernel,
                   _k2_kernel)
 PLAIN_OPS = _Ops(_k1_plain, _nearest_plain, _k1b_plain, _occl_plain,
                  _k2_plain)
-# the shortlist-streaming mode (resident=False)
+# the shortlist-streaming mode (resident=False): the rays in pack order
 KERNEL_SL_OPS = KERNEL_OPS._replace(
     nearest=functools.partial(_sl_sweep, occl=False, kernel=True),
     occl=functools.partial(_sl_sweep, occl=True, kernel=True))

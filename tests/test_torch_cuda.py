@@ -240,6 +240,7 @@ def test_render_turbo_mesh_exact_on_card(cuda):
     assert img.is_cuda and packet.LAUNCHES == 0
     counts = fused_mesh.LAUNCHES
     assert all(counts[k] == steps for k in fused_mesh.OP_NAMES)
+    assert counts["group"] == steps        # the resident sweep's rays
     assert counts["nearest_sl"] == counts["occl_sl"] == 0   # resident
     plain = fused_mesh.render_turbo_mesh_exact(scene, cam, cfg, SEED,
                                                cluster_size=64, device="cpu")
@@ -611,3 +612,160 @@ def test_new_wrappers_refuse_bad_tensors(cuda):
         fused._steps_kernel(fs, cam16, SEED, sf, si, p,
                             gb=torch.zeros((8, 128), device=cuda,
                                            dtype=torch.float64))
+
+
+# --- retiring lanes (csrc/fused_mc.cu) and grouping rays (fused_mesh.cu) ----
+
+def _bits_equal(got, want):
+    return all(torch.equal(a.contiguous().view(torch.int32),
+                           b.contiguous().view(torch.int32))
+               for a, b in zip(got, want))
+
+
+def _gated_state(device, w=96, h=64, depth=6, stop_after=2):
+    scene = _scene("cornell_sphere", device)
+    cam = cornell.cornell_camera(device)
+    cfg = RenderConfig(width=w, height=h, spp=stop_after, max_depth=depth,
+                       rr_survival=0.8)
+    st = mc.wavefront_init(scene, cam, cfg, SEED, device=device)
+    sf, si = fused_mesh.state_planes(st)
+    p = fused._Params(1, w, h, w * h, float(cfg.t_min), float(cfg.eps_offset),
+                      0.8, float(cfg.shadow_tolerance), depth, stop_after)
+    return fused.pack_scene(scene), fused._camera_words(cam), sf, si, p
+
+
+@pytest.mark.parametrize("stop_after", [0, 2])
+@pytest.mark.parametrize("n_steps", [1, 32, 96])
+def test_retiring_kernel_matches_lockstep_plain(cuda, stop_after, n_steps):
+    """The persistent kernel (lanes retire once their quota is met) against
+    the plain version run in lockstep: every plane bit equal, from the
+    initial state and then from the state it leaves (lanes enter done)."""
+    fs, cam16, sf, si, p = _gated_state(cuda, stop_after=stop_after)
+    q = p._replace(n_steps=n_steps)
+    want, got = (sf, si), (sf, si)
+    for _ in range(2):
+        want = fused._steps_plain(fs, cam16, SEED, *[x.clone() for x in want],
+                                  q)
+        launches = fused.LAUNCHES
+        got = fused._steps_kernel(fs, cam16, SEED, *[x.clone() for x in got],
+                                  q)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == launches + 1
+        assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("n_steps", [1, 32, 96])
+def test_retiring_single_path_kernel_matches_lockstep_plain(cuda, n_steps):
+    scene, cam = _scene("cornell_sphere", cuda), cornell.cornell_camera(cuda)
+    cfg = RenderConfig(width=96, height=64, max_depth=16, rr_survival=0.8)
+    cam16, sf, si, gb, p = fused._gbuffer_setup(cam, cfg, 3, cuda)
+    fs = fused.pack_scene(scene)
+    p = p._replace(n_steps=n_steps)
+    gb_k = gb.clone()
+    want = fused._steps_plain(fs, cam16, SEED, sf.clone(), si.clone(), p,
+                              gb=gb)
+    got = fused._steps_kernel(fs, cam16, SEED, sf.clone(), si.clone(), p,
+                              gb=gb_k)
+    torch.cuda.synchronize()
+    assert _bits_equal(got + (gb_k,), want + (gb,))
+
+
+def test_retiring_kernel_off_the_fixed_point(cuda):
+    """Lanes that enter done but off the fixed point (-0.0 and NaN in cur
+    and acc, tp of either sign, mid-path b), and lanes one sample short
+    with cur = acc = -0.0 and a negative tp (the step that meets the quota
+    can leave acc at -0.0): bit equal to the lockstep plain version after
+    1, 2 and 7 steps."""
+    fs, cam16, sf, si, p = _gated_state(cuda, w=64, h=48)
+    sf, si = fused._steps_plain(fs, cam16, SEED, sf, si,
+                                p._replace(n_steps=48))
+    g = np.random.default_rng(3)
+    r = sf.shape[1]
+
+    def some(q):
+        return torch.as_tensor(g.random(r) < q, device=cuda)
+
+    odd = torch.as_tensor(g.choice(np.array([-0.0, 0.0, 1.5, np.nan],
+                                            np.float32), size=(6, r)),
+                          device=cuda)
+    sf[9:15] = torch.where(some(0.4), odd, sf[9:15])
+    sf[6:9] = torch.where(some(0.2), -sf[6:9], sf[6:9])
+    si[1] = torch.where(some(0.1), 2, si[1])
+    sf[3] = torch.where(some(0.1), -sf[3], sf[3])
+    short = some(0.3)
+    si[2] = torch.where(short, p.stop_after - 1, si[2])
+    si[1] = torch.where(short & some(0.5), p.max_depth - 1, si[1])
+    sf[9:15] = torch.where(short, -0.0, sf[9:15])
+    sf[6:9] = torch.where(short, -1.0, sf[6:9])
+    one = fused._steps_plain(fs, cam16, SEED, sf.clone(), si.clone(),
+                             p._replace(n_steps=1))
+    neg_zero = (one[0][12:15].view(torch.int32)
+                == torch.tensor(-0.0).view(torch.int32).item()).any(0)
+    assert int((short & (one[1][2] == p.stop_after) & neg_zero).sum()) > 0
+    for n_steps in (1, 2, 7):
+        q = p._replace(n_steps=n_steps)
+        want = fused._steps_plain(fs, cam16, SEED, sf.clone(), si.clone(), q)
+        got = fused._steps_kernel(fs, cam16, SEED, sf.clone(), si.clone(), q)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want)
+
+
+def _grouping_equal(g_k, g_p, rays, ray_id, n):
+    """The kernel's grouping holds the plain one's rays and ids in the same
+    key runs (the order inside a key is the atomics')."""
+    (rk, ik, kk), (rp, ip, kp) = g_k, g_p
+    if not torch.equal(kk[:n].long(), kp):
+        return False
+    key_of = torch.zeros(int(ray_id[:n].max()) + 1, dtype=torch.int64,
+                         device=rays.device)
+    key_of[ray_id[:n].long()] = kp
+    run_k, run_p = key_of[ik[:n].long()], key_of[ip[:n].long()]
+    pos = torch.zeros_like(key_of)
+    pos[ray_id[:n].long()] = torch.arange(n, device=rays.device)
+    return (torch.equal(run_k, run_p)
+            and torch.equal(torch.sort(run_k * (1 << 32) + ik[:n]).values,
+                            torch.sort(run_p * (1 << 32) + ip[:n]).values)
+            and torch.equal(rk[:, :n], rays[:, pos[ik[:n].long()]]))
+
+
+@pytest.mark.parametrize("sub", [2, 3])
+def test_group_kernel_matches_plain(cuda, sub):
+    tb, p, sf, si = _mesh_step_inputs(cuda, sub=sub)
+    fm = fused_mesh
+    b = fm.step_buffers(sf.shape[1], p, 1, cuda)
+    b.cnt.zero_()
+    fm._k1_plain(tb, p, sf, b.hf, b.mr, b.mr_id, b.offs1, b.cnt[0, 0:1])
+    n = int(b.cnt[0, 0])
+    launches = fm.LAUNCHES["group"]
+    got = fm._group_kernel(tb, p, b.mr, b.mr_id, b.cnt[0, 0:1])
+    want = fm.group_plain(tb, p, b.mr, b.mr_id, b.cnt[0, 0:1])
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["group"] == launches + 1
+    assert n > 0 and _grouping_equal(got, want, b.mr, b.mr_id, n)
+
+
+@pytest.mark.parametrize("over_cap", [False, True])
+def test_grouped_resident_sweep_matches_plain(cuda, over_cap):
+    """The stepper's nearest op on the card (grouping, then the sweep)
+    against the plain sweep in pack order, bit for bit at every lane; also
+    with a population past the cap."""
+    tb, p, sf, si = _mesh_step_inputs(cuda, sub=3)
+    fm = fused_mesh
+    b = fm.step_buffers(sf.shape[1], p, 1, cuda)
+    b.cnt.zero_()
+    fm._k1_plain(tb, p, sf, b.hf, b.mr, b.mr_id, b.offs1, b.cnt[0, 0:1])
+    cnt = b.cnt[0, 0:1].clone()
+    if over_cap:
+        # a full buffer, as K1 leaves it when more lanes cross than fit:
+        # the packed rays again, each with its lane (same ray, same result)
+        n, cap = int(cnt), b.mr.shape[1]
+        again = torch.arange(cap - n, device=cuda) % n
+        b.mr[:, n:] = b.mr[:, again]
+        b.mr_id[n:] = b.mr_id[again]
+        cnt += cap
+    out_k = torch.full_like(b.hf[5:10], -7.0)
+    out_p = out_k.clone()
+    fm._nearest_kernel(tb, p, b.mr, b.mr_id, cnt, out_k)
+    fm._sweep_plain(tb, p, b.mr, b.mr_id, cnt, out_p, occl=False)
+    torch.cuda.synchronize()
+    assert _bits_equal((out_k,), (out_p,))
