@@ -38,31 +38,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 8. whitted_golden  models.whitted.render and render_fused at 128x128 against
               goldens/test/whitted.png (gamma 1, mean <= 1.0, p99 <= 4);
 9. mesh_main  mesh.render(prepare(bvh_stage_scene())) at 896x896, depth 5,
-              through the packet kernel, against method="brute" (every
-              pixel within rtol 1e-5, atol 1e-6); the image goes to build/;
-              the shadow rays toward light 0 that it sends are kept;
+              through the packet kernel (the whole image one chunk: the
+              chunk is reported), against method="brute" and against the
+              Whitted twin in each chunk of PACKET_CHUNKS (every pixel
+              within rtol 1e-5, atol 1e-6); the image goes to build/; the
+              shadow rays toward light 0 that it sends are kept;
 10. mesh_parity  the packet kernel against nearest_plain on the 896x896
               camera rays of bvh_stage_scene (3,584 triangles), on the
-              shadow rays kept from mesh_main, and on 8,192 triangles in
-              64-triangle clusters (hit masks and indices equal, t within
-              rtol 1e-6); then packet_in_render: the packet kernel inside
-              mesh.render (each of its launches replayed alone on the rays
-              it was given, summed, beside the summed bound and the
-              render's seconds);
+              shadow rays kept from mesh_main, on 8,192 triangles in
+              64-triangle clusters, and on one 16,384-ray chunk of the
+              camera rays (hit masks and indices equal, t within rtol
+              1e-6); then packet_in_render: the packet kernel inside
+              mesh.render and inside the Whitted twin at each chunk of
+              PACKET_CHUNKS (the frame's seconds; each launch replayed
+              alone on the rays it was given, summed, beside the summed
+              bound; the eager share), and the fastest chunk;
 11. whitted_main  render_fused at 896x896, depth 5, Q=4; image to build/;
 12. mesh_mc    mesh.render_mc through the packet kernel against
               method="brute" on cornell_mesh_scene, 128x128, 4 spp, depth 16
               (every pixel's radiance within 2e-3);
 13. whitted_speed, packet_speed  each new kernel alone with CUDA events
               beside its plain version: ms per 896x896 Whitted frame, ms per
-              802,816-ray packet pass on camera and on shadow rays;
+              802,816-ray packet pass on camera and on shadow rays and per
+              16,384-ray launch;
 14. mesh_fused_parity  on cornell_mesh_scene at 896x896 from
               wavefront_init: each of the five csrc/fused_mesh.cu entry
               points against its plain version for one step (outputs bit
               equal, packed lane sets equal, each block's slice in lane
-              order; the grouping of the main rays against group_plain),
-              the grouped nearest sweep bit equal to its plain version at
-              every one of 16 steps, then the whole stepper against
+              order; the groupings of the main and of the shadow rays
+              against group_plain), the grouped nearest and occlusion
+              sweeps bit equal to their plain versions at every one of 16
+              steps, then the whole stepper against
               wavefront_steps_fused_mesh_plain for 16 steps, plain mode and
               stop_after=4 (integer state, overflow 0, populations);
 15. mesh_fused_main  render_turbo_mesh_exact at 896x896, 4 spp, depth 16,
@@ -79,7 +85,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               box tests over its list and the triangle tests of the
               clusters whose boxes it crosses, from the mask pass's
               per-ray planes); each sweep also unsplit (each output bit
-              equal to the plain one); the nearest op's grouping and its
+              equal to the plain one); each sweep op's grouping and its
               sweep each alone, the sweep also in pack order, and the
               boxes a warp's rays cross before and after grouping;
 18. mesh_fused_whitted_main  mesh.render(prepare(bvh_stage_scene(4),
@@ -727,8 +733,12 @@ def mesh_parity_phase(dev, cfg, shadow) -> tuple:
                          device=dev)
     rd = (rd / rd.norm(dim=1, keepdim=True)).contiguous()
     cl_big = packet.build_clusters(big, 64, device=dev)
+    # one 16,384-ray launch: the camera rays of the middle chunk of the
+    # render's 49 when the Whitted twin runs in chunks of 16,384
+    mid = slice(24 * 16384, 25 * 16384)
     cases = {"camera": (cl, o, d), "shadow": (cl, *shadow),
-             "streamed_8192": (cl_big, ro, rd)}
+             "streamed_8192": (cl_big, ro, rd),
+             "camera_16384": (cl, o[mid].contiguous(), d[mid].contiguous())}
     max_err, out = 0.0, {}
     for name, (c, oo, dd) in cases.items():
         want_t, want_i, n_pass = packet.nearest_plain(c, oo, dd, cfg.t_min,
@@ -830,11 +840,16 @@ def mesh_main_phase(dev, cfg) -> tuple:
     brute = mesh.render(mesh.prepare(scene, method="brute"), cam, cfg,
                         device=dev)
     vs_brute = pixels_off(img, brute, WHITTED_RTOL, WHITTED_ATOL)
+    # per-ray results do not depend on the chunk of the Whitted twin
+    vs_chunks = {c: pixels_off(mesh_render_chunked(bundle, cam, cfg, c, dev),
+                               img, WHITTED_RTOL, WHITTED_ATOL)
+                 for c in PACKET_CHUNKS}
     finite = bool(torch.isfinite(img).all())
     emit(phase="mesh_main", config=f"bvh_stage_scene {cfg.width}x"
          f"{cfg.height} depth{cfg.whitted_depth} method={bundle.method}",
          tris=scene.triangles.count, clusters=bundle.clusters.n_clusters,
-         seconds=secs, launches=launches, vs_brute=vs_brute, finite=finite,
+         seconds=secs, launches=launches, chunk=sent[0][0].shape[0],
+         vs_brute=vs_brute, vs_chunks=vs_chunks, finite=finite,
          mean_radiance=float(img.mean()),
          png=save_png(img, f"mesh_{cfg.width}.png"))
     if dev.type == "cuda" and launches["packet"] <= 0:
@@ -842,27 +857,42 @@ def mesh_main_phase(dev, cfg) -> tuple:
     if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
             or not float(img.mean()) > 0.0):
         raise RuntimeError("the mesh main path's image is wrong")
-    if vs_brute["pixels_off"] != 0:
-        raise RuntimeError(f"mesh.render packet vs brute: {vs_brute}")
+    if vs_brute["pixels_off"] != 0 or any(v["pixels_off"]
+                                          for v in vs_chunks.values()):
+        raise RuntimeError(f"mesh.render packet vs brute: {vs_brute}, vs "
+                           f"each chunk: {vs_chunks}")
     return launches["packet"], (so, sd)
 
 
-def packet_in_render_phase(dev, cfg, smi, n_rep=3) -> dict:
-    """packet.cu inside mesh.render (bvh_stage_scene, the mesh_main cell):
-    one render with every launch's rays recorded (and CUDA events around
-    each launch, which also hold the wrapper's host work when the card
-    waits for it); then each launch replayed alone on its rays (CUDA
-    events, n_rep back to back), summed; the bound summed over the
-    launches (each launch's slab tests and the triangle tests of its
-    (block, cluster) pairs whose vote passed, or its bytes); the render's
-    seconds, so the eager Whitted twin's share is the rest."""
-    from cpu_based_ray_tracer_tpu_torch.models import mesh
-    from cpu_based_ray_tracer_tpu_torch.ops import packet
-    from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+# ray_chunk values of the Whitted twin timed for mesh.render through packet
+# (16,384 is the twin's default chunk, the JAX package's; 802,816 is the
+# whole 896x896 image, what mesh.render gives the packet branch).
+PACKET_CHUNKS = (16384, 65536, 200704, 802816)
 
-    scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
-    bundle = mesh.prepare(scene)
-    mesh.render(bundle, cam, cfg, device=dev)                   # warm-up
+
+def mesh_render_chunked(bundle, cam, cfg, chunk: int, dev):
+    """mesh.render's packet path with the Whitted twin cut into ``chunk``
+    rays (mesh.render itself takes the whole image)."""
+    from cpu_based_ray_tracer_tpu_torch.models import mesh, whitted
+
+    b = bundle.to(dev)
+    return whitted.render(b.scene, cam, cfg.replace(ray_chunk=chunk),
+                          intersect_fn=mesh.make_intersect_fn(b),
+                          nearest_t_fn=mesh.make_nearest_t_fn(b), device=dev)
+
+
+def packet_launches_in(render, dev, n_rep: int) -> dict:
+    """packet.cu inside one call of ``render``: the call with every launch's
+    rays recorded (and CUDA events around each launch, which also hold the
+    wrapper's host work when the card waits for it); then each launch
+    replayed alone on its rays (CUDA events, n_rep back to back after the
+    card was kept busy while the host enqueued them), summed; the bound
+    summed over the launches (each launch's slab tests and the triangle
+    tests of its (ray, cluster) pairs where the ray crosses the padded box,
+    or its bytes), and beside it PR 7's count (the triangle tests of the
+    256-ray (block, cluster) pairs whose vote passed)."""
+    from cpu_based_ray_tracer_tpu_torch.ops import packet
+
     rec, real = [], packet._nearest_kernel
 
     def recording(clusters, origin, direction, t_min):
@@ -876,38 +906,95 @@ def packet_in_render_phase(dev, cfg, smi, n_rep=3) -> dict:
     sync(dev)
     packet._nearest_kernel = recording
     try:
-        t0 = time.perf_counter()
-        mesh.render(bundle, cam, cfg, device=dev)
+        render()
         sync(dev)
-        secs = time.perf_counter() - t0
     finally:
         packet._nearest_kernel = real
     inline_ms = sum(e0.elapsed_time(e1) for e0, e1, *_ in rec)
-    ms = ops = nbytes = bound_ms = 0.0
+    ms = ops = nbytes = bound_ms = vote_bound_ms = 0.0
     rays = []
     for _, _, cl, o, d, t_min in rec:
         real(cl, o, d, t_min)                                   # warm-up
-        ms += timed(lambda: [real(cl, o, d, t_min)
-                             for _ in range(n_rep)]) / n_rep
+        ms += timed(lambda: [real(cl, o, d, t_min) for _ in range(n_rep)],
+                    busy_ms=5.0) / n_rep
+        r = o.shape[0]
         n_pass = packet.nearest_plain(cl, o, d, t_min,
                                       return_passes=True)[2]
-        r, c, cs = o.shape[0], cl.n_clusters, cl.cs
-        l_ops = r * c * SLAB_OPS + n_pass * packet.BLOCK * cs * TRI_OPS
-        l_bytes = r * (24 + 8) + c * (cs * (48 + 4) + 32)
+        l_ops, l_bytes = packet_work(
+            r, cl, packet_pairs(cl, o, d, t_min)["ray_pairs"])
         ops += l_ops
         nbytes += l_bytes
         bound_ms += bound(l_ops, l_bytes)["bound_ms"]
+        vote_bound_ms += bound(*packet_work(r, cl, n_pass * packet.BLOCK)
+                               )["bound_ms"]
         rays.append(r)
-    res = dict(ms=ms, inline_event_ms=inline_ms, launches=len(rec),
-               bound_ms=bound_ms, bound_by=bound(ops, nbytes)["bound_by"],
-               render_seconds=secs,
-               eager_share=1.0 - ms * 1e-3 / secs)
-    emit(phase="packet_in_render", nvidia_smi=smi, config=f"bvh_stage_scene "
-         f"{cfg.width}x{cfg.height} depth{cfg.whitted_depth}",
-         rays_per_launch=dict(total=sum(rays), min=min(rays),
-                              mean=sum(rays) / len(rays), max=max(rays)),
-         ops=ops, bytes=nbytes, **res)
-    return res
+    return dict(ms=ms, inline_event_ms=inline_ms, launches=len(rec),
+                bound_ms=bound_ms, bound_by=bound(ops, nbytes)["bound_by"],
+                pr7_vote_bound_ms=vote_bound_ms, ops=ops, bytes=nbytes,
+                rays_per_launch=dict(total=sum(rays), min=min(rays),
+                                     mean=sum(rays) / len(rays),
+                                     max=max(rays)))
+
+
+def packet_work(r: int, cl, tested: int) -> tuple:
+    """(ops, bytes) of one packet pass of r rays: every ray's slab test of
+    every cluster and the CS triangle tests of each of ``tested`` (ray,
+    cluster) pairs; the rays read and the results written once, the
+    cluster table read once.  ``tested`` is what the pass needs, the pairs
+    where the ray crosses the padded box (``packet_pairs``' ray_pairs);
+    or 32 x its (warp, cluster) pairs, what the kernel's warps run; or PR
+    7's count, 256 x the (block, cluster) pairs whose vote passed (the
+    TPU kernel's cull, ``nearest_plain(return_passes=True)``)."""
+    c, cs = cl.n_clusters, cl.cs
+    return (r * c * SLAB_OPS + tested * cs * TRI_OPS,
+            r * (24 + 8) + c * (cs * (48 + 4) + 32))
+
+
+def packet_in_render_phase(dev, cfg, smi, n_rep=3, n_frames=3) -> dict:
+    """packet.cu inside mesh.render (bvh_stage_scene, the mesh_main cell),
+    for each ray chunk of PACKET_CHUNKS and for mesh.render itself: the
+    frame's seconds (median of n_frames after a warm-up), its packet
+    launches replayed alone and summed beside their summed bound
+    (``packet_launches_in``), and the eager Whitted twin's share (the
+    rest of the frame).  Returns mesh.render's."""
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+
+    scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
+    bundle = mesh.prepare(scene)
+    renders = {str(c): functools.partial(mesh_render_chunked, bundle, cam,
+                                         cfg, c, dev) for c in PACKET_CHUNKS}
+    renders["mesh.render"] = functools.partial(mesh.render, bundle, cam, cfg,
+                                               device=dev)
+    out = {}
+    for name, render in renders.items():
+        render()                                                # warm-up
+        secs = []
+        for _ in range(n_frames):
+            sync(dev)
+            t0 = time.perf_counter()
+            render()
+            sync(dev)
+            secs.append(time.perf_counter() - t0)
+        res = packet_launches_in(render, dev, n_rep)
+        res.update(render_seconds=float(np.median(secs)),
+                   render_seconds_all=secs,
+                   eager_share=1.0 - res["ms"] * 1e-3 / float(np.median(secs)))
+        emit(phase="packet_in_render", nvidia_smi=smi, chunk=name,
+             config=f"bvh_stage_scene {cfg.width}x{cfg.height} "
+                    f"depth{cfg.whitted_depth}", **res)
+        out[name] = res
+    best = min(PACKET_CHUNKS, key=lambda c: out[str(c)]["render_seconds"])
+    emit(phase="packet_in_render", part="chunk_sweep", fastest_chunk=best,
+         mesh_render_chunk=out["mesh.render"]["rays_per_launch"]["max"],
+         seconds_by_chunk={k: v["render_seconds"] for k, v in out.items()},
+         replayed_ms_by_chunk={k: v["ms"] for k, v in out.items()},
+         launches_by_chunk={k: v["launches"] for k, v in out.items()})
+    return out["mesh.render"] | {"chunk_sweep": {
+        k: {f: v[f] for f in ("render_seconds", "launches", "ms",
+                              "bound_ms", "pr7_vote_bound_ms",
+                              "eager_share")}
+        for k, v in out.items() if k != "mesh.render"}}
 
 
 def whitted_main_phase(dev, cfg) -> int:
@@ -998,28 +1085,54 @@ def whitted_speed_phase(dev, cfg, counts, smi, n_iters=20) -> dict:
     return res
 
 
+def packet_pairs(cl, o, d, t_min: float) -> dict:
+    """The triangle-test work of csrc/packet.cu's cull on these rays: the
+    (ray, cluster) pairs where the ray crosses the padded box, and the
+    (32-ray warp, cluster) pairs where a ray of the warp does (the pairs
+    the kernel runs Moller-Trumbore for; no cull by the best hit)."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+
+    rays = torch.cat([o.T, d.T])
+    r = rays.shape[1]
+    nw = -(-r // 32)
+    ray_pairs = warp_pairs = 0
+    for c in range(cl.n_clusters):
+        crossed = fm.crosses_box_plain(cl.aabb[c:c + 1], rays, t_min,
+                                       occl=False)[0]
+        pad = torch.zeros((nw * 32,), dtype=torch.bool, device=o.device)
+        pad[:r] = crossed
+        ray_pairs += int(crossed.sum())
+        warp_pairs += int(pad.view(nw, 32).any(1).sum())
+    return dict(ray_pairs=ray_pairs, warp_pairs=warp_pairs,
+                boxes_crossed_per_ray=ray_pairs / r,
+                boxes_crossed_per_warp=warp_pairs / nw)
+
+
 def packet_speed_phase(dev, cases, smi, n_iters=10) -> dict:
-    """ms per pass of the packet kernel alone (CUDA events) and of
-    nearest_plain, on the camera and the shadow rays; the bound counts the
-    (block, cluster) pairs whose vote passed."""
+    """ms per pass of the packet kernel alone (CUDA events, the card kept
+    busy while the host enqueues the launches) and of nearest_plain, on
+    the camera and the shadow rays and one 16,384-ray chunk of camera
+    rays; the bound counts the (ray, cluster) pairs where the ray crosses
+    the padded box, with the (warp, cluster) pairs' count and PR 7's vote
+    count beside it (``packet_work``)."""
     from cpu_based_ray_tracer_tpu_torch.ops import packet
 
     res = {}
-    for name in ("camera", "shadow"):
+    for name in ("camera", "shadow", "camera_16384"):
         cl, o, d, n_pass = cases[name]
         packet._nearest_kernel(cl, o, d, 1e-3)                 # warm-up
         ms = timed(lambda: [packet._nearest_kernel(cl, o, d, 1e-3)
-                            for _ in range(n_iters)]) / n_iters
+                            for _ in range(n_iters)], busy_ms=5.0) / n_iters
         plain_ms = timed(lambda: packet.nearest_plain(cl, o, d, 1e-3))
-        r, c, cs = o.shape[0], cl.n_clusters, cl.cs
-        ops = r * c * SLAB_OPS + n_pass * packet.BLOCK * cs * TRI_OPS
-        nbytes = r * (24 + 8) + c * (cs * (48 + 4) + 32)
-        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-        res[name] = dict(ms=ms, plain_ms=plain_ms,
-                         bound_ms=max(t_ops, t_bytes) * 1e3,
-                         bound_by="operations" if t_ops >= t_bytes
-                         else "bytes", ops=ops, bytes=nbytes,
-                         passing_pairs=n_pass)
+        r, c = o.shape[0], cl.n_clusters
+        pairs = packet_pairs(cl, o, d, 1e-3)
+        ops, nbytes = packet_work(r, cl, pairs["ray_pairs"])
+        res[name] = dict(ms=ms, plain_ms=plain_ms, **bound(ops, nbytes),
+                         passing_pairs=n_pass,
+                         **pairs, warp_pairs_bound_ms=bound(*packet_work(
+                             r, cl, pairs["warp_pairs"] * 32))["bound_ms"],
+                         pr7_vote_bound_ms=bound(*packet_work(
+                             r, cl, n_pass * packet.BLOCK))["bound_ms"])
         emit(phase="packet_speed", case=name, nvidia_smi=smi, rays=r,
              clusters=c, rays_per_s=r / (ms * 1e-3), **res[name])
     return res
@@ -1030,9 +1143,10 @@ def packet_speed_phase(dev, cases, smi, n_iters=10) -> dict:
 MESH_TPU = {"k1": ("_k1_kernel", 226), "nearest": ("_mesh_nearest_kernel", 915),
             "k1b": ("_k1b_kernel", 1142), "occl": ("_mesh_occl_kernel", 943),
             "k2": ("_k2_kernel", 388),
-            # the grouping before the resident nearest sweep: part of #3's
-            # port (the TPU kernel sweeps the rays in pack order)
-            "group": ("_mesh_nearest_kernel", 915)}
+            # the groupings before the resident sweeps: part of #3's and
+            # #4's ports (the TPU kernels sweep the rays in pack order)
+            "group": ("_mesh_nearest_kernel", 915),
+            "group_occl": ("_mesh_occl_kernel", 943)}
 
 
 def mesh_setup(dev, cfg):
@@ -1103,19 +1217,22 @@ def mesh_fused_parity_phase(dev, cfg, n_steps=16) -> dict:
     sf, si = fm.state_planes(st)
     bp = fm.StepBuffers(*[torch.zeros_like(x)
                           for x in fm.step_buffers(r, p, 1, dev)])
-    errs, res = {"group": 0.0}, {}
+    errs, res = {"group": 0.0, "group_occl": 0.0}, {}
     for name in fm.OP_NAMES:
-        if name == "nearest":
-            # the grouping alone, on the plain K1's pack
-            c1 = bp.cnt[0, 0:1]
-            got = fm._group_kernel(tb, p, bp.mr, bp.mr_id, c1)
-            want = fm.group_plain(tb, p, bp.mr, bp.mr_id, c1)
+        if name in ("nearest", "occl"):
+            # the grouping alone, on the plain K1's or K1b's pack
+            occl = name == "occl"
+            key = "group_occl" if occl else "group"
+            rays, ids = (bp.sr, bp.sr_id) if occl else (bp.mr, bp.mr_id)
+            c = bp.cnt[0, 1:2] if occl else bp.cnt[0, 0:1]
+            got = fm._group_kernel(tb, p, rays, ids, c, occl=occl)
+            want = fm.group_plain(tb, p, rays, ids, c, occl=occl)
             sync(dev)
-            res["group"] = {"equal": grouping_equal(got, want, bp.mr,
-                                                    bp.mr_id, int(c1))}
-            if not res["group"]["equal"]:
-                raise RuntimeError("the grouping kernel disagrees with "
-                                   "group_plain")
+            res[key] = {"equal": grouping_equal(got, want, rays, ids,
+                                                int(c))}
+            if not res[key]["equal"]:
+                raise RuntimeError(f"the grouping kernel disagrees with "
+                                   f"group_plain (occl={occl})")
         bk = fm.StepBuffers(*[x.clone() for x in bp])
         sf_k, si_k = sf.clone(), si.clone()
         fm.run_op(fm.KERNEL_OPS, name, tb, p, SEED_KEY0, sf_k, si_k, bk)
@@ -1145,33 +1262,38 @@ def mesh_fused_parity_phase(dev, cfg, n_steps=16) -> dict:
     emit(phase="mesh_fused_parity", part="each_kernel", lanes=r,
          caps=list(caps), max_abs_err=errs, **res)
 
-    # Every step of the stepper: the grouped resident sweep's t, normal
-    # and material id (hf rows 5-9) bit equal to the plain version's.
+    # Every step of the stepper: the grouped nearest sweep's t, normal and
+    # material id (hf rows 5-9) and the grouped occlusion sweep's flags (kb
+    # row 8) bit equal to the plain version's.
     sf_k, si_k = fm.state_planes(st)
     sf_p, si_p = sf_k.clone(), si_k.clone()
     bk = fm.step_buffers(r, p, n_steps, dev)
     bp = fm.step_buffers(r, p, n_steps, dev)
-    same_steps = 0
+    same_steps = {"nearest": 0, "occl": 0}
+    rows = {"nearest": lambda b: b.hf[5:10], "occl": lambda b: b.kb[8:9]}
     for k in range(n_steps):
         for name in fm.OP_NAMES:
             fm.run_op(fm.KERNEL_OPS, name, tb, p, SEED_KEY0, sf_k, si_k, bk,
                       k)
             fm.run_op(fm.PLAIN_OPS, name, tb, p, SEED_KEY0, sf_p, si_p, bp,
                       k)
-            if name == "nearest":
+            if name in rows:
                 sync(dev)
-                same_steps += int(torch.equal(bk.hf[5:10].view(torch.int32),
-                                              bp.hf[5:10].view(torch.int32)))
+                same_steps[name] += int(torch.equal(
+                    rows[name](bk).view(torch.int32),
+                    rows[name](bp).view(torch.int32)))
     sync(dev)
-    emit(phase="mesh_fused_parity", part="grouped_sweep_every_step",
+    emit(phase="mesh_fused_parity", part="grouped_sweeps_every_step",
          n_steps=n_steps, steps_bit_equal=same_steps,
          packed_main=bp.cnt[:, 0].tolist(),
+         packed_shadow=bp.cnt[:, 1].tolist(),
          state_bit_equal=bool(torch.equal(sf_k.view(torch.int32),
                                           sf_p.view(torch.int32))
                               and torch.equal(si_k, si_p)))
-    if same_steps != n_steps:
-        raise RuntimeError(f"the grouped nearest sweep differs from its "
-                           f"plain version on {n_steps - same_steps} steps")
+    for name, same in same_steps.items():
+        if same != n_steps:
+            raise RuntimeError(f"the grouped {name} sweep differs from its "
+                               f"plain version on {n_steps - same} steps")
 
     for stop_after in (0, 4):
         kw = dict(cap_main=caps[0], cap_shadow=caps[1],
@@ -1321,29 +1443,32 @@ def mesh_bounds(mp, r, n_main, n_shadow, near, occl) -> dict:
                  + occl["box_tests"] * SLAB_OPS,
                  n_shadow * (32 + 4) + table),
         "k2": (r * (150 + 50 * mp.n_stri + 28 * mp.n_sph), r * (100 + 76)),
-        # each packed main ray's box tests; its rays and id read once and
+        # each packed ray's box tests; its planes and id read once and
         # written once in key order (the key between the kernels is this
         # design's, not the sort's)
         "group": (n_main * mp.n_clusters * SLAB_OPS,
                   n_main * (28 + 28)),
+        "group_occl": (n_shadow * mp.n_clusters * SLAB_OPS,
+                       n_shadow * (32 + 32)),
     }
 
 
-def group_speed(tb, p, rays, ray_id, cnt, n_iters: int) -> dict:
+def group_speed(tb, p, rays, ray_id, cnt, n_iters: int, occl: bool) -> dict:
     """The grouping kernel alone (CUDA events, ms per launch: its three
     kernels; the card kept busy while the host enqueues them, and also
     back to back with the host's work between), its plain version, and
     each equal to the other."""
     from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
 
-    got = fm._group_kernel(tb, p, rays, ray_id, cnt)            # warm-up
-    ms = timed(lambda: [fm._group_kernel(tb, p, rays, ray_id, cnt)
-                        for _ in range(n_iters)], busy_ms=20.0) / n_iters
-    host_ms = timed(lambda: [fm._group_kernel(tb, p, rays, ray_id, cnt)
-                             for _ in range(n_iters)]) / n_iters
+    group = functools.partial(fm._group_kernel, tb, p, rays, ray_id, cnt,
+                              occl=occl)
+    got = group()                                               # warm-up
+    ms = timed(lambda: [group() for _ in range(n_iters)],
+               busy_ms=20.0) / n_iters
+    host_ms = timed(lambda: [group() for _ in range(n_iters)]) / n_iters
     out = {}
     plain_ms = timed(lambda: out.update(
-        want=fm.group_plain(tb, p, rays, ray_id, cnt)))
+        want=fm.group_plain(tb, p, rays, ray_id, cnt, occl=occl)))
     sync(rays.device)
     if not grouping_equal(got, out["want"], rays, ray_id, int(cnt)):
         raise RuntimeError("the grouping kernel disagrees with group_plain")
@@ -1436,12 +1561,16 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
         def launch(i):
             fm.run_op(fm.KERNEL_OPS, name, tb, p, SEED_KEY0, sf2, si2, bt, k=i)
         launch(n_iters)                                         # warm-up
-        ms = timed(lambda: [launch(i) for i in range(n_iters)]) / n_iters
+        # on the device (the card kept busy while the host enqueues the
+        # launches), and back to back with the host's work between them
+        ms = timed(lambda: [launch(i) for i in range(n_iters)],
+                   busy_ms=20.0) / n_iters
+        host_ms = timed(lambda: [launch(i) for i in range(n_iters)]) / n_iters
         bp = fm.StepBuffers(*[x.clone() for x in b])._replace(cnt=counters(1))
         plain_ms = timed(lambda: plain_out.update({name: fm.run_op(
             fm.PLAIN_OPS, name, tb, p, SEED_KEY0, sf.clone(), si.clone(),
             bp)}))
-        res[name] = dict(ms=ms, plain_ms=plain_ms)
+        res[name] = dict(ms=ms, with_host_ms=host_ms, plain_ms=plain_ms)
         if name in ("nearest", "occl"):
             occl = name == "occl"
             packed = b.sr if occl else b.mr
@@ -1454,16 +1583,17 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
                 torch.full_like(serial, mp.n_clusters))
             res[name].update(serial_triangle_tests=int(serial.sum()),
                              **tests[name])
-            if not occl:
-                # The nearest op is the grouping, then the sweep over the
-                # grouped rays: each alone, and the sweep in pack order.
-                res["group"] = group_speed(tb, p, packed, ids, cnt, n_iters)
-                g_rays, g_id, _ = fm._group_kernel(tb, p, packed, ids, cnt)
-                res[name]["pack_order_splits"] = sweep_splits(
-                    tb, p, packed, ids, cnt, want, occl, None, n_iters)
-                packed, ids = g_rays, g_id
-                res[name]["boxes_crossed_per_warp_grouped"] = crossed_counts(
-                    mp, p, packed, cnt)[1]
+            # The op is the grouping, then the sweep over the grouped
+            # rays: each alone, and the sweep in pack order.
+            group = "group_occl" if occl else "group"
+            res[group] = group_speed(tb, p, packed, ids, cnt, n_iters, occl)
+            g_rays, g_id, _ = fm._group_kernel(tb, p, packed, ids, cnt,
+                                               occl=occl)
+            res[name]["pack_order_splits"] = sweep_splits(
+                tb, p, packed, ids, cnt, want, occl, None, n_iters)
+            packed, ids = g_rays, g_id
+            res[name]["boxes_crossed_per_warp_grouped"] = crossed_counts(
+                mp, p, packed, cnt)[1]
             res[name]["splits"] = sweep_splits(
                 tb, p, packed, ids, cnt, want, occl, None, n_iters)
             res[name]["sweep_ms"] = res[name]["splits"]["default"]["ms"]
@@ -1472,7 +1602,7 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
                 occluded = int(bp.kb[8].sum())
     bounds = mesh_bounds(mp, r, n_main, n_shadow, tests["nearest"],
                          tests["occl"])
-    for name in list(fm.OP_NAMES) + ["group"]:
+    for name in list(fm.OP_NAMES) + ["group", "group_occl"]:
         ops, nbytes = bounds[name]
         t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
         res[name].update(bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -1761,7 +1891,7 @@ def mesh_fused_164k_phase(dev, cfg, n_steps=16) -> dict:
          png=save_png(img, f"mesh_fused_164k_{cfg.width}.png", 2.0))
     fmesh = launches["fused_mesh"]
     if (launches["packet"] != 0 or fmesh["nearest"] or fmesh["occl"]
-            or fmesh["group"]
+            or fmesh["group"] or fmesh["group_occl"]
             or any(fmesh[k] != steps for k in ("k1", "k1b", "k2",
                                               "nearest_sl", "occl_sl"))
             or launches["coherent"]["mask"] != 2 * steps or steps <= 0):
@@ -2563,13 +2693,14 @@ def main():
         **({"slices": msp[k]["splits"]["default"]["k"],
             "unsplit_ms": msp[k]["splits"]["unsplit"]["ms"]}
            if "splits" in msp[k] else {}),
-        **({"sweep_ms": msp[k]["sweep_ms"], "group_ms": msp["group"]["ms"],
+        **({"sweep_ms": msp[k]["sweep_ms"],
+            "group_ms": msp["group_occl" if k == "occl" else "group"]["ms"],
             "pack_order_sweep_ms":
                 msp[k]["pack_order_splits"]["default"]["ms"],
             "boxes_crossed_per_warp": msp[k]["boxes_crossed_per_warp"],
             "boxes_crossed_per_warp_grouped":
                 msp[k]["boxes_crossed_per_warp_grouped"]}
-           if k == "nearest" else {}),
+           if k in ("nearest", "occl") else {}),
         "library_ms": None} for k in MESH_TPU]
     coherent_src = "cpu_based_ray_tracer_tpu_torch/csrc/coherent.cu"
     coherent_kernels = [{
@@ -2658,6 +2789,17 @@ def main():
         "shadow_bound_ms": psp["shadow"]["bound_ms"],
         "in_render_ms": pir["ms"], "in_render_launches": pir["launches"],
         "in_render_bound_ms": pir["bound_ms"],
+        "in_render_seconds": pir["render_seconds"],
+        "in_render_chunk": pir["rays_per_launch"]["max"],
+        "in_render_chunk_sweep": pir["chunk_sweep"],
+        "chunk_16384_ms": psp["camera_16384"]["ms"],
+        "chunk_16384_bound_ms": psp["camera_16384"]["bound_ms"],
+        "boxes_crossed_per_warp": psp["camera"]["boxes_crossed_per_warp"],
+        "warp_pairs_bound_ms": psp["camera"]["warp_pairs_bound_ms"],
+        "pr7_vote_bound_ms": psp["camera"]["pr7_vote_bound_ms"],
+        "chunk_16384_pr7_vote_bound_ms":
+            psp["camera_16384"]["pr7_vote_bound_ms"],
+        "in_render_pr7_vote_bound_ms": pir["pr7_vote_bound_ms"],
         "library_ms": None}] + mesh_kernels + coherent_kernels
         + sl_kernels}), flush=True)
     print(smi, flush=True)

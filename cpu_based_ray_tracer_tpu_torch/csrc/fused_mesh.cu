@@ -9,10 +9,10 @@
 //   k1b_kernel         <- _k1b_kernel (:1142)
 //   sweep_kernel<true>  <- _mesh_occl_kernel (:943, _tri_loop_occl)
 //   k2_kernel          <- _k2_kernel (:388)
-//   group_*_kernel     the packed main rays sorted by the cluster boxes
-//                       they cross, before the resident nearest sweep (a
-//                       Hopper addition: the TPU kernel sweeps in pack
-//                       order);
+//   group_*_kernel     the packed main and shadow rays sorted by the
+//                       cluster boxes they cross, before each resident
+//                       sweep (a Hopper addition: the TPU kernels sweep
+//                       in pack order);
 //   sweep_kernel<occl> with lists <- _mesh_sl_kernel (:984), the
 //                       shortlist-streaming sweep: each 4,096-ray tile
 //                       sweeps only the clusters its list names (the lists
@@ -74,9 +74,14 @@ struct Params {
 
 namespace {
 
+using cluster_tri::crosses_box;   // the padded box cull (cluster_tri.cuh)
+using cluster_tri::split_count;   // the slices of a ray block's list
+using cluster_tri::SPLIT_MAX;
+using cluster_tri::SWEEP_WAVES;
+
 constexpr int NF = 16;            // floats per cluster triangle row (MESH_NF)
 constexpr int PACK_BLOCK = 256;   // lanes per K1/K1b block (ops/fused_mesh.py)
-constexpr int SWEEP_BLOCK = 256;  // packed rays per sweep block
+constexpr int SWEEP_BLOCK = cluster_tri::RAY_BLOCK;  // rays per sweep block
 constexpr int LIST_TILE = 4096;   // packed rays per shortlist tile
 constexpr int LANE_BLOCK = 256;   // lanes per K2 block
 constexpr int STRI_W = 16, SSPH_W = 8, MAT_W = 8, LGT_W = 16, AABB_W = 8;
@@ -160,38 +165,6 @@ __device__ bool crosses_any(const float* aabb, int n, float ox, float oy,
               ((t_out >= t_lo) && (t_in <= t_out) && (t_in <= hi_bound));
   }
   return crossed;
-}
-
-// Does the ray cross box A (min xyz, max xyz), each side pushed out by
-// 1e-4 of the box's extent plus the largest coordinate magnitude of the box
-// and of the ray's origin (o_mag), and 1e-6?  The slab test of the mask
-// pass (csrc/coherent.cu), with the line's t from min(t_min, 0) (and, for
-// a segment, up to hi_bound); the margin keeps it conservative against the
-// triangle test's rounding, so a ray that hits a triangle crosses the box.
-// The rounding of both tests grows with the coordinates' magnitude, not
-// with the box's extent (a box flat in one axis has none), so the pad
-// scales with both (ops/fused_mesh.py crosses_box_plain is the same test
-// in PyTorch).
-__device__ __forceinline__ bool crosses_box(const float* __restrict__ A,
-                                            float ox, float oy, float oz,
-                                            float o_mag, float ivx, float ivy,
-                                            float ivz, float t_lo,
-                                            float hi_bound, bool segment) {
-  const float mag = fmaxf(
-      o_mag, fmaxf(fmaxf(fmaxf(fabsf(A[0]), fabsf(A[1])),
-                         fmaxf(fabsf(A[2]), fabsf(A[3]))),
-                   fmaxf(fabsf(A[4]), fabsf(A[5]))));
-  const float mx = 1e-4f * ((A[3] - A[0]) + mag) + 1e-6f;
-  const float my = 1e-4f * ((A[4] - A[1]) + mag) + 1e-6f;
-  const float mz = 1e-4f * ((A[5] - A[2]) + mag) + 1e-6f;
-  const float tx0 = (A[0] - mx - ox) * ivx, tx1 = (A[3] + mx - ox) * ivx;
-  const float ty0 = (A[1] - my - oy) * ivy, ty1 = (A[4] + my - oy) * ivy;
-  const float tz0 = (A[2] - mz - oz) * ivz, tz1 = (A[5] + mz - oz) * ivz;
-  const float t_in = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                           fminf(tz0, tz1));
-  const float t_out = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                            fmaxf(tz0, tz1));
-  return (t_out >= t_lo) && (t_in <= t_out) && (!segment || t_in <= hi_bound);
 }
 
 // Stable block-level pack: the slot of a predicate lane (the block's base
@@ -360,20 +333,6 @@ k1_kernel(const Params p, const float* __restrict__ tables,
 // The occlusion sweep leaves the list once every ray of the block is
 // occluded (the barrier's OR of the rays still open).
 
-constexpr int SPLIT_MAX = 16;   // most list slices per ray block
-// Block slots the slices fill: the card's resident sweep blocks times this
-// (1, 2, 4 and 8 measured; 8 the fastest on the 164k cell).
-constexpr int SWEEP_WAVES = 8;
-
-// Slices per ray block: ceil(target / ray blocks), clamped to [1, k_max].
-__host__ __device__ __forceinline__ int split_count(int n, int target,
-                                                    int k_max) {
-  const int nb = (n + SWEEP_BLOCK - 1) / SWEEP_BLOCK;
-  if (nb <= 0) return 1;
-  const int k = (target + nb - 1) / nb;
-  return k < 1 ? 1 : (k > k_max ? k_max : k);
-}
-
 // The nearest result of row `slot` of tri (-1: no hit) into out at `lane`.
 __device__ __forceinline__ void write_nearest(const float* __restrict__ tri,
                                               float* __restrict__ out, int R,
@@ -427,7 +386,6 @@ sweep_kernel(const Params p, const float* __restrict__ tri,
              int target, int k_max, int* part, int* __restrict__ tickets,
              float* __restrict__ out) {
   extern __shared__ float4 tile4[];
-  __shared__ int last;
   const int n = min(*cnt, cap);
   const int rb = blockIdx.x / k_max, k = blockIdx.x - rb * k_max;
   const int i0 = rb * SWEEP_BLOCK;
@@ -458,58 +416,38 @@ sweep_kernel(const Params p, const float* __restrict__ tri,
   const float o_mag = fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
   const float t_lo = fminf(p.t_min, 0.0f);
   const float hi_bound = OCCL ? lim * 1.000001f + 1e-5f : 0.0f;
-  // The next position at or after q in the slice whose cluster box a ray
-  // of the block that still needs testing crosses (j1: none), and whether
-  // this lane's ray crosses it.  One barrier a probe.
-  auto seek = [&](int q, bool& mine) {
-    if (OCCL && !__syncthreads_or(live && !occ)) return j1;
-    for (; q < j1; ++q) {
-      mine = live && !(OCCL && occ) &&
-             crosses_box(aabb + (size_t)(list ? list[q] : q) * AABB_W, ox,
-                         oy, oz, o_mag, ivx, ivy, ivz, t_lo, hi_bound, OCCL);
-      if (__syncthreads_or(mine)) return q;
-    }
-    return j1;
-  };
   const int words4 = p.cs * NF / 4;
-  int cur = 0;   // the buffer cluster j is staged in
-  bool mine = false;
-  int j = seek(j0, mine);
-  if (j < j1)
-    cluster_tri::stage_cluster_async(tile4, tri, list ? list[j] : j, words4);
-  while (j < j1) {
-    // another slice found this ray's occluder
-    if (OCCL && K > 1 && live && !occ && __ldcg(part + i)) occ = true;
-    cluster_tri::wait_staged();   // this thread's copies of cluster j
-    // Every copy of cluster j has landed, and the other buffer is no longer
-    // read: it takes the next cluster a ray of the block needs.
-    __syncthreads();
-    bool mine_next = false;
-    const int jn = seek(j + 1, mine_next);
-    if (jn < j1)
-      cluster_tri::stage_cluster_async(tile4 + (cur ^ 1) * words4, tri,
-                                       list ? list[jn] : jn, words4);
-    // A warp none of whose rays crosses the cluster's box skips it; the
-    // box test is conservative, as the lists' own (every ray that hits a
-    // triangle crosses its cluster's box), so the results stay the
-    // unculled sweep's.
-    const bool test = live && !(OCCL && occ);
-    if (__any_sync(0xffffffffu, mine) && test) {
-      const float* tile = reinterpret_cast<const float*>(tile4 + cur * words4);
-      if (OCCL) {
-        occ = cluster_tri::occluded_rows(tile, p.cs, ox, oy, oz, dx, dy, dz,
-                                         lim, p.t_min);
-        if (occ && K > 1) __stcg(part + i, 1);
-      } else {
-        const int kk = cluster_tri::nearest_rows(tile, p.cs, ox, oy, oz, dx,
-                                                 dy, dz, p.t_min, best_t);
-        if (kk >= 0) slot = (list ? list[j] : j) * p.cs + kk;
-      }
-    }
-    j = jn;
-    mine = mine_next;
-    cur ^= 1;
-  }
+  auto cluster = [&](int q) { return list ? list[q] : q; };
+  cluster_tri::walk_slice<OCCL>(
+      tile4, tri, words4, j0, j1,
+      [&] {
+        // another slice found this ray's occluder
+        if (K > 1 && live && !occ && __ldcg(part + i)) occ = true;
+        return live && !occ;
+      },
+      [&](int q) {
+        return live && !(OCCL && occ) &&
+               crosses_box(aabb + (size_t)cluster(q) * AABB_W, ox, oy, oz,
+                           o_mag, ivx, ivy, ivz, t_lo, hi_bound, OCCL);
+      },
+      cluster,
+      [&](int j, const float* tile, bool mine) {
+        // A warp none of whose rays crosses the cluster's box skips it;
+        // the box test is conservative, as the lists' own (every ray that
+        // hits a triangle crosses its cluster's box), so the results stay
+        // the unculled sweep's.
+        if (!__any_sync(0xffffffffu, mine) || !live || (OCCL && occ)) return;
+        if (OCCL) {
+          occ = cluster_tri::occluded_rows(tile, p.cs, ox, oy, oz, dx, dy,
+                                           dz, lim, p.t_min);
+          if (occ && K > 1) __stcg(part + i, 1);
+        } else {
+          const int kk = cluster_tri::nearest_rows(tile, p.cs, ox, oy, oz,
+                                                   dx, dy, dz, p.t_min,
+                                                   best_t);
+          if (kk >= 0) slot = cluster(j) * p.cs + kk;
+        }
+      });
   if (K == 1) {
     if (!live) return;
     if (OCCL)
@@ -522,27 +460,27 @@ sweep_kernel(const Params p, const float* __restrict__ tri,
     part[(size_t)(2 * k) * cap + i] = __float_as_int(best_t);
     part[(size_t)(2 * k + 1) * cap + i] = slot;
   }
-  __threadfence();     // the partials are visible before the ticket
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(tickets + rb, 1) == K - 1;
-  __syncthreads();
-  if (last && live) combine_ray<OCCL>(p, tri, ray_id, cap, K, part, out, i);
+  if (cluster_tri::last_slice(tickets, rb, K) && live)
+    combine_ray<OCCL>(p, tri, ray_id, cap, K, part, out, i);
 }
 
-// --- grouping the packed main rays by the cluster boxes they cross --------
+// --- grouping the packed rays by the cluster boxes they cross -------------
 //
-// Before the resident nearest sweep, the packed rays are sorted by a key of
-// the boxes each crosses (bit c % GROUP_BITS for cluster c, the sweep's own
-// padded crosses_box over the unbounded line), so that the 32 rays of a
-// warp cross the same few boxes and the sweep's per-warp cull skips the
-// rest.  A counting sort on the device: group_key_kernel computes the keys
-// and their histogram (per block in shared memory, then added to the
-// global one), group_scan_kernel turns the histogram into each key's first
-// position, group_scatter_kernel moves the (6, cap) rays and their lane
-// ids there (one atomicAdd per key per warp, __match_any_sync).  The order
-// inside a key is the atomics', so it varies from run to run: the sweep
-// writes by lane id, and a ray's tests do not depend on the warp that runs
-// them, so every order gives the same results.
+// Before each resident sweep, the packed rays are sorted by a key of the
+// boxes each crosses (bit c % GROUP_BITS for cluster c, the sweep's own
+// padded crosses_box: over the unbounded line for the main rays, over the
+// segment up to lim for the shadow rays), so that the 32 rays of a warp
+// cross the same few boxes and the sweep's per-warp cull skips the rest.
+// A counting sort on the device: group_key_kernel computes the keys and
+// their histogram (per block in shared memory, then added to the global
+// one), group_scan_kernel turns the histogram into each key's first
+// position, group_scatter_kernel moves the (6, cap) main or (7, cap)
+// shadow rays and their lane ids there (one atomicAdd per key per warp,
+// __match_any_sync).  The order inside a key is the atomics', so it varies
+// from run to run: the sweeps write by lane id, and a ray's tests do not
+// depend on the warp that runs them (an occluded ray stops at its own
+// first occluder, in cluster order), so every order gives the same
+// results.
 
 constexpr int GROUP_BITS = 12;
 constexpr int GROUP_KEYS = 1 << GROUP_BITS;
@@ -555,6 +493,7 @@ __host__ __device__ __forceinline__ int group_keys(int n_clusters) {
 constexpr int GROUP_BLOCK = 256;
 constexpr int SCAN_THREADS = 1024;
 
+template <bool OCCL>
 __global__ void __launch_bounds__(GROUP_BLOCK)
 group_key_kernel(const Params p, const float* __restrict__ aabb,
                  const float* __restrict__ rays, int cap,
@@ -573,10 +512,13 @@ group_key_kernel(const Params p, const float* __restrict__ aabb,
     const float ivz = sinv(rays[5 * cap + i]);
     const float o_mag = fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz));
     const float t_lo = fminf(p.t_min, 0.0f);
+    // the sweep's own terms (sweep_kernel)
+    const float hi_bound =
+        OCCL ? rays[6 * cap + i] * 1.000001f + 1e-5f : 0.0f;
     int key = 0;
     for (int c = 0; c < p.n_clusters; ++c)
       if (crosses_box(aabb + (size_t)c * AABB_W, ox, oy, oz, o_mag, ivx, ivy,
-                      ivz, t_lo, 0.0f, false))
+                      ivz, t_lo, hi_bound, OCCL))
         key |= 1 << (c % GROUP_BITS);
     keys[i] = key;
     atomicAdd(h + key, 1);
@@ -622,7 +564,7 @@ group_scan_kernel(int* __restrict__ hist, int n_keys) {
 }
 
 __global__ void __launch_bounds__(GROUP_BLOCK)
-group_scatter_kernel(const float* __restrict__ rays,
+group_scatter_kernel(const float* __restrict__ rays, int n_planes,
                      const int* __restrict__ ray_id, int cap,
                      const int* __restrict__ cnt,
                      const int* __restrict__ keys, int* __restrict__ cursor,
@@ -638,7 +580,7 @@ group_scatter_kernel(const float* __restrict__ rays,
   if (lane == leader) base = atomicAdd(cursor + key, __popc(peers));
   base = __shfl_sync(peers, base, leader);
   const int pos = base + __popc(peers & ((1u << lane) - 1u));
-  for (int k = 0; k < 6; ++k)
+  for (int k = 0; k < n_planes; ++k)
     g_rays[(size_t)k * cap + pos] = rays[(size_t)k * cap + i];
   g_id[pos] = ray_id[i];
 }
@@ -1037,17 +979,21 @@ int sweep(const Params* p, const float* tri, const float* aabb,
   return (int)cudaGetLastError();
 }
 
-int group(const Params* p, const float* aabb, const float* rays,
+int group(const Params* p, bool occl, const float* aabb, const float* rays,
           const int* ray_id, int cap, const int* cnt, int* keys, int* hist,
           float* g_rays, int* g_id, cudaStream_t stream) {
   if (cap <= 0 || p->n_clusters <= 0) return (int)cudaErrorInvalidValue;
   const int blocks = (cap + GROUP_BLOCK - 1) / GROUP_BLOCK;
-  group_key_kernel<<<blocks, GROUP_BLOCK, 0, stream>>>(*p, aabb, rays, cap,
-                                                       cnt, keys, hist);
+  if (occl)
+    group_key_kernel<true><<<blocks, GROUP_BLOCK, 0, stream>>>(
+        *p, aabb, rays, cap, cnt, keys, hist);
+  else
+    group_key_kernel<false><<<blocks, GROUP_BLOCK, 0, stream>>>(
+        *p, aabb, rays, cap, cnt, keys, hist);
   group_scan_kernel<<<1, SCAN_THREADS, 0, stream>>>(
       hist, group_keys(p->n_clusters));
   group_scatter_kernel<<<blocks, GROUP_BLOCK, 0, stream>>>(
-      rays, ray_id, cap, cnt, keys, hist, g_rays, g_id);
+      rays, occl ? 7 : 6, ray_id, cap, cnt, keys, hist, g_rays, g_id);
   return (int)cudaGetLastError();
 }
 
@@ -1081,8 +1027,8 @@ extern "C" int fused_mesh_k1(const Params* p, const float* tables,
 // null: every cluster; else the shortlists, ids (cap / 4096, n_clusters)
 // and cnts (cap / 4096,), cap a whole number of tiles.  k_max (1 to 16)
 // bounds the list slices per ray block; part (2 k_max cap i32 nearest; cap
-// i32 occlusion, zero) and tickets (ray blocks i32, zero) are scratch for
-// k_max > 1.
+// i32 occlusion, zero) and tickets (ray blocks i32, zero, left zero) are
+// scratch for k_max > 1.
 extern "C" int fused_mesh_sweep(const Params* p, int occl, const float* tri,
                                 const float* aabb, const float* rays,
                                 const int* ray_id, int cap, const int* cnt,
@@ -1104,19 +1050,20 @@ extern "C" int fused_mesh_sweep_slots(int occl, int cs, int* out) {
                     : sweep_slots<false>(cs, out, out + 1));
 }
 
-// The grouping of the first min(*cnt, cap) packed main rays (6, cap) [o d]
-// and their lane ids by the boxes of the n_clusters cluster boxes aabb
-// (n_clusters, 8) they cross: keys (cap,) i32 in pack order; hist
-// (GROUP_KEYS,) i32, zero (GROUP_BITS is ops/fused_mesh.py's too), left
-// holding each key's first position plus its count; g_rays (6, cap) and
-// g_id (cap,) the rays and ids in key order.
-// Three launches.
-extern "C" int fused_mesh_group(const Params* p, const float* aabb,
+// The grouping of the first min(*cnt, cap) packed rays and their lane ids
+// by the boxes of the n_clusters cluster boxes aabb (n_clusters, 8) they
+// cross: occl 0, the main rays (6, cap) [o d] over the unbounded line;
+// occl 1, the shadow rays (7, cap) [p w_l lim] over the segment up to lim.
+// keys (cap,) i32 in pack order; hist (GROUP_KEYS,) i32, zero (GROUP_BITS
+// is ops/fused_mesh.py's too), left holding each key's first position plus
+// its count; g_rays (6 or 7, cap) and g_id (cap,) the rays and ids in key
+// order.  Three launches.
+extern "C" int fused_mesh_group(const Params* p, int occl, const float* aabb,
                                 const float* rays, const int* ray_id, int cap,
                                 const int* cnt, int* keys, int* hist,
                                 float* g_rays, int* g_id, void* stream) {
-  return group(p, aabb, rays, ray_id, cap, cnt, keys, hist, g_rays, g_id,
-               (cudaStream_t)stream);
+  return group(p, occl != 0, aabb, rays, ray_id, cap, cnt, keys, hist, g_rays,
+               g_id, (cudaStream_t)stream);
 }
 
 // K1b: reads sf rows 0-5, si (4, R) rows 0-1 and hf; writes kb (9, R),

@@ -89,10 +89,10 @@ SMEM_RESIDENT_BUDGET = 736 * 1024
 
 # Launches of csrc/fused_mesh.cu since the last reset (callers set them to
 # 0), by entry point; "nearest_sl" and "occl_sl" are the shortlist sweeps.
-LAUNCHES = {"k1": 0, "group": 0, "nearest": 0, "k1b": 0, "occl": 0,
-            "k2": 0, "nearest_sl": 0, "occl_sl": 0}
-# Bits of the key by which the resident nearest sweep's rays are grouped:
-# cluster c sets bit c % GROUP_BITS (csrc/fused_mesh.cu GROUP_BITS).
+LAUNCHES = {"k1": 0, "group": 0, "nearest": 0, "k1b": 0, "group_occl": 0,
+            "occl": 0, "k2": 0, "nearest_sl": 0, "occl_sl": 0}
+# Bits of the key by which the resident sweeps' rays are grouped: cluster c
+# sets bit c % GROUP_BITS (csrc/fused_mesh.cu GROUP_BITS).
 GROUP_BITS = 12
 
 # One record per chunk of the last render_turbo_mesh(_exact) call: the
@@ -642,24 +642,27 @@ def crosses_box_plain(aabb, rays, t_min: float, *, occl: bool):
     return crossed
 
 
-def group_keys_plain(aabb, rays, t_min: float):
-    """The grouping key of each ray of rays (6, n): bit c % GROUP_BITS set
-    where the ray crosses cluster c's padded box (``crosses_box_plain``
-    over the unbounded line) -> (n,) i64."""
-    crossed = crosses_box_plain(aabb, rays, t_min, occl=False)
+def group_keys_plain(aabb, rays, t_min: float, *, occl: bool = False):
+    """The grouping key of each ray of rays (6 or 7, n): bit c % GROUP_BITS
+    set where the ray crosses cluster c's padded box (``crosses_box_plain``
+    over the unbounded line; occl, the shadow rays: over the segment up to
+    lim) -> (n,) i64."""
+    crossed = crosses_box_plain(aabb, rays, t_min, occl=occl)
     key = torch.zeros((rays.shape[1],), dtype=torch.int64, device=rays.device)
     for c in range(crossed.shape[0]):
         key |= crossed[c].to(torch.int64) << (c % GROUP_BITS)
     return key
 
 
-def group_plain(tb: _Tables, p: _Params, rays, ray_id, cnt):
-    """The grouping of the first min(cnt, cap) packed main rays (6, cap)
-    and their lane ids (cap,) by ``group_keys_plain``: a stable sort by
-    key.  Returns (grouped rays, grouped ids, the keys (n,) in pack order);
-    past the n rays the buffers are copies of the input's."""
+def group_plain(tb: _Tables, p: _Params, rays, ray_id, cnt, *,
+                occl: bool = False):
+    """The grouping of the first min(cnt, cap) packed main rays (6, cap),
+    or shadow rays (7, cap) with ``occl``, and their lane ids (cap,) by
+    ``group_keys_plain``: a stable sort by key.  Returns (grouped rays,
+    grouped ids, the keys (n,) in pack order); past the n rays the buffers
+    are copies of the input's."""
     n = min(int(cnt), rays.shape[1])
-    keys = group_keys_plain(tb.mp.smc_aabb, rays[:, :n], p.t_min)
+    keys = group_keys_plain(tb.mp.smc_aabb, rays[:, :n], p.t_min, occl=occl)
     order = torch.sort(keys, stable=True).indices
     g_rays, g_id = rays.clone(), ray_id.clone()
     g_rays[:, :n] = rays[:, order]
@@ -789,18 +792,18 @@ def _k2_plain(tb: _Tables, p: _Params, seed, kb, sf, si):
     si[3] += alive.to(torch.int32)
 
 
-def _nearest_plain(tb, p, rays, ray_id, cnt, out):
-    """The resident nearest sweep over the rays grouped by ``group_plain``
-    (the kernels' order), as ``_sweep_plain``; the triangle tests are
-    returned in pack order."""
-    g_rays, g_id, keys = group_plain(tb, p, rays, ray_id, cnt)
-    tests = _sweep_plain(tb, p, g_rays, g_id, cnt, out, occl=False)
+def _grouped_sweep_plain(tb, p, rays, ray_id, cnt, out, *, occl: bool):
+    """A resident sweep over the rays grouped by ``group_plain`` (the
+    kernels' order), as ``_sweep_plain``; the triangle tests are returned
+    in pack order."""
+    g_rays, g_id, keys = group_plain(tb, p, rays, ray_id, cnt, occl=occl)
+    tests = _sweep_plain(tb, p, g_rays, g_id, cnt, out, occl=occl)
     order = torch.sort(keys, stable=True).indices
     return torch.empty_like(tests).index_copy_(0, order, tests)
 
 
-def _occl_plain(tb, p, rays, ray_id, cnt, out):
-    return _sweep_plain(tb, p, rays, ray_id, cnt, out, occl=True)
+_nearest_plain = functools.partial(_grouped_sweep_plain, occl=False)
+_occl_plain = functools.partial(_grouped_sweep_plain, occl=True)
 
 
 # --- the kernels -------------------------------------------------------------
@@ -828,9 +831,10 @@ _SIGNATURES = {
                          + [_P] * 3 + [ctypes.c_int] + [_P] * 4),
     # (occl, cs, out)
     "fused_mesh_sweep_slots": [ctypes.c_int, ctypes.c_int, _P],
-    # (params, aabb, rays, ray_id, cap, cnt, keys, hist, g_rays, g_id,
-    #  stream)
-    "fused_mesh_group": [_P] * 4 + [ctypes.c_int] + [_P] * 6,
+    # (params, occl, aabb, rays, ray_id, cap, cnt, keys, hist, g_rays,
+    #  g_id, stream)
+    "fused_mesh_group": ([_P, ctypes.c_int] + [_P] * 3 + [ctypes.c_int]
+                         + [_P] * 6),
     # (params, tables, sf, si, hf, kb, sr, sr_id, offs, cnt, stream)
     "fused_mesh_k1b": [_P] * 11,
     # (params, tables, kb, sf, si, stream)
@@ -965,7 +969,8 @@ def _sweep_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
             out.data_ptr(), _stream(rays))
 
 
-def _group_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt):
+def _group_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, *,
+                  occl: bool = False):
     """Launch the grouping (csrc/fused_mesh.cu, three kernels) on CUDA
     tensors: as ``group_plain``, but the order inside a key is the
     atomics'.  Returns (grouped rays, grouped ids, the keys (cap,) i32 in
@@ -974,7 +979,7 @@ def _group_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt):
                                     rays=(rays, _F), ray_id=(ray_id, _I),
                                     cnt=(cnt, _I)))
     cap = rays.shape[1]
-    _plane_rows(rays, 6, cap, "rays")
+    _plane_rows(rays, 7 if occl else 6, cap, "rays")
     if (ray_id.shape != (cap,)
             or tb.mp.smc_aabb.shape != (tb.mp.n_clusters, 8)):
         raise ValueError("bad id buffer or cluster box table shape")
@@ -984,23 +989,23 @@ def _group_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt):
     g_rays = torch.empty_like(rays)
     g_id = torch.empty_like(ray_id)
     cp = _cparams(tb, p, 0, cap)
-    _launch("fused_mesh_group", "group", ctypes.byref(cp),
+    _launch("fused_mesh_group", "group_occl" if occl else "group",
+            ctypes.byref(cp), int(occl),
             tb.mp.smc_aabb.data_ptr(), rays.data_ptr(), ray_id.data_ptr(),
             cap, cnt.data_ptr(), keys.data_ptr(), hist.data_ptr(),
             g_rays.data_ptr(), g_id.data_ptr(), _stream(rays))
     return g_rays, g_id, keys
 
 
-def _nearest_kernel(tb, p, rays, ray_id, cnt, out):
-    """Group the packed rays, then launch the nearest sweep over them, on
-    CUDA tensors; as ``_nearest_plain``."""
-    g_rays, g_id, _ = _group_kernel(tb, p, rays, ray_id, cnt)
-    _sweep_kernel(tb, p, g_rays, g_id, cnt, out, occl=False)
+def _grouped_sweep_kernel(tb, p, rays, ray_id, cnt, out, *, occl: bool):
+    """Group the packed rays, then launch the resident sweep over them, on
+    CUDA tensors; as ``_grouped_sweep_plain``."""
+    g_rays, g_id, _ = _group_kernel(tb, p, rays, ray_id, cnt, occl=occl)
+    _sweep_kernel(tb, p, g_rays, g_id, cnt, out, occl=occl)
 
 
-def _occl_kernel(tb, p, rays, ray_id, cnt, out):
-    """Launch the occlusion sweep on CUDA tensors; as ``_sweep_plain``."""
-    _sweep_kernel(tb, p, rays, ray_id, cnt, out, occl=True)
+_nearest_kernel = functools.partial(_grouped_sweep_kernel, occl=False)
+_occl_kernel = functools.partial(_grouped_sweep_kernel, occl=True)
 
 
 def _lists(tb: _Tables, p: _Params, rays, cnt, kernel: bool):

@@ -1,28 +1,32 @@
-"""Packet-culled mesh intersector (port of
+"""Cluster-culled mesh intersector (port of
 ``cpu_based_ray_tracer_tpu.ops.packet``).
 
 Host side, the triangles are partitioned into spatial clusters (the leaves
 of the median-split BVH, ``ops.bvh``, with leaf size CS), each padded to
 exactly CS never-hit triangles and stored contiguously beside its AABB.
-The intersector walks the clusters in order for each block of rays: a slab
-test of the cluster's AABB against every ray of the block decides by vote
-whether ANY ray of the block can hit the cluster, and only then does the
-block run Moller-Trumbore over the cluster's CS triangles.  Within a
-cluster the lowest row at the minimum t wins; across clusters a cluster
-replaces the best hit only when strictly nearer.  The winner's slot
-(cluster * CS + row) maps to the original triangle index through
-``tri_id``; -1 on a miss.
+A ray runs Moller-Trumbore over the CS triangles of every cluster whose
+padded AABB it crosses (``ops.fused_mesh.crosses_box_plain``: every side
+pushed out by a margin that grows with the coordinates' magnitude, so a
+ray that hits a triangle crosses its cluster's box).  Within a cluster the
+lowest row at the minimum t wins; across clusters a cluster replaces the
+best hit only when strictly nearer.  The winner's slot (cluster * CS +
+row) maps to the original triangle index through ``tri_id``; -1 on a miss.
 
-- ``csrc/packet.cu`` is the kernel (CUDA C++ for sm_90a, one CUDA block per
-  ray block, the vote by ``__syncthreads_or``); ``nearest`` launches it for
-  CUDA tensors.
+The JAX kernel culls by a vote of 256-ray blocks on the unpadded boxes,
+nearer than each ray's best hit so far; its result is the same nearest
+hit, since no cull drops a triangle a ray hits.  Here the set of clusters
+a ray tests depends on the ray alone, so the kernel may cut the cluster
+list into slices swept by blocks of their own and cull per warp and still
+give the plain version's bits.
+
+- ``csrc/packet.cu`` is the kernel (CUDA C++ for sm_90a: work items of a
+  256-ray block and a slice of the clusters, enough to fill the card
+  whatever the ray count; crossed clusters staged by ``cp.async`` into a
+  double buffer; a warp none of whose rays crosses a cluster skips it);
+  ``nearest`` launches it for CUDA tensors.
 - ``nearest_plain`` is the same cluster loop in PyTorch, vectorized over
-  the rays of the passing blocks and chunked so that a pass over 802,816
-  rays fits in memory.  ``nearest`` runs it for CPU tensors only.
-
-The JAX kernel pads the cluster list to whole blocks of 64 clusters with
-inverted AABBs; the CUDA kernel loops over exactly C clusters instead, and
-rays past R (the last block's tail) take no part in the vote.
+  the rays that cross each cluster's box and chunked so that a pass over
+  802,816 rays fits in memory.  ``nearest`` runs it for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -34,19 +38,26 @@ import numpy as np
 import torch
 
 from cpu_based_ray_tracer_tpu_torch.ops import bvh as bvh_ops
+from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
 
 _DET_EPS = 1e-12
 NO_HIT = float(np.finfo(np.float32).max)
 
 # Rays per block: one CUDA block of this many threads (BLOCK in
-# csrc/packet.cu), and the unit of the cull vote in both versions.
+# csrc/packet.cu), and the unit of the JAX kernel's cull vote, by which
+# ``nearest_plain(return_passes=True)`` counts the work of that cull.
 BLOCK = 256
 # Rays per vectorized step of the plain version.
 _PLAIN_CHUNK = 65536
 
 # Launches of csrc/packet.cu since the last reset (callers set it to 0).
 LAUNCHES = 0
+# (device index, cluster size) -> the kernel's resident block slots on it.
+_SLOTS: dict = {}
+# (device index, stream) -> the launches' tickets, zero between launches
+# (the kernel's last block of a ray block sets its ticket back to 0).
+_TICKETS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,17 +127,17 @@ def nearest_plain(clusters: Clusters, origin, direction, t_min: float = 0.0,
                   *, return_passes: bool = False):
     """The plain PyTorch version of ``nearest`` on the device the rays lie
     on -> (t (R,), index (R,) i32).  ``return_passes``: also return the
-    number of (ray block, cluster) pairs whose vote passed, the work the
-    kernel does Moller-Trumbore on."""
+    work of the JAX kernel's cull, the number of (256-ray block, cluster)
+    pairs where a ray of the block crosses the unpadded box nearer than
+    its best hit so far, for speed bounds only."""
     where = torch.where
     o = origin.to(torch.float32)
     d = direction.to(torch.float32)
     dev = o.device
     r = o.shape[0]
-    nb = -(-max(r, 1) // BLOCK)
+    rays = torch.cat([o.T, d.T])                                  # (6, R)
     ox, oy, oz = o.unbind(1)
     dx, dy, dz = d.unbind(1)
-    ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
     best_t = torch.full((r,), NO_HIT, dtype=torch.float32, device=dev)
     best_slot = torch.full((r,), -1, dtype=torch.int64, device=dev)
     aabb = clusters.aabb.to(dev)
@@ -135,31 +146,17 @@ def nearest_plain(clusters: Clusters, origin, direction, t_min: float = 0.0,
     rows = torch.arange(cs, device=dev)[:, None]
     n_pass = 0
     for c in range(clusters.n_clusters):
-        bx0, by0, bz0, bx1, by1, bz1 = aabb[c, :6].unbind(0)
-        tx0, tx1 = (bx0 - ox) * ix, (bx1 - ox) * ix
-        ty0, ty1 = (by0 - oy) * iy, (by1 - oy) * iy
-        tz0, tz1 = (bz0 - oz) * iz, (bz1 - oz) * iz
-        t_in = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
-                                           torch.minimum(ty0, ty1)),
-                             torch.minimum(tz0, tz1))
-        t_out = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
-                                            torch.maximum(ty0, ty1)),
-                              torch.maximum(tz0, tz1))
-        live = (t_out >= 0.0) & (t_in <= t_out) & (t_in <= best_t)
-        votes = torch.zeros((nb * BLOCK,), dtype=torch.bool, device=dev)
-        votes[:r] = live
-        votes = votes.view(nb, BLOCK).any(1)
-        n_blocks = int(votes.sum())
-        if n_blocks == 0:
-            continue
-        n_pass += n_blocks
-        rays = torch.nonzero(votes.repeat_interleave(BLOCK)[:r])[:, 0]
+        if return_passes:
+            n_pass += _votes(aabb[c], o, d, best_t)
+        crossed = fused_mesh.crosses_box_plain(aabb[c:c + 1], rays, t_min,
+                                               occl=False)[0]
+        ray_ids = torch.nonzero(crossed)[:, 0]
         tb = tri[c]
         v0x, v0y, v0z = tb[:, 0:1], tb[:, 1:2], tb[:, 2:3]       # (CS, 1)
         e1x, e1y, e1z = tb[:, 3:4], tb[:, 4:5], tb[:, 5:6]
         e2x, e2y, e2z = tb[:, 6:7], tb[:, 7:8], tb[:, 8:9]
-        for k in range(0, rays.shape[0], _PLAIN_CHUNK):
-            j = rays[k:k + _PLAIN_CHUNK]
+        for k in range(0, ray_ids.shape[0], _PLAIN_CHUNK):
+            j = ray_ids[k:k + _PLAIN_CHUNK]
             rox, roy, roz = ox[j][None], oy[j][None], oz[j][None]  # (1, n)
             rdx, rdy, rdz = dx[j][None], dy[j][None], dz[j][None]
             s1x = rdy * e2z - rdz * e2y
@@ -188,23 +185,77 @@ def nearest_plain(clusters: Clusters, origin, direction, t_min: float = 0.0,
     return out + (n_pass,) if return_passes else out
 
 
+def _votes(box, o, d, best_t) -> int:
+    """The (256-ray block, cluster) pairs of the JAX kernel's cull for one
+    cluster box: a block passes where one of its rays crosses the
+    unpadded box no farther than its best hit so far."""
+    ix, iy, iz = (_safe_inv(v) for v in d.unbind(1))
+    ox, oy, oz = o.unbind(1)
+    bx0, by0, bz0, bx1, by1, bz1 = box[:6].unbind(0)
+    tx0, tx1 = (bx0 - ox) * ix, (bx1 - ox) * ix
+    ty0, ty1 = (by0 - oy) * iy, (by1 - oy) * iy
+    tz0, tz1 = (bz0 - oz) * iz, (bz1 - oz) * iz
+    t_in = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                       torch.minimum(ty0, ty1)),
+                         torch.minimum(tz0, tz1))
+    t_out = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                        torch.maximum(ty0, ty1)),
+                          torch.maximum(tz0, tz1))
+    live = (t_out >= 0.0) & (t_in <= t_out) & (t_in <= best_t)
+    nb = -(-max(o.shape[0], 1) // BLOCK)
+    votes = torch.zeros((nb * BLOCK,), dtype=torch.bool, device=o.device)
+    votes[:o.shape[0]] = live
+    return int(votes.view(nb, BLOCK).any(1).sum())
+
+
 # --- the kernel -------------------------------------------------------------
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # aabb tri id
-             ctypes.c_int, ctypes.c_int,                          # C CS
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,      # o d R
-             ctypes.c_float,                                      # t_min
-             ctypes.c_void_p, ctypes.c_void_p,                    # t idx
-             ctypes.c_void_p]                                     # stream
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (aabb, tri, tri_id, C, CS, o, d, R, t_min, K, part, tickets, t, idx,
+    #  stream)
+    "packet_nearest": ([_P] * 3 + [ctypes.c_int] * 2 + [_P] * 2
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+                       + [_P] * 5),
+    # (cs, out)
+    "packet_slots": [ctypes.c_int, _P],
+}
 
 
-def _lib():
-    lib = kernels.load("packet")
-    fn = lib.packet_nearest
+def _fn(name: str):
+    fn = getattr(kernels.load("packet"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _SIGNATURES[name]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def slices(r: int, n_clusters: int, cs: int) -> int:
+    """The cluster slices K a launch over r rays takes on the current card
+    (``fused_mesh.split_count``'s rule: enough (256-ray block, slice) work
+    items to fill ``fused_mesh.SWEEP_WAVES`` times the kernel's resident
+    blocks, at most ``fused_mesh.SPLIT_MAX`` and the cluster count)."""
+    key = (torch.cuda.current_device(), cs)
+    if key not in _SLOTS:
+        out = (ctypes.c_int * 2)()
+        rc = _fn("packet_slots")(cs, ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError(f"packet_slots failed: cudaError {rc}")
+        _SLOTS[key] = out[0] * out[1]
+    k_max = max(1, min(fused_mesh.SPLIT_MAX, n_clusters))
+    return fused_mesh.split_count(r, _SLOTS[key] * fused_mesh.SWEEP_WAVES,
+                                  k_max)
+
+
+def _tickets(n: int, stream) -> torch.Tensor:
+    """n zero tickets for a launch on ``stream``, from a buffer kept for
+    the stream (the launches on one stream run one after another)."""
+    key = (stream.device.index, stream.cuda_stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.shape[0] < n:
+        buf = _TICKETS[key] = torch.zeros((n,), dtype=torch.int32,
+                                          device=stream.device)
+    return buf
 
 
 def _nearest_kernel(clusters: Clusters, origin, direction, t_min: float):
@@ -232,11 +283,18 @@ def _nearest_kernel(clusters: Clusters, origin, direction, t_min: float):
     idx = torch.empty((r,), dtype=torch.int32, device=dev)
     if r == 0:
         return t, idx
-    rc = _lib().packet_nearest(
+    stream = torch.cuda.current_stream(dev)
+    k = slices(r, c, cs)
+    part = tickets = None
+    if k > 1:
+        part = torch.empty((2 * k * r,), dtype=torch.int32, device=dev)
+        tickets = _tickets(-(-r // BLOCK), stream)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    rc = _fn("packet_nearest")(
         aabb.data_ptr(), tri.data_ptr(), tri_id.data_ptr(),
         c, cs, o.data_ptr(), d.data_ptr(), r,
-        float(t_min), t.data_ptr(), idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(t_min), k, ptr(part), ptr(tickets), t.data_ptr(),
+        idx.data_ptr(), stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"packet kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

@@ -135,6 +135,58 @@ def test_packet_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got_t[hit], want_t[hit], rtol=1e-6, atol=0)
 
 
+def _packet_clusters(n_clusters, device):
+    """Cluster sets of 1 (icosphere(1), 80 triangles in one cluster of
+    128), 28 (the first 524 triangles of icosphere(4), clusters of 32:
+    fewer than two slices a cluster at 16 slices) and 256 (icosphere(4)
+    and a torus, 8,192 triangles in clusters of 32) clusters."""
+    if n_clusters == 1:
+        tris, cs = meshes.icosphere(1), 128
+    elif n_clusters == 28:
+        tris, cs = meshes.icosphere(4)[:524], 32
+    else:
+        tris = np.concatenate([meshes.icosphere(4),
+                               meshes.torus(1.5, 0.4, 48, 32)])
+        cs = 32
+    cl = packet.build_clusters(tris, cs, device=device)
+    assert cl.n_clusters == n_clusters
+    return cl
+
+
+@pytest.mark.parametrize("n_clusters", [1, 28, 256])
+@pytest.mark.parametrize("r", [1, 255, 16384, 65536])
+def test_packet_kernel_slices_match_plain(cuda, r, n_clusters):
+    """The kernel at ray counts from one ray to 65,536 (16 cluster slices
+    at 16,384 rays, fewer at 65,536, one for one cluster) against
+    nearest_plain: indices and hit masks equal, t bit equal, in two
+    launches, the second on the tickets the first left zero."""
+    cl = _packet_clusters(n_clusters, cuda)
+    o, d = _rays(r, r, -3.0, 3.0, cuda)
+    if r == 1:      # from (3, 3, 3) toward cluster 0's first triangle
+        v0, e1, e2 = cl.tri[0, 0, 0:3], cl.tri[0, 0, 3:6], cl.tri[0, 0, 6:9]
+        o = torch.full_like(o, 3.0)
+        d = v0 + (e1 + e2) / 3.0 - o
+        d = d / d.norm()
+    k = packet.slices(r, cl.n_clusters, cl.cs)
+    assert 1 <= k <= min(16, n_clusters)
+    if r == 16384 and n_clusters > 1:
+        assert k == min(16, n_clusters)
+    want_t, want_i = packet.nearest_plain(cl, o, d, 1e-3)
+    launches = packet.LAUNCHES
+    for n in (1, 2):
+        got_t, got_i = packet.nearest(cl, o, d, 1e-3)
+        torch.cuda.synchronize()
+        assert packet.LAUNCHES == launches + n
+        assert torch.equal(got_i, want_i)
+        assert torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))
+        if k > 1:
+            stream = torch.cuda.current_stream(o.device)
+            tickets = packet._TICKETS[(stream.device.index,
+                                       stream.cuda_stream)]
+            assert not bool(tickets.any())
+    assert bool((want_i >= 0).any())
+
+
 def _mesh_step_inputs(device, steps_before=3, sub=2):
     """A fused-mesh pack, its tables and one step's input state on
     ``device``: the 64x64 Cornell mesh scene (an icosphere of ``sub``
@@ -728,20 +780,29 @@ def _grouping_equal(g_k, g_p, rays, ray_id, n):
             and torch.equal(rk[:, :n], rays[:, pos[ik[:n].long()]]))
 
 
-@pytest.mark.parametrize("sub", [2, 3])
-def test_group_kernel_matches_plain(cuda, sub):
+@pytest.mark.parametrize("sub,occl", [
+    pytest.param(sub, occl, id=f"{sub}" + ("-occl" if occl else ""))
+    for sub in (2, 3) for occl in (False, True)])
+def test_group_kernel_matches_plain(cuda, sub, occl):
+    """The grouping of K1's main rays, or of K1b's shadow rays (keyed over
+    the segment up to lim), against group_plain: equal keys, the same
+    lanes in each key run."""
     tb, p, sf, si = _mesh_step_inputs(cuda, sub=sub)
     fm = fused_mesh
     b = fm.step_buffers(sf.shape[1], p, 1, cuda)
     b.cnt.zero_()
-    fm._k1_plain(tb, p, sf, b.hf, b.mr, b.mr_id, b.offs1, b.cnt[0, 0:1])
-    n = int(b.cnt[0, 0])
-    launches = fm.LAUNCHES["group"]
-    got = fm._group_kernel(tb, p, b.mr, b.mr_id, b.cnt[0, 0:1])
-    want = fm.group_plain(tb, p, b.mr, b.mr_id, b.cnt[0, 0:1])
+    for name in ("k1", "nearest", "k1b") if occl else ("k1",):
+        fm.run_op(fm.PLAIN_OPS, name, tb, p, SEED, sf, si, b)
+    k = 1 if occl else 0
+    rays, ids = (b.sr, b.sr_id) if occl else (b.mr, b.mr_id)
+    n = int(b.cnt[0, k])
+    key = "group_occl" if occl else "group"
+    launches = fm.LAUNCHES[key]
+    got = fm._group_kernel(tb, p, rays, ids, b.cnt[0, k:k + 1], occl=occl)
+    want = fm.group_plain(tb, p, rays, ids, b.cnt[0, k:k + 1], occl=occl)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES["group"] == launches + 1
-    assert n > 0 and _grouping_equal(got, want, b.mr, b.mr_id, n)
+    assert fm.LAUNCHES[key] == launches + 1
+    assert n > 0 and _grouping_equal(got, want, rays, ids, n)
 
 
 @pytest.mark.parametrize("over_cap", [False, True])
@@ -769,3 +830,25 @@ def test_grouped_resident_sweep_matches_plain(cuda, over_cap):
     fm._sweep_plain(tb, p, b.mr, b.mr_id, cnt, out_p, occl=False)
     torch.cuda.synchronize()
     assert _bits_equal((out_k,), (out_p,))
+
+
+def test_grouped_occlusion_sweep_matches_plain_every_step(cuda):
+    """16 steps of the stepper, kernels and plain versions side by side:
+    the grouped occlusion sweep's flags (kb row 8) bit equal after every
+    step, and the state bit equal at the end."""
+    tb, p, sf_k, si_k = _mesh_step_inputs(cuda, sub=3)
+    fm = fused_mesh
+    sf_p, si_p = sf_k.clone(), si_k.clone()
+    n_steps = 16
+    bk = fm.step_buffers(sf_k.shape[1], p, n_steps, cuda)
+    bp = fm.step_buffers(sf_k.shape[1], p, n_steps, cuda)
+    launches = fm.LAUNCHES["group_occl"]
+    for k in range(n_steps):
+        for name in fm.OP_NAMES:
+            fm.run_op(fm.KERNEL_OPS, name, tb, p, SEED, sf_k, si_k, bk, k)
+            fm.run_op(fm.PLAIN_OPS, name, tb, p, SEED, sf_p, si_p, bp, k)
+        torch.cuda.synchronize()
+        assert int(bp.cnt[k, 1]) > 0
+        assert _bits_equal((bk.kb[8],), (bp.kb[8],)), k
+    assert fm.LAUNCHES["group_occl"] == launches + n_steps
+    assert _bits_equal((sf_k, si_k), (sf_p, si_p))

@@ -114,7 +114,7 @@ def test_parse_obj_fan_and_negative_indices(tmp_path):
 
 # --- the packet kernel's plain version -----------------------------------------
 
-def _check_vs_jax(tris, o, d, t_min=1e-3, cs=32):
+def _check_vs_jax(tris, o, d, t_min=1e-3, cs=32, rtol=1e-6):
     want_t, want_i = jpacket.nearest(jpacket.build_clusters(tris, cs),
                                      jnp.asarray(o), jnp.asarray(d), t_min,
                                      block=packet.BLOCK)
@@ -127,7 +127,7 @@ def _check_vs_jax(tris, o, d, t_min=1e-3, cs=32):
                                   want_t < jpacket.NO_HIT)
     np.testing.assert_array_equal(got_i, want_i)
     hit = want_t < jpacket.NO_HIT
-    np.testing.assert_allclose(got_t[hit], want_t[hit], rtol=1e-6)
+    np.testing.assert_allclose(got_t[hit], want_t[hit], rtol=rtol)
     return hit
 
 
@@ -201,6 +201,26 @@ def test_nearest_plain_streams_large_mesh():
     assert 0 < n_pass <= clusters.n_clusters * -(-512 // packet.BLOCK)
 
 
+@pytest.mark.parametrize("r", [1, 255, 257, 4096])
+def test_nearest_plain_per_ray_cull_matches_jax(r):
+    """The plain version tests a ray against the clusters whose padded box
+    it crosses, whatever its block: against the JAX kernel, whose block
+    vote culls by the best hit so far, at ray counts around one 256-ray
+    block and at 4,096 rays, with more clusters (40) than the kernel cuts
+    its list into (at most 16 slices).  Hit masks and indices equal; t
+    within rtol 1e-5: XLA's CPU code, which runs the interpreted kernel,
+    contracts a * b + c into one rounding where the port (as the CUDA
+    kernel, built with -fmad=false) rounds the product, so t differs by a
+    few ulp on some rays (2e-6 here; ``test_torch_coherent.py`` says the
+    same of the shortlist kernel)."""
+    tris = meshes.icosphere(3)
+    assert len(tris) // 32 > 16
+    o, d = _random_rays(11 + r, r, -1.6, 1.6)
+    hit = _check_vs_jax(tris, o, d, rtol=1e-5)
+    if r > 1:
+        assert 0 < hit.sum() < hit.size
+
+
 # --- the stage ------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
@@ -229,6 +249,35 @@ def test_mesh_render_brute_equals_packet():
     b = mesh.render(mesh.prepare(scene, method="brute"), cam, cfg,
                     device="cpu")
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_mesh_render_packet_takes_the_whole_image(monkeypatch):
+    """mesh.render gives the packet intersector the whole image as one ray
+    set (136x128 = 17,408 rays, past the Whitted twin's default chunk of
+    16,384): one camera pass and one shadow pass per light, each of every
+    pixel; the image equals the render in chunks of 16,384 rays."""
+    from cpu_based_ray_tracer_tpu_torch.models import whitted
+
+    scene, cam = meshes.bvh_stage_scene(1), meshes.bvh_stage_camera()
+    bundle = mesh.prepare(scene, method="packet")
+    cfg = RenderConfig(width=136, height=128)
+    sizes, real = [], packet.nearest
+
+    def recording(clusters, origin, direction, t_min=0.0):
+        sizes.append(origin.shape[0])
+        return real(clusters, origin, direction, t_min)
+    monkeypatch.setattr(packet, "nearest", recording)
+    got = mesh.render(bundle, cam, cfg, device="cpu")
+    assert sizes == [136 * 128] * (1 + scene.lights.count)
+    sizes.clear()
+    want = whitted.render(scene, cam, cfg.replace(ray_chunk=16384),
+                          intersect_fn=mesh.make_intersect_fn(bundle),
+                          nearest_t_fn=mesh.make_nearest_t_fn(bundle),
+                          device="cpu")
+    assert sizes == [16384] * (2 * (1 + scene.lights.count))
+    assert got.shape == (128, 136, 3) and float(got.mean()) > 0.0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_prepare_methods():
