@@ -12,8 +12,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. device     the card's name, power limit and clocks (nvidia-smi);
 2. build      every csrc/*.cu of the port, one nvcc each, started together,
               into build/torch_kernels/; then sass: cuobjdump -sass of
-              fused_mc and fused_mesh (instructions per kernel; the
-              listing under build/chip_smoke/);
+              fused_mc, fused_mesh and coherent (instructions per kernel;
+              the listing under build/chip_smoke/);
 3. parity     the fused_mc kernel against its plain version: Cornell at
               896x896 from wavefront_init for 32 steps (plain mode and
               stop_after=4), and Cornell + one sphere at 256x256; then
@@ -84,7 +84,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               plain version and its bound (a sweep's: each packed ray's
               box tests over its list and the triangle tests of the
               clusters whose boxes it crosses, from the mask pass's
-              per-ray planes); each sweep also unsplit (each output bit
+              per-ray planes; K1's: each lane's small primitives and the
+              predicate's box tests up to its first crossed box, after the
+              boxes' hull); each sweep also unsplit (each output bit
               equal to the plain one); each sweep op's grouping and its
               sweep each alone, the sweep also in pack order, and the
               boxes a warp's rays cross before and after grouping;
@@ -92,13 +94,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               method="fused")) at 896x896, depth 5 (7,424 triangles, 58
               clusters; no packet launch), against method="packet" at rtol
               1e-4, atol 1e-5 on every pixel but exact-t ties, each listed;
-              image to build/; its light-0 shadow rays are kept;
+              image to build/; its light-0 shadow rays are kept; then both
+              methods' frames timed warm (median, min, max of 7);
 19. coherent_parity  csrc/coherent.cu's mask and sweep kernels against
               mask_plain / sweep_plain (masks, tile words, ids, counts, t
-              and indices equal) on the camera rays, those shadow rays, and
-              the hit pixels' shadow rays compacted (strip tiles);
+              and indices equal; the sweep at its default slice count and
+              at each of SWEEP_SLICES) on the camera rays, those shadow
+              rays, and the hit pixels' shadow rays compacted (strip
+              tiles);
 20. coherent_speed  the two kernels alone per 896x896 camera pass beside
-              packet.cu on the same rays, the plain versions, the bounds;
+              packet.cu on the same rays (the sweep at each slice count,
+              also on the shadow and compacted rays), the plain versions,
+              the bounds (the sweep's: each ray's box tests over its
+              tile's list and the rows whose triangle's box it crosses;
+              beside it the kernel's own work, its 8-row groups, and the
+              crossed and listed clusters' triangles; the boxes, groups
+              and rows listed and crossed a ray and a warp);
 21. mesh_fused_164k  tools/bench_passes.py's mc_mesh_fused_164k (two
               icospheres(6), 163,862 triangles, 1,280 clusters: past the
               SMEM budget, so resident=None takes the shortlists):
@@ -165,6 +176,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -181,11 +193,19 @@ OUT = os.path.join(ROOT, "build", "chip_smoke")
 SEED_KEY0 = 4070199207   # render_key(0): bench.py's key, the main path
 SEED_KEY2 = 2752176745   # render_key(2): tools/make_goldens.mc_cornell
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores
-# (counting an FMA as two operations) and HBM bandwidth.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
+# cores (counting an FMA as two operations) and HBM bandwidth; every
+# bound_ms is taken at these.  Beside it each kernel prints bound_no_fma_ms,
+# its operations at one a lane a clock (132 SMs of 128 FP32 lanes at the
+# 1,980 MHz boost clock, 33.45e12 a second): the port builds every kernel
+# with -fmad=false, so no counted add or multiply fuses into an FMA, and
+# that is the least time this build can take.  No kernel calls fmaf: the
+# FFMAs in fused_mc's SASS come from the IEEE division, square root and
+# sine/cosine sequences, which the counts charge as one operation each.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-N_SM, F32_LANES_PER_SM = 132, 128
+N_SM, F32_LANES_PER_SM, BOOST_HZ = 132, 128, 1.98e9
+PEAK_F32_NO_FMA = N_SM * F32_LANES_PER_SM * BOOST_HZ
 
 TOL = 2e-3                # the JAX package's float tolerance for lane state
 MAX_INT_MISMATCH = 1e-4   # share of lanes whose (s, b, n_done) may differ
@@ -275,7 +295,7 @@ def build_phase():
                 for k, v in kernels.BUILD_LOG.items()})
 
 
-def sass_phase(names=("fused_mc", "fused_mesh")) -> dict:
+def sass_phase(names=("fused_mc", "fused_mesh", "coherent")) -> dict:
     """cuobjdump -sass of the built libraries: each kernel's static
     instruction count, and its loops (a branch back to an earlier address)
     of 30 or more instructions with their f32 arithmetic, shared loads and
@@ -573,16 +593,15 @@ def speed_phase(dev, full: RenderConfig, max_sm_mhz: float, smi: str,
     flops = mc_ops(fs.n_tri, fs.n_sph, r * n_steps * n_iters,
                    shadow) / (n_iters * n_steps)
     bytes_per_step = (15 + 4) * 4 * 2 * r / n_steps   # state in + out per call
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, bytes_per_step / PEAK_BYTES
     res = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
-               bound_ms=max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
+               **bound(flops, bytes_per_step))
     emit(phase="speed", nvidia_smi=smi, lanes=r, n_steps=n_steps,
          n_iters=n_iters, rays_per_s=rays / dt,
          ms_per_step=dt / (n_iters * n_steps) * 1e3,
          kernel_ms_per_step=kernel_ms, plain_ms_per_step=plain_ms,
          shadow_ray_share=shadow / (r * n_steps * n_iters),
          flops_per_step=flops, bound_ms_per_step=res["bound_ms"],
+         bound_no_fma_ms_per_step=res["bound_no_fma_ms"],
          bound_no_fma_issue_rate_ms_per_step=flops / (
              N_SM * F32_LANES_PER_SM * max_sm_mhz * 1e6) * 1e3,
          max_sm_mhz=max_sm_mhz)
@@ -911,7 +930,7 @@ def packet_launches_in(render, dev, n_rep: int) -> dict:
     finally:
         packet._nearest_kernel = real
     inline_ms = sum(e0.elapsed_time(e1) for e0, e1, *_ in rec)
-    ms = ops = nbytes = bound_ms = vote_bound_ms = 0.0
+    ms = ops = nbytes = bound_ms = no_fma_ms = vote_bound_ms = 0.0
     rays = []
     for _, _, cl, o, d, t_min in rec:
         real(cl, o, d, t_min)                                   # warm-up
@@ -925,12 +944,14 @@ def packet_launches_in(render, dev, n_rep: int) -> dict:
         ops += l_ops
         nbytes += l_bytes
         bound_ms += bound(l_ops, l_bytes)["bound_ms"]
+        no_fma_ms += bound(l_ops, l_bytes)["bound_no_fma_ms"]
         vote_bound_ms += bound(*packet_work(r, cl, n_pass * packet.BLOCK)
                                )["bound_ms"]
         rays.append(r)
     return dict(ms=ms, inline_event_ms=inline_ms, launches=len(rec),
                 bound_ms=bound_ms, bound_by=bound(ops, nbytes)["bound_by"],
-                pr7_vote_bound_ms=vote_bound_ms, ops=ops, bytes=nbytes,
+                bound_no_fma_ms=no_fma_ms, pr7_vote_bound_ms=vote_bound_ms,
+                ops=ops, bytes=nbytes,
                 rays_per_launch=dict(total=sum(rays), min=min(rays),
                                      mean=sum(rays) / len(rays),
                                      max=max(rays)))
@@ -1076,10 +1097,7 @@ def whitted_speed_phase(dev, cfg, counts, smi, n_iters=20) -> dict:
     plain_ms = timed(lambda: fw._tree_plain(*args))
     n_pix = cfg.width * cfg.height
     ops = whitted_ops(wp.n_tri, wp.n_sph, wp.n_light, counts)
-    t_ops = ops / PEAK_F32_FLOPS
-    t_bytes = n_pix * (12 + 16) / PEAK_BYTES
-    res = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    res = dict(ms=ms, plain_ms=plain_ms, **bound(ops, n_pix * (12 + 16)))
     emit(phase="whitted_speed", nvidia_smi=smi, pixels=n_pix,
          frames_per_s=1e3 / ms, ops_per_frame=ops, work=counts, **res)
     return res
@@ -1386,24 +1404,23 @@ def mesh_fused_oracle_phase(dev, cfg, tol=TOL):
 K1B_OPS = 75
 
 
-def crossed_counts(mp, p, rays, cnt) -> tuple:
-    """How many cluster boxes each of the first cnt packed rays (P, cap)
-    crosses, and the mean over warps (32 consecutive rays) of the boxes
-    any of a warp's rays crosses: the mask pass's per-ray planes, the
-    boxes unpadded."""
+def crossed_counts(aabb, planes, t_min: float, cnt=None) -> tuple:
+    """How many cluster boxes each ray of the (P, H, W) ray planes crosses
+    (the first cnt in lane order; all without cnt), and the mean over
+    warps (32 consecutive lanes) of the boxes any of a warp's rays
+    crosses: the mask pass's per-ray planes, the boxes unpadded."""
     from cpu_based_ray_tracer_tpu_torch.ops import coherent
 
-    masks, _ = coherent._mask_kernel(mp.smc_aabb,
-                                     rays.view(rays.shape[0], -1, 128),
-                                     p.t_min, cnt, planes=True)
-    n = min(int(cnt), rays.shape[1])
+    masks, _ = coherent._mask_kernel(aabb, planes, t_min, cnt, planes=True)
+    lanes = planes.shape[1] * planes.shape[2]
+    n = lanes if cnt is None else min(int(cnt), lanes)
     m = masks.reshape(masks.shape[0], -1)[:, :n].to(torch.int64) & 0xFFFFFFFF
     nw = n // 32
     warp = torch.zeros_like(m[:, :nw])
     for lane in range(32):
         warp |= m[:, lane:nw * 32:32]
-    c = torch.zeros((n,), dtype=torch.int64, device=rays.device)
-    cw = torch.zeros((nw,), dtype=torch.int64, device=rays.device)
+    c = torch.zeros((n,), dtype=torch.int64, device=planes.device)
+    cw = torch.zeros((nw,), dtype=torch.int64, device=planes.device)
     for b in range(32):
         c += ((m >> b) & 1).sum(0)
         cw += ((warp >> b) & 1).sum(0)
@@ -1416,7 +1433,8 @@ def sweep_tests(mp, p, rays, cnt, ray_tests, listed) -> dict:
     clusters whose boxes it crosses, and no more than the serial sweep
     (``ray_tests``, per ray: an occluded ray stops at its first occluder);
     with the boxes crossed per ray and per warp."""
-    crossed, per_warp = crossed_counts(mp, p, rays, cnt)
+    crossed, per_warp = crossed_counts(
+        mp.smc_aabb, rays.view(rays.shape[0], -1, 128), p.t_min, cnt)
     tri = torch.minimum(ray_tests.to(torch.int64), crossed * mp.cs)
     return dict(needed_triangle_tests=int(tri.sum()),
                 box_tests=int(listed.sum()),
@@ -1425,14 +1443,35 @@ def sweep_tests(mp, p, rays, cnt, ray_tests, listed) -> dict:
                 boxes_listed_per_ray=float(listed.double().mean()))
 
 
-def mesh_bounds(mp, r, n_main, n_shadow, near, occl) -> dict:
+def k1_box_tests(mp, p, sf, best_t) -> int:
+    """The slab tests K1's mesh predicate needs on these lanes (rays sf[0:6],
+    the smalls' nearest t best_t): the predicate boxes' hull for every
+    lane in the image; for a lane whose segment crosses the hull, the
+    boxes in order up to the first one it crosses (all of them when it
+    crosses none), since the predicate is their OR."""
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+
+    o, d = sf[0:3].T, sf[3:6].T
+    boxes = mp.pred_aabb
+    hull = fm._slab_crosses(o, d, boxes[:, 0:3].amin(0),
+                            boxes[:, 3:6].amax(0), p.t_min, best_t)
+    crossed = torch.stack([fm._slab_crosses(o, d, b[0:3], b[3:6], p.t_min,
+                                            best_t) for b in boxes])
+    n_pred = boxes.shape[0]
+    first = torch.where(crossed.any(0), crossed.int().argmax(0) + 1, n_pred)
+    valid = fm._lanes(o.shape[0], p, o.device).valid
+    return int((valid * (1 + hull * first)).sum())
+
+
+def mesh_bounds(mp, r, n_main, n_shadow, near, occl, k1_boxes) -> dict:
     """(ops, bytes) of each entry point for one step with these packed
-    populations and the sweeps' needed work ``near`` and ``occl``
-    (sweep_tests): each input read once, each output written once."""
+    populations, the sweeps' needed work ``near`` and ``occl``
+    (sweep_tests) and K1's predicate box tests (k1_box_tests): each input
+    read once, each output written once."""
     n_pred = mp.pred_aabb.shape[0]
     table = mp.n_clusters * mp.cs * 16 * 4
     return {
-        "k1": (r * (47 * mp.n_stri + 28 * mp.n_sph + SLAB_OPS * n_pred),
+        "k1": (r * (47 * mp.n_stri + 28 * mp.n_sph) + SLAB_OPS * k1_boxes,
                r * (24 + 40) + n_main * 28),
         "nearest": (near["needed_triangle_tests"] * TRI_OPS
                     + near["box_tests"] * SLAB_OPS,
@@ -1593,21 +1632,21 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
                 tb, p, packed, ids, cnt, want, occl, None, n_iters)
             packed, ids = g_rays, g_id
             res[name]["boxes_crossed_per_warp_grouped"] = crossed_counts(
-                mp, p, packed, cnt)[1]
+                mp.smc_aabb, packed.view(packed.shape[0], -1, 128), p.t_min,
+                cnt)[1]
             res[name]["splits"] = sweep_splits(
                 tb, p, packed, ids, cnt, want, occl, None, n_iters)
             res[name]["sweep_ms"] = res[name]["splits"]["default"]["ms"]
             if occl:
                 occl_tests = int(serial.sum())
                 occluded = int(bp.kb[8].sum())
+    k1_boxes = k1_box_tests(mp, p, sf, b.hf[0])
+    res["k1"].update(box_tests_per_lane=k1_boxes / r,
+                     box_tests_per_lane_every_box=mp.pred_aabb.shape[0])
     bounds = mesh_bounds(mp, r, n_main, n_shadow, tests["nearest"],
-                         tests["occl"])
+                         tests["occl"], k1_boxes)
     for name in list(fm.OP_NAMES) + ["group", "group_occl"]:
-        ops, nbytes = bounds[name]
-        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-        res[name].update(bound_ms=max(t_ops, t_bytes) * 1e3,
-                         bound_by="operations" if t_ops >= t_bytes
-                         else "bytes", ops=ops, bytes=nbytes)
+        res[name].update(bound(*bounds[name]))
     emit(phase="mesh_fused_speed", nvidia_smi=smi, lanes=r,
          n_steps=n_steps, n_calls=n_calls, caps=list(caps),
          rays_per_s=rays / dt, ms_per_step=dt / (n_calls * n_steps) * 1e3,
@@ -1631,6 +1670,7 @@ COHERENT_TPU = {"mask": ("ops/coherent.py::_mask_kernel",
 SL_TPU = ("ops/fused_mesh.py::_mesh_sl_kernel",
           "cpu_based_ray_tracer_tpu/ops/fused_mesh.py:984")
 BVH_SUBDIVISIONS = 4     # bvh_stage_scene(4): 7,424 triangles, 58 clusters
+SWEEP_SLICES = (1, 2, 3, 5, 8, 16)   # slice counts the sweep is held at
 
 
 def list_stats(cnts, n_tiles=None) -> dict:
@@ -1650,26 +1690,107 @@ def listed_clusters(ids, cnts, n_cl: int, n_tiles: int) -> int:
     return int(listed.sum())
 
 
-def coherent_bounds(rays, n_cl: int, cs: int, cnts, ids) -> dict:
+def rows_crossed(rays, tri, t_min: float, chunk: int = 8192):
+    """How many rows of the cluster table tri (C, CS, 16) each lane of the
+    (6, H, W) ray planes needs to test: the rows holding a triangle (slot
+    13 >= 0) whose own box, the least and greatest of v0, v0 + e1 and
+    v0 + e2 widened by one ulp, the ray's line crosses from min(t_min, 0)
+    on.  A ray can hit no other row.  Counted here, apart from the kernel
+    and its package, a chunk of lanes at a time against every row."""
+    rows = tri.reshape(-1, tri.shape[-1])
+    rows = rows[rows[:, 13] >= 0]
+    v0 = rows[:, 0:3]
+    corners = torch.stack([v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]])
+    lo = torch.nextafter(corners.amin(0), torch.full_like(v0, -math.inf))
+    hi = torch.nextafter(corners.amax(0), torch.full_like(v0, math.inf))
+    planes = rays.reshape(rays.shape[0], -1)
+    o, d = planes[0:3].T, planes[3:6].T
+    # 1 / d with |d| raised to at least 1e-20, keeping its sign (the
+    # kernels' safe reciprocal)
+    inv = 1.0 / torch.where(d.abs() < 1e-20,
+                            torch.where(d < 0, -1e-20, 1e-20), d)
+    t_lo = min(t_min, 0.0)
+    counts = []
+    for a in range(0, o.shape[0], chunk):
+        t_in = t_out = None
+        for ax in range(3):
+            oa, ia = o[a:a + chunk, ax:ax + 1], inv[a:a + chunk, ax:ax + 1]
+            t0, t1 = (lo[:, ax] - oa) * ia, (hi[:, ax] - oa) * ia
+            near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            t_in = near if t_in is None else torch.maximum(t_in, near)
+            t_out = far if t_out is None else torch.minimum(t_out, far)
+        counts.append(((t_out >= t_lo) & (t_in <= t_out)).sum(1))
+    return torch.cat(counts)
+
+
+def coherent_bounds(rays, tri, aabb, cnts, ids, t_min: float) -> dict:
     """(ops, bytes) of the mask pass and of the shortlist sweep over these
-    ray planes: the mask SLAB_OPS per lane and cluster against the rays,
-    AABBs and tile words (the lists' pass writes no mask planes); the
-    sweep TRI_OPS per lane and listed triangle against the rays, the lists, the clusters listed
-    anywhere and the (t, index) planes."""
+    ray planes, and the sweep's work.  The mask: SLAB_OPS per lane and
+    cluster against the rays, AABBs and tile words (the lists' pass writes
+    no mask planes).  The sweep: each lane's box tests over its tile's
+    list (SLAB_OPS each) and TRI_OPS per row whose triangle's box it
+    crosses (``rows_crossed``), against the rays, the lists, the clusters
+    listed anywhere and the (t, index) planes.  Beside it, each as a
+    bound: the kernel's own work (the rows of the 8-row groups whose boxes
+    a ray crosses, and the boxes of those groups), the triangles of every
+    crossed cluster, and of every listed one (every lane against every
+    triangle of its tile's list, the count of PR 8's bound)."""
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+
     p, hp, wp = rays.shape
+    n_cl, cs = tri.shape[0], tri.shape[1]
     lanes, n_tiles, b32 = hp * wp, cnts.numel(), -(-n_cl // 32)
+    rows = rows_crossed(rays, tri, t_min)
+    gbox = coherent.group_boxes_plain(tri)
+    n_groups = gbox.shape[1]
+    crossed, per_warp = crossed_counts(aabb, rays, t_min)
+    g_crossed, g_per_warp = crossed_counts(gbox.reshape(-1, 8), rays, t_min)
+    listed = int(cnts.long().sum()) * 4096
+    work = dict(boxes_listed_per_ray=listed / lanes,
+                boxes_crossed_per_ray=float(crossed.double().mean()),
+                boxes_crossed_per_warp=per_warp,
+                rows_crossed_per_ray=float(rows.double().mean()),
+                groups_crossed_per_ray=float(g_crossed.double().mean()),
+                groups_crossed_per_warp=g_per_warp,
+                box_tests=listed,
+                needed_triangle_tests=int(rows.sum()),
+                group_box_tests=listed + int(crossed.sum()) * n_groups,
+                group_triangle_tests=int(g_crossed.sum())
+                * coherent.GROUP_ROWS,
+                crossed_cluster_triangle_tests=int(crossed.sum()) * cs,
+                listed_triangle_tests=listed * cs)
+    sweep_bytes = (lanes * (24 + 8) + n_tiles * (n_cl + 1) * 4
+                   + listed_clusters(ids, cnts, n_cl, n_tiles) * cs * 64)
+    for k, tests, boxes in (
+            ("group", "group_triangle_tests", "group_box_tests"),
+            ("crossed_cluster", "crossed_cluster_triangle_tests",
+             "box_tests"),
+            ("listed", "listed_triangle_tests", "box_tests")):
+        work[f"{k}_bound_ms"] = bound(
+            work[tests] * TRI_OPS + work[boxes] * SLAB_OPS,
+            sweep_bytes)["bound_ms"]
     return {
         "mask": (lanes * n_cl * SLAB_OPS,
                  lanes * p * 4 + n_cl * 32 + n_tiles * b32 * 4),
-        "sweep": (int(cnts.long().sum()) * 4096 * cs * TRI_OPS,
-                  lanes * (24 + 8) + n_tiles * (n_cl + 1) * 4
-                  + listed_clusters(ids, cnts, n_cl, n_tiles) * cs * 64)}
+        "sweep": (work["needed_triangle_tests"] * TRI_OPS
+                  + work["box_tests"] * SLAB_OPS, sweep_bytes),
+        "work": work}
+
+
+def spread(xs) -> dict:
+    """Median, min and max of a list of samples."""
+    xs = sorted(xs)
+    return dict(median=xs[len(xs) // 2], min=xs[0], max=xs[-1])
 
 
 def bound(ops: float, nbytes: float) -> dict:
+    """The least time of ``ops`` f32 operations and ``nbytes`` bytes at the
+    card's peaks (bound_ms, and what bounds it), and at the issue rate of
+    the port's -fmad=false build (bound_no_fma_ms)."""
     t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_no_fma_ms=max(ops / PEAK_F32_NO_FMA, t_bytes) * 1e3,
                 ops=ops, bytes=nbytes)
 
 
@@ -1680,13 +1801,14 @@ def camera_rays(cam, cfg):
     return cam.position.expand(d.shape).contiguous(), d.contiguous()
 
 
-def mesh_fused_whitted_main_phase(dev, cfg) -> tuple:
+def mesh_fused_whitted_main_phase(dev, cfg, n_frames=7) -> tuple:
     """mesh.render(prepare(bvh_stage_scene(4), method="fused")) once,
     counters set to 0 just before and read just after; then the packet
     oracle, which must agree on every pixel but those whose camera ray
     hits two triangles at the same t (the two intersectors' clusters order
-    ties differently); each such pixel is listed.  Returns (coherent
-    launches, the light-0 shadow rays the frame sent, its seconds)."""
+    ties differently); each such pixel is listed.  Then both methods'
+    frames timed warm, n_frames each (median, min, max seconds).  Returns
+    (coherent launches, the light-0 shadow rays the frame sent)."""
     from cpu_based_ray_tracer_tpu_torch.models import mesh
     from cpu_based_ray_tracer_tpu_torch.ops import coherent, packet
     from cpu_based_ray_tracer_tpu_torch.scenes import meshes
@@ -1698,17 +1820,23 @@ def mesh_fused_whitted_main_phase(dev, cfg) -> tuple:
     with recording_shadow_rays(sent):
         sync(dev)
         reset_counts()
-        t0 = time.perf_counter()
         img = mesh.render(bundle, cam, cfg, device=dev)
         sync(dev)
-        secs = time.perf_counter() - t0
         launches = read_counts()
     shadow = light0_rays(sent, scene, cfg)
     pbundle = mesh.prepare(scene)
-    t0 = time.perf_counter()
     oracle = mesh.render(pbundle, cam, cfg, device=dev)
-    sync(dev)
-    packet_secs = time.perf_counter() - t0
+    # both frames warm, n_frames each, the host's clock around a
+    # synchronised call
+    secs = {}
+    for name, b in (("fused", bundle), ("packet", pbundle)):
+        secs[name] = []
+        for _ in range(n_frames):
+            sync(dev)
+            t0 = time.perf_counter()
+            mesh.render(b, cam, cfg, device=dev)
+            sync(dev)
+            secs[name].append(time.perf_counter() - t0)
     res = pixels_off(img, oracle, 1e-4, 1e-5)
     d = (img - oracle).abs()
     off = (d > 1e-5 + 1e-4 * oracle.abs()).any(-1).reshape(-1)
@@ -1727,8 +1855,9 @@ def mesh_fused_whitted_main_phase(dev, cfg) -> tuple:
     emit(phase="mesh_fused_whitted_main", config=f"bvh_stage_scene"
          f"({BVH_SUBDIVISIONS}) {cfg.width}x{cfg.height} depth"
          f"{cfg.whitted_depth} method=fused", tris=scene.triangles.count,
-         clusters=bundle.coherent.n_clusters, seconds=secs,
-         packet_seconds=packet_secs, launches=launches, vs_packet=res,
+         clusters=bundle.coherent.n_clusters,
+         seconds=spread(secs["fused"]), packet_seconds=spread(secs["packet"]),
+         frames_timed=n_frames, launches=launches, vs_packet=res,
          camera_t_bit_equal_share=float((t_f == t_p).float().mean()),
          camera_index_ties=int(tie.sum()), pixels_off_listed=listed[:64],
          finite=finite, mean_radiance=float(img.mean()),
@@ -1743,7 +1872,7 @@ def mesh_fused_whitted_main_phase(dev, cfg) -> tuple:
         raise RuntimeError(f"mesh.render fused vs packet: {res}, pixels off "
                            f"that are no exact-t tie: "
                            f"{[p for p in listed if not p['exact_t_tie']]}")
-    return launches["coherent"], shadow, secs
+    return launches["coherent"], shadow
 
 
 def coherent_parity_phase(dev, cfg, shadow) -> tuple:
@@ -1751,7 +1880,8 @@ def coherent_parity_phase(dev, cfg, shadow) -> tuple:
     on bvh_stage_scene(4)'s camera rays and the fused frame's light-0
     shadow rays (pixel tiles), and on the shadow rays of the pixels whose
     camera ray hits the mesh, compacted (a flat set: strip tiles).
-    Returns ({kernel: max abs error}, the pack, the camera rays)."""
+    Returns ({kernel: max abs error}, the pack, the camera rays, {case:
+    (ray planes, ids, cnts)})."""
     from cpu_based_ray_tracer_tpu_torch.ops import coherent
     from cpu_based_ray_tracer_tpu_torch.ops.intersect import NO_HIT_T
     from cpu_based_ray_tracer_tpu_torch.scenes import meshes
@@ -1766,6 +1896,7 @@ def coherent_parity_phase(dev, cfg, shadow) -> tuple:
              "shadow_compacted": (shadow[0][hit].contiguous(),
                                   shadow[1][hit].contiguous(), None)}
     errs = {"mask": 0.0, "sweep": 0.0}
+    swept = {}
     for name, (oo, dd, hw_) in cases.items():
         rays, _ = coherent._to_planes(oo, dd, hw_)
         mk, wk = coherent._mask_kernel(pack.aabb, rays, cfg.t_min)
@@ -1774,32 +1905,46 @@ def coherent_parity_phase(dev, cfg, shadow) -> tuple:
         mp_, wp_ = coherent.mask_plain(pack.aabb, rays, cfg.t_min)
         ids_k, cnts_k = coherent._lists(wk, pack.n_clusters)
         ids, cnts = coherent._lists(wp_, pack.n_clusters)
-        out_k = coherent._sweep_kernel(pack.tri, rays, ids, cnts, cfg.t_min)
         out_p = coherent.sweep_plain(pack.tri, rays, ids, cnts, cfg.t_min)
-        sync(dev)
+        k_default = coherent.slices(rays.shape[1] * rays.shape[2],
+                                    pack.n_clusters, pack.cs)
         same = {"masks": torch.equal(mk, mp_), "tile_words": torch.equal(wk, wp_),
                 "tile_words_no_planes": torch.equal(wk0, wp_),
-                "ids": torch.equal(ids_k, ids), "cnts": torch.equal(cnts_k, cnts),
-                "t": torch.equal(out_k[0], out_p[0]),
-                "index": torch.equal(out_k[1], out_p[1])}
+                "ids": torch.equal(ids_k, ids), "cnts": torch.equal(cnts_k, cnts)}
+        err = 0.0
         hits = out_p[0] < NO_HIT_T
-        err = max_abs(out_k[0][hits], out_p[0][hits])
+        # the sweep at the default slice count and at each of SWEEP_SLICES:
+        # t and index bit equal to the serial unculled plain sweep
+        for k in sorted({k_default, *SWEEP_SLICES}):
+            out_k = coherent._sweep_kernel(pack.tri, pack.aabb, rays, ids,
+                                           cnts, cfg.t_min, k=k)
+            sync(dev)
+            same[f"t_k{k}"] = torch.equal(out_k[0].view(torch.int32),
+                                          out_p[0].view(torch.int32))
+            same[f"index_k{k}"] = torch.equal(out_k[1], out_p[1])
+            err = max(err, max_abs(out_k[0][hits], out_p[0][hits]))
         emit(phase="coherent_parity", case=name, rays=oo.shape[0],
              planes=list(rays.shape), tiling="pixel" if hw_ else "strip",
              clusters=pack.n_clusters, lists=list_stats(cnts),
+             slices_default=k_default,
              hits=int((out_p[1] >= 0).sum()), equal=same, max_abs_err=err)
         if not all(same.values()):
             raise RuntimeError(f"csrc/coherent.cu disagrees with its plain "
                                f"version on {name}: {same}")
         errs["mask"] = max(errs["mask"], max_abs(wk, wp_), max_abs(mk, mp_))
         errs["sweep"] = max(errs["sweep"], err)
-    return errs, pack, (o, d)
+        swept[name] = (rays, ids, cnts)
+    return errs, pack, (o, d), swept
 
 
-def coherent_speed_phase(dev, cfg, pack, cam_rays, smi, n_iters=20) -> dict:
+def coherent_speed_phase(dev, cfg, pack, cam_rays, swept, smi,
+                         n_iters=20) -> dict:
     """The mask and the sweep kernels alone (CUDA events) in ms per 896x896
     camera pass of bvh_stage_scene(4), beside packet.cu on the same rays
-    and the plain versions; the bounds from this pass's lists."""
+    and the plain versions; the sweep at its default slice count and at
+    each of SWEEP_SLICES, here and on the other cases' rays (``swept``);
+    the bounds from this pass's lists and the boxes each ray crosses
+    (``coherent_bounds``)."""
     from cpu_based_ray_tracer_tpu_torch.models import mesh
     from cpu_based_ray_tracer_tpu_torch.ops import coherent, packet
     from cpu_based_ray_tracer_tpu_torch.scenes import meshes
@@ -1812,10 +1957,31 @@ def coherent_speed_phase(dev, cfg, pack, cam_rays, smi, n_iters=20) -> dict:
     mask()                                                      # warm-up
     mask_ms = timed(lambda: [mask() for _ in range(n_iters)]) / n_iters
     ids, cnts = coherent._shortlists(pack.aabb, rays, t_min)
-    coherent._sweep_kernel(pack.tri, rays, ids, cnts, t_min)     # warm-up
-    sweep_ms = timed(lambda: [coherent._sweep_kernel(pack.tri, rays, ids,
-                                                     cnts, t_min)
-                              for _ in range(n_iters)]) / n_iters
+    lanes = rays.shape[1] * rays.shape[2]
+    k_default = coherent.slices(lanes, pack.n_clusters, pack.cs)
+    sweep_ms = {}
+    for k in sorted({k_default, *SWEEP_SLICES}):
+        def sweep(k=k):
+            coherent._sweep_kernel(pack.tri, pack.aabb, rays, ids, cnts,
+                                   t_min, k=k)
+        sweep()                                                 # warm-up
+        sweep_ms[k] = timed(lambda: [sweep() for _ in range(n_iters)]
+                            ) / n_iters
+    # the sweep at each slice count on the other cases' rays too
+    by_case = {}
+    for name, (c_rays, c_ids, c_cnts) in swept.items():
+        if name == "camera":
+            continue
+        k_c = coherent.slices(c_rays.shape[1] * c_rays.shape[2],
+                              pack.n_clusters, pack.cs)
+        by_case[name] = {"slices_default": k_c, "ms_by_slices": {}}
+        for k in sorted({k_c, *SWEEP_SLICES}):
+            def sweep(k=k):
+                coherent._sweep_kernel(pack.tri, pack.aabb, c_rays, c_ids,
+                                       c_cnts, t_min, k=k)
+            sweep()                                             # warm-up
+            by_case[name]["ms_by_slices"][k] = timed(
+                lambda: [sweep() for _ in range(n_iters)]) / n_iters
     mask_plain_ms = timed(lambda: coherent.mask_plain(pack.aabb, rays, t_min,
                                                       planes=False))
     sweep_plain_ms = timed(lambda: coherent.sweep_plain(pack.tri, rays, ids,
@@ -1825,15 +1991,23 @@ def coherent_speed_phase(dev, cfg, pack, cam_rays, smi, n_iters=20) -> dict:
     packet._nearest_kernel(cl, o, d, t_min)                      # warm-up
     packet_ms = timed(lambda: [packet._nearest_kernel(cl, o, d, t_min)
                                for _ in range(n_iters)]) / n_iters
-    bounds = coherent_bounds(rays, pack.n_clusters, pack.cs, cnts, ids)
+    bounds = coherent_bounds(rays, pack.tri, pack.aabb, cnts, ids, t_min)
+    work = bounds["work"]
     res = {"mask": dict(ms=mask_ms, plain_ms=mask_plain_ms,
                         **bound(*bounds["mask"])),
-           "sweep": dict(ms=sweep_ms, plain_ms=sweep_plain_ms,
+           "sweep": dict(ms=sweep_ms[k_default], plain_ms=sweep_plain_ms,
+                         slices=k_default, unsplit_ms=sweep_ms[1],
+                         ms_by_slices=sweep_ms,
+                         group_bound_ms=work["group_bound_ms"],
+                         crossed_cluster_bound_ms=work[
+                             "crossed_cluster_bound_ms"],
+                         listed_triangle_bound_ms=work["listed_bound_ms"],
                          **bound(*bounds["sweep"]))}
     emit(phase="coherent_speed", nvidia_smi=smi, rays=o.shape[0],
-         clusters=pack.n_clusters, lists=list_stats(cnts),
-         mask_plus_sweep_ms=mask_ms + sweep_ms, packet_ms=packet_ms,
-         packet_clusters=cl.n_clusters, per_kernel=res)
+         clusters=pack.n_clusters, lists=list_stats(cnts), work=work,
+         mask_plus_sweep_ms=mask_ms + sweep_ms[k_default],
+         packet_ms=packet_ms, packet_clusters=cl.n_clusters, per_kernel=res,
+         sweep_other_cases=by_case)
     return res
 
 
@@ -2607,7 +2781,7 @@ def timed(fn, busy_ms: float = 0.0) -> float:
     of launches too small to hide the host's own work between them."""
     ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     if busy_ms > 0.0:
-        torch.cuda._sleep(int(busy_ms * 1e-3 * 1.98e9))
+        torch.cuda._sleep(int(busy_ms * 1e-3 * BOOST_HZ))
     ev0.record()
     fn()
     ev1.record()
@@ -2659,9 +2833,10 @@ def main():
                                               max_depth=16, rr_survival=0.8))
     msp = mesh_fused_speed_phase(dev, full, smi)
 
-    c_launches, f_shadow, _ = mesh_fused_whitted_main_phase(dev, wfull)
-    c_err, c_pack, c_rays = coherent_parity_phase(dev, wfull, f_shadow)
-    csp = coherent_speed_phase(dev, wfull, c_pack, c_rays, smi)
+    c_launches, f_shadow = mesh_fused_whitted_main_phase(dev, wfull)
+    c_err, c_pack, c_rays, c_swept = coherent_parity_phase(dev, wfull,
+                                                           f_shadow)
+    csp = coherent_speed_phase(dev, wfull, c_pack, c_rays, c_swept, smi)
     cfg164 = RenderConfig(width=896, height=896, spp=8, max_depth=16,
                           rr_survival=0.8)
     sl_launches, sl_err = mesh_fused_164k_phase(dev, cfg164)
@@ -2690,6 +2865,7 @@ def main():
         "launches": m_launches[k], "max_abs_err": m_err[k],
         "ms": msp[k]["ms"], "plain_ms": msp[k]["plain_ms"],
         "bound_ms": msp[k]["bound_ms"], "bound_by": msp[k]["bound_by"],
+        "bound_no_fma_ms": msp[k]["bound_no_fma_ms"],
         **({"slices": msp[k]["splits"]["default"]["k"],
             "unsplit_ms": msp[k]["splits"]["unsplit"]["ms"]}
            if "splits" in msp[k] else {}),
@@ -2712,8 +2888,14 @@ def main():
         "launches_mc_164k": sl_launches["coherent"][k],
         "max_abs_err": c_err[k], "ms": csp[k]["ms"],
         "plain_ms": csp[k]["plain_ms"], "bound_ms": csp[k]["bound_ms"],
-        "bound_by": csp[k]["bound_by"], "library_ms": None}
-        for k in COHERENT_TPU]
+        "bound_by": csp[k]["bound_by"],
+        "bound_no_fma_ms": csp[k]["bound_no_fma_ms"],
+        **({"slices": csp[k]["slices"], "unsplit_ms": csp[k]["unsplit_ms"],
+            "group_bound_ms": csp[k]["group_bound_ms"],
+            "crossed_cluster_bound_ms": csp[k]["crossed_cluster_bound_ms"],
+            "listed_triangle_bound_ms": csp[k]["listed_triangle_bound_ms"]}
+           if k == "sweep" else {}),
+        "library_ms": None} for k in COHERENT_TPU]
     sl_kernels = [{
         "name": f"fused_mesh_{k}", "route": "cuda",
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_mesh.cu",
@@ -2724,6 +2906,7 @@ def main():
         "max_abs_err": sl_err[k[:-3]], "ms": ssp[k]["ms"],
         "plain_ms": ssp[k]["plain_ms"], "bound_ms": ssp[k]["bound_ms"],
         "bound_by": ssp[k]["bound_by"],
+        "bound_no_fma_ms": ssp[k]["bound_no_fma_ms"],
         "all_clusters_ms": ssp[k]["all_clusters_ms"],
         "slices": ssp[k]["splits"]["default"]["k"],
         "unsplit_ms": ssp[k]["splits"]["unsplit"]["ms"], "library_ms": None}
@@ -2738,6 +2921,7 @@ def main():
         "ms": sp["kernel_ms"], "ms_per_step": sp["kernel_ms"],
         "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
         "bound_ms_per_step": sp["bound_ms"], "bound_by": sp["bound_by"],
+        "bound_no_fma_ms": sp["bound_no_fma_ms"],
         "library_ms": None, "single_path_unit":
             f"ms per single_path launch, {dcfg.width}x{dcfg.height} lanes, "
             f"{dcfg.max_depth} steps (the Denoiser frame's G-buffer)",
@@ -2745,10 +2929,12 @@ def main():
         "single_path_ms": dsp["ms"], "single_path_plain_ms": dsp["plain_ms"],
         "single_path_bound_ms": dsp["bound_ms"],
         "single_path_bound_by": dsp["bound_by"],
+        "single_path_bound_no_fma_ms": dsp["bound_no_fma_ms"],
         "render_unit": f"ms of the {full.width}x{full.height} {full.spp}-spp "
                        f"render's launches {mc_render['kernel_launch_steps']}",
         "render_ms": mc_render["kernel_ms"],
         "render_bound_ms": mc_render["kernel_bound_ms"],
+        "render_bound_no_fma_ms": mc_render["kernel_bound_no_fma_ms"],
         "render_live_lane_steps": mc_render["live_lane_steps"]}, {
         "name": "fused_rtiow", "route": "cuda",
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/fused_rtiow.cu",
@@ -2761,8 +2947,11 @@ def main():
         "max_abs_err": r_err,
         "ms": rsp["ms"], "plain_ms": rsp["plain_ms"],
         "bound_ms": rsp["bound_ms"], "bound_by": rsp["bound_by"],
+        "bound_no_fma_ms": rsp["bound_no_fma_ms"],
         "render_ms": {k: v["ms"] for k, v in r_main.items()},
         "render_bound_ms": {k: v["bound_ms"] for k, v in r_main.items()},
+        "render_bound_no_fma_ms": {k: v["bound_no_fma_ms"]
+                                   for k, v in r_main.items()},
         "render_chunks": {k: v["chunks"] for k, v in r_main.items()},
         "library_ms": None}, {
         "name": "fused_whitted", "route": "cuda",
@@ -2773,7 +2962,8 @@ def main():
                 f"{wfull.whitted_depth}, Q=4",
         "launches": w_launches, "max_abs_err": w_err, "ms": wsp["ms"],
         "plain_ms": wsp["plain_ms"], "bound_ms": wsp["bound_ms"],
-        "bound_by": wsp["bound_by"], "library_ms": None}, {
+        "bound_by": wsp["bound_by"], "bound_no_fma_ms": wsp["bound_no_fma_ms"],
+        "library_ms": None}, {
         "name": "packet", "route": "cuda",
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/packet.cu",
         "replaces": "cpu_based_ray_tracer_tpu/ops/packet.py:117",
@@ -2784,16 +2974,20 @@ def main():
         "ms": psp["camera"]["ms"], "plain_ms": psp["camera"]["plain_ms"],
         "bound_ms": psp["camera"]["bound_ms"],
         "bound_by": psp["camera"]["bound_by"],
+        "bound_no_fma_ms": psp["camera"]["bound_no_fma_ms"],
         "shadow_ms": psp["shadow"]["ms"],
         "shadow_plain_ms": psp["shadow"]["plain_ms"],
         "shadow_bound_ms": psp["shadow"]["bound_ms"],
         "in_render_ms": pir["ms"], "in_render_launches": pir["launches"],
         "in_render_bound_ms": pir["bound_ms"],
+        "in_render_bound_no_fma_ms": pir["bound_no_fma_ms"],
         "in_render_seconds": pir["render_seconds"],
         "in_render_chunk": pir["rays_per_launch"]["max"],
         "in_render_chunk_sweep": pir["chunk_sweep"],
         "chunk_16384_ms": psp["camera_16384"]["ms"],
         "chunk_16384_bound_ms": psp["camera_16384"]["bound_ms"],
+        "chunk_16384_bound_no_fma_ms":
+            psp["camera_16384"]["bound_no_fma_ms"],
         "boxes_crossed_per_warp": psp["camera"]["boxes_crossed_per_warp"],
         "warp_pairs_bound_ms": psp["camera"]["warp_pairs_bound_ms"],
         "pr7_vote_bound_ms": psp["camera"]["pr7_vote_bound_ms"],

@@ -2,13 +2,12 @@
 // triangle table, shared by the sweeps of csrc/fused_mesh.cu, csrc/coherent.cu
 // and csrc/packet.cu (rows of W floats beginning v0 e1 e2: 16 in the fused
 // mesh table, v0 e1 e2 n mid idx pad; 12 in the packet table, v0 e1 e2 pad),
-// and what the split sweeps of csrc/fused_mesh.cu and csrc/packet.cu share:
-// the padded cluster-box cull, the slice count, the walk of one slice with
-// its double buffer, and the ticket that elects a ray block's last slice.
+// and what the split sweeps share: the padded cluster-box cull, the slice
+// count, the walk of one slice with its double buffer, and the ticket that
+// elects a ray block's last slice.
 //
-// A block stages the cluster's CS x W floats in shared memory, with a
-// cooperative float4 load (stage_cluster) or with 16-byte asynchronous
-// copies that land while the previous cluster is tested
+// A block stages the cluster's CS x W floats in shared memory with 16-byte
+// asynchronous copies that land while the previous cluster is tested
 // (stage_cluster_async + wait_staged); each thread then runs
 // Moller-Trumbore over the CS rows, reading each row's vertex and edges as
 // three float4 broadcasts.  The arithmetic and its order are those of the
@@ -24,16 +23,6 @@ namespace cluster_tri {
 
 constexpr int NF = 16;          // floats per triangle row (MESH_NF)
 constexpr float DET_EPS = 1e-12f;
-
-// Cluster c of `tri` into `tile4` (CS * NF / 4 float4).  Every thread of the
-// block calls it; the caller brackets it with __syncthreads.
-__device__ __forceinline__ void stage_cluster(float4* tile4,
-                                              const float* __restrict__ tri,
-                                              int c, int words4) {
-  const float4* src =
-      reinterpret_cast<const float4*>(tri) + (size_t)c * words4;
-  for (int w = threadIdx.x; w < words4; w += blockDim.x) tile4[w] = src[w];
-}
 
 // Cluster c of `tri` into `tile4` by cp.async (16 bytes a copy, L2 only),
 // as one commit group of this thread's copies; wait_staged() waits for

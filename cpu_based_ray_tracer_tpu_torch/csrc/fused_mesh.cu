@@ -142,6 +142,22 @@ __device__ __forceinline__ float sinv(float v) {
   return 1.0f / (fabsf(v) < 1e-20f ? tiny : v);
 }
 
+// Does the segment [t_lo, hi_bound] of a ray (o, 1 / iv) cross the box A
+// (min xyz, max xyz)?
+__device__ __forceinline__ bool slab_crosses(const float* A, float ox,
+                                             float oy, float oz, float ivx,
+                                             float ivy, float ivz,
+                                             float t_lo, float hi_bound) {
+  const float tx0 = (A[0] - ox) * ivx, tx1 = (A[3] - ox) * ivx;
+  const float ty0 = (A[1] - oy) * ivy, ty1 = (A[4] - oy) * ivy;
+  const float tz0 = (A[2] - oz) * ivz, tz1 = (A[5] - oz) * ivz;
+  const float t_in = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                           fminf(tz0, tz1));
+  const float t_out = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                            fmaxf(tz0, tz1));
+  return (t_out >= t_lo) && (t_in <= t_out) && (t_in <= hi_bound);
+}
+
 // The mesh predicate: does the segment [min(t_min, 0), t_hi * slack] of the
 // ray (o, d) cross any of the n AABBs?  Conservative by the slack: a lane it
 // misses would skip its mesh test.
@@ -152,19 +168,35 @@ __device__ bool crosses_any(const float* aabb, int n, float ox, float oy,
   const float hi_bound = t_hi * 1.000001f + 1e-5f;
   const float t_lo = fminf(t_min, 0.0f);
   bool crossed = false;
-  for (int b = 0; b < n; ++b) {
-    const float* A = aabb + b * AABB_W;
-    const float tx0 = (A[0] - ox) * ivx, tx1 = (A[3] - ox) * ivx;
-    const float ty0 = (A[1] - oy) * ivy, ty1 = (A[4] - oy) * ivy;
-    const float tz0 = (A[2] - oz) * ivz, tz1 = (A[5] - oz) * ivz;
-    const float t_in = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                             fminf(tz0, tz1));
-    const float t_out = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                              fmaxf(tz0, tz1));
-    crossed = crossed ||
-              ((t_out >= t_lo) && (t_in <= t_out) && (t_in <= hi_bound));
-  }
+  for (int b = 0; b < n; ++b)
+    crossed = crossed || slab_crosses(aabb + b * AABB_W, ox, oy, oz, ivx,
+                                      ivy, ivz, t_lo, hi_bound);
   return crossed;
+}
+
+// K1's mesh predicate, crosses_any by fewer tests.  `hull` is a box that
+// holds the n boxes (their least minima and greatest maxima), tested first:
+// a slab end (a - o) * iv is monotone in the box coordinate a, so each
+// axis's interval of the hull holds that of every box, and a segment that
+// crosses a box crosses the hull.  A lane that misses the hull misses every
+// box; the others test the boxes in order and stop at the first crossed
+// one (the predicate is their OR).  Either way the result is crosses_any's.
+// (K1b keeps crosses_any: the exit alone measured slower.)
+__device__ bool crosses_any_in_hull(const float* aabb, const float* hull,
+                                    int n, float ox, float oy, float oz,
+                                    float dx, float dy, float dz, float t_min,
+                                    float t_hi) {
+  const float ivx = sinv(dx), ivy = sinv(dy), ivz = sinv(dz);
+  const float hi_bound = t_hi * 1.000001f + 1e-5f;
+  const float t_lo = fminf(t_min, 0.0f);
+  if (n <= 0 ||
+      !slab_crosses(hull, ox, oy, oz, ivx, ivy, ivz, t_lo, hi_bound))
+    return false;
+  for (int b = 0; b < n; ++b)
+    if (slab_crosses(aabb + b * AABB_W, ox, oy, oz, ivx, ivy, ivz, t_lo,
+                     hi_bound))
+      return true;
+  return false;
 }
 
 // Stable block-level pack: the slot of a predicate lane (the block's base
@@ -208,6 +240,17 @@ k1_kernel(const Params p, const float* __restrict__ tables,
           int* __restrict__ offs, int* __restrict__ cnt) {
   extern __shared__ float sm[];
   __shared__ int wsm[PACK_BLOCK / 32 + 1];
+  __shared__ float hull[6];
+  // the predicate boxes' hull: thread j < 6 reduces coordinate j
+  if (threadIdx.x < 6 && p.n_pred > 0) {
+    const int j = threadIdx.x;
+    float h = tables[p.off_pred + j];
+    for (int b = 1; b < p.n_pred; ++b) {
+      const float a = tables[p.off_pred + b * AABB_W + j];
+      h = j < 3 ? fminf(h, a) : fmaxf(h, a);
+    }
+    hull[j] = h;
+  }
   load_tables(sm, tables, p.n_words);
   const float* stri = sm;
   const float* ssph = sm + p.off_ssph;
@@ -282,8 +325,8 @@ k1_kernel(const Params p, const float* __restrict__ tables,
     hf[8 * R + lane] = 0.0f;
     hf[9 * R + lane] = -1.0f;
     const bool valid = (uint32_t)(lane + p.pixel_offset) < (uint32_t)p.n_pix;
-    pred = valid && crosses_any(aabb, p.n_pred, ox, oy, oz, dx, dy, dz,
-                                p.t_min, best_t);
+    pred = valid && crosses_any_in_hull(aabb, hull, p.n_pred, ox, oy, oz,
+                                        dx, dy, dz, p.t_min, best_t);
   }
   const int slot = block_pack(pred, wsm, cnt, offs);
   if (slot >= 0 && slot < p.cap_main) {

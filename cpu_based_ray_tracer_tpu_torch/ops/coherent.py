@@ -10,7 +10,11 @@ list is computed exactly, per tile, ahead of the sweep:
   lists       per tile the crossed clusters in ascending order, then the
               others (ids), and their number (cnts);
   sweep       each tile runs Moller-Trumbore over only its listed clusters
-              -> nearest (t, triangle index).
+              -> nearest (t, triangle index); on the card a ray tests only
+              the rows of the 8-row groups whose padded boxes it crosses,
+              in the listed clusters whose padded boxes it crosses, and
+              each tile's list is cut into slices (the split sweeps' work
+              items), which leave every bit of the result as it is.
 
 Tiles are 32 x 128 pixel rectangles when the caller passes the image shape
 (``hw``) and the rays are the whole image; otherwise row-major strips of
@@ -39,16 +43,20 @@ import torch
 
 from cpu_based_ray_tracer_tpu_torch.ops import intersect
 from cpu_based_ray_tracer_tpu_torch.ops.fused_mesh import (
-    MESH_NF, build_smem_clusters, list_sweep_plain)
+    MESH_NF, SPLIT_MAX, SWEEP_WAVES, build_smem_clusters, crosses_box_plain,
+    split_count, split_sweep_plain)
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
 
 SUB = 32                 # tile rows
 TILE_W = 128             # tile columns
 TILE = SUB * TILE_W      # lanes per tile
 _WORD = 32               # clusters per mask word
+GROUP_ROWS = 8           # rows of a cluster a sub-box covers (csrc/coherent.cu)
+MAX_CLUSTER_SIZE = 256   # rows the sweep kernel's block stages (SWEEP_BLOCK)
 
 # Launches of csrc/coherent.cu since the last reset (callers set them to 0).
 LAUNCHES = {"mask": 0, "sweep": 0}
+_SLOTS: dict = {}          # (device, cs) -> the sweep's resident blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +80,13 @@ class CoherentPack:
 def pack_coherent(scene, cluster_size: int = 128) -> CoherentPack:
     """Cluster the scene's full triangle set (BVH preorder, full clusters)
     for the shortlist kernels, on the scene's device.  Byte-equal to the
-    JAX package's pack."""
+    JAX package's pack.  ``cluster_size`` is a multiple of ``GROUP_ROWS``
+    up to ``MAX_CLUSTER_SIZE`` (the sweep kernel gives a staged cluster's
+    rows one thread each), on every device, so that a pack made on the
+    CPU also runs on the card."""
+    if cluster_size % GROUP_ROWS or not 0 < cluster_size <= MAX_CLUSTER_SIZE:
+        raise ValueError(f"cluster_size must be a multiple of {GROUP_ROWS} "
+                         f"up to {MAX_CLUSTER_SIZE}, not {cluster_size}")
     tr = scene.triangles
     v0, e1, e2 = (x.cpu().numpy().astype(np.float64)
                   for x in (tr.v0, tr.e1, tr.e2))
@@ -263,26 +277,88 @@ def _shortlists(aabb, rays, t_min: float, cnt=None):
 
 # --- shortlist sweep ----------------------------------------------------------
 
-def sweep_plain(tri, rays, ids, cnts, t_min: float):
+def group_boxes_plain(tri):
+    """The sub-boxes the sweep kernel culls by inside a cluster: for each
+    run of GROUP_ROWS consecutive rows of tri (C, CS, MESH_NF), the least
+    and greatest coordinates of its rows' corners v0, v0 + e1, v0 + e2
+    (float32 sums, as the kernel forms them from the staged rows) -> (C,
+    ceil(CS / GROUP_ROWS), 8) f32 min xyz, max xyz, pad.  Each holds its
+    rows' triangles as Moller-Trumbore sees them, to within a rounding of
+    the sums, which the padded box test absorbs."""
+    c, cs = tri.shape[0], tri.shape[1]
+    ng = -(-cs // GROUP_ROWS)
+    v0 = tri[..., 0:3]
+    corners = torch.stack([v0, v0 + tri[..., 3:6], v0 + tri[..., 6:9]], 2)
+    lo = torch.full((c, ng * GROUP_ROWS, 3), float("inf"), device=tri.device)
+    hi = torch.full_like(lo, float("-inf"))
+    lo[:, :cs], hi[:, :cs] = corners.amin(2), corners.amax(2)
+    box = torch.zeros((c, ng, 8), dtype=torch.float32, device=tri.device)
+    box[..., 0:3] = lo.view(c, ng, GROUP_ROWS, 3).amin(2)
+    box[..., 3:6] = hi.view(c, ng, GROUP_ROWS, 3).amax(2)
+    return box
+
+
+def _kernel_cull(tri, aabb, t_min: float):
+    """The sweep kernel's cull for ``list_sweep_plain``: a ray tests a row
+    when it crosses the padded box of the row's cluster and that of the
+    row's group (``crosses_box_plain``, the kernel's ``crosses_box``)."""
+    gb = group_boxes_plain(tri)
+    ng, cs = gb.shape[1], tri.shape[1]
+
+    def cull(cid, rays):                                      # (6, A, lc)
+        a, lc = rays.shape[1], rays.shape[2]
+        c_cross = crosses_box_plain(aabb[cid], rays, t_min, occl=False)
+        g_rays = rays[:, :, None].expand(6, a, ng, lc).reshape(6, a * ng, lc)
+        g_cross = crosses_box_plain(gb[cid].reshape(a * ng, 8), g_rays,
+                                    t_min, occl=False).view(a, ng, lc)
+        return (c_cross[:, None] & g_cross).repeat_interleave(
+            GROUP_ROWS, 1)[:, :cs]                            # (A, CS, lc)
+    return cull
+
+
+def sweep_plain(tri, rays, ids, cnts, t_min: float, k: int = 1, aabb=None):
     """The shortlist sweep in PyTorch: rays (6, Hp, Wp); the table tri (C,
     CS, MESH_NF); per tile ids[tile * C + j] for j < cnts[tile].  Returns
     (2, Hp, Wp): the nearest t (NO_HIT on a miss) and the triangle index of
-    slot 13 (-1.0), as floats."""
+    slot 13 (-1.0), as floats.  ``k``: each tile's list cut into k slices
+    and combined in slice order, as the kernel's work items; with the
+    cluster boxes ``aabb`` (C, 8), each ray tests only the rows whose
+    cluster's and group's padded boxes it crosses, as the kernel does.
+    Neither changes a bit of the result."""
     _check_planes(rays)
     _, hp, wp = rays.shape
     n_cl = tri.shape[0]
-    best_t, slot, _ = list_sweep_plain(
-        tri, _tile_major(rays), ids.view(-1, n_cl), cnts, t_min, occl=False)
+    best_t, slot, _ = split_sweep_plain(
+        tri, _tile_major(rays), ids.view(-1, n_cl), cnts, t_min, k,
+        occl=False, cull=None if aabb is None else _kernel_cull(tri, aabb,
+                                                                t_min))
     idx = tri.reshape(-1, MESH_NF)[slot.clamp(min=0), 13]
     idx = torch.where(slot >= 0, idx, -1.0)
     return _plane_major(torch.stack([best_t, idx]), hp, wp)
 
 
-def _sweep_kernel(tri, rays, ids, cnts, t_min: float):
+def slices(n_lanes: int, n_cl: int, cs: int) -> int:
+    """The list slices K a sweep of n_lanes lanes takes on the current card
+    (``fused_mesh.split_count``'s rule: enough (256-lane block, slice) work
+    items to fill ``SWEEP_WAVES`` times the kernel's resident blocks, at
+    most ``SPLIT_MAX`` and the cluster count)."""
+    key = (torch.cuda.current_device(), cs)
+    if key not in _SLOTS:
+        out = (ctypes.c_int * 2)()
+        rc = _fn("coherent_sweep_slots")(cs, ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError(f"coherent_sweep_slots failed: cudaError {rc}")
+        _SLOTS[key] = out[0] * out[1]
+    return split_count(n_lanes, _SLOTS[key] * SWEEP_WAVES,
+                       max(1, min(SPLIT_MAX, n_cl)))
+
+
+def _sweep_kernel(tri, aabb, rays, ids, cnts, t_min: float,
+                  k: Optional[int] = None):
     """Launch the sweep kernel of csrc/coherent.cu on CUDA tensors; as
-    ``sweep_plain``."""
+    ``sweep_plain``.  ``k``: the list slices (default ``slices``'s)."""
     _check_planes(rays)
-    tensors = (tri, rays, ids, cnts)
+    tensors = (tri, aabb, rays, ids, cnts)
     if not all(isinstance(x, torch.Tensor) and x.is_cuda
                and x.is_contiguous() for x in tensors):
         raise ValueError("the sweep kernel takes contiguous CUDA tensors")
@@ -290,15 +366,29 @@ def _sweep_kernel(tri, rays, ids, cnts, t_min: float):
     n_cl, cs = tri.shape[0], tri.shape[1]
     n_tiles = hp // SUB * (wp // TILE_W)
     if (p != 6 or tri.dtype != torch.float32 or tri.shape[2:] != (MESH_NF,)
+            or cs % GROUP_ROWS or cs > MAX_CLUSTER_SIZE
+            or aabb.dtype != torch.float32 or aabb.shape != (n_cl, 8)
             or ids.dtype != torch.int32 or cnts.dtype != torch.int32
             or ids.numel() != n_tiles * n_cl or cnts.numel() != n_tiles):
         raise ValueError("the sweep kernel takes rays (6, Hp, Wp) f32, tri "
-                         "(C, CS, 16) f32, ids (T * C,) and cnts (T,) i32")
-    out = torch.empty((2, hp, wp), dtype=torch.float32, device=rays.device)
+                         "(C, CS, 16) f32 with CS a multiple of 8 up to 256, "
+                         "aabb (C, 8) f32, ids (T * C,) and cnts (T,) i32")
+    n_lanes = hp * wp
+    k = slices(n_lanes, n_cl, cs) if k is None else int(k)
+    if not 1 <= k <= min(SPLIT_MAX, n_cl):
+        raise ValueError(f"k must be in [1, {min(SPLIT_MAX, n_cl)}], not {k}")
+    dev = rays.device
+    stream = torch.cuda.current_stream(dev)
+    out = torch.empty((2, hp, wp), dtype=torch.float32, device=dev)
+    part = tickets = None
+    if k > 1:
+        part = torch.empty((2 * k * n_lanes,), dtype=torch.int32, device=dev)
+        tickets = kernels.tickets(n_lanes // 256, stream)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     rc = _fn("coherent_sweep")(
-        tri.data_ptr(), n_cl, cs, rays.data_ptr(), hp, wp, ids.data_ptr(),
-        cnts.data_ptr(), float(t_min), out.data_ptr(),
-        torch.cuda.current_stream(rays.device).cuda_stream)
+        tri.data_ptr(), aabb.data_ptr(), n_cl, cs, rays.data_ptr(), hp, wp,
+        ids.data_ptr(), cnts.data_ptr(), float(t_min), k, ptr(part),
+        ptr(tickets), out.data_ptr(), stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"coherent sweep kernel launch failed: "
                            f"cudaError {rc}")
@@ -306,11 +396,11 @@ def _sweep_kernel(tri, rays, ids, cnts, t_min: float):
     return out
 
 
-def sweep(tri, rays, ids, cnts, t_min: float):
+def sweep(tri, aabb, rays, ids, cnts, t_min: float):
     """The shortlist sweep: the kernel for CUDA rays, the plain version for
     CPU rays."""
     if rays.is_cuda:
-        return _sweep_kernel(tri, rays, ids, cnts, t_min)
+        return _sweep_kernel(tri, aabb, rays, ids, cnts, t_min)
     return sweep_plain(tri, rays, ids, cnts, t_min)
 
 
@@ -321,7 +411,8 @@ def nearest(pack: CoherentPack, origin, direction, t_min: float,
     h x w image, tiled over 32 x 128 pixel rectangles."""
     rays, shape = _to_planes(origin, direction, hw)
     ids, cnts = _shortlists(pack.aabb, rays, t_min)
-    out = _from_planes(sweep(pack.tri, rays, ids, cnts, t_min), shape)
+    out = _from_planes(sweep(pack.tri, pack.aabb, rays, ids, cnts, t_min),
+                       shape)
     tt = torch.where(out[0] < intersect.NO_HIT_T, out[0], intersect.NO_HIT_T)
     return tt, out[1].to(torch.int32)
 
@@ -333,9 +424,13 @@ _SIGNATURES = {
     # (aabb, n_cl, rays, n_planes, hp, wp, t_min, cnt, masks, words, stream)
     "coherent_mask": [_P, ctypes.c_int, _P] + [ctypes.c_int] * 3
     + [ctypes.c_float] + [_P] * 4,
-    # (tri, n_cl, cs, rays, hp, wp, ids, cnts, t_min, out, stream)
-    "coherent_sweep": [_P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
-                       ctypes.c_int, _P, _P, ctypes.c_float, _P, _P],
+    # (cs, out)
+    "coherent_sweep_slots": [ctypes.c_int, _P],
+    # (tri, aabb, n_cl, cs, rays, hp, wp, ids, cnts, t_min, K, part,
+    #  tickets, out, stream)
+    "coherent_sweep": [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                       ctypes.c_int, _P, _P, ctypes.c_float, ctypes.c_int,
+                       _P, _P, _P, _P],
 }
 
 

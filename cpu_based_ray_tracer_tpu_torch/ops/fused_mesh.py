@@ -482,7 +482,7 @@ def _k1_plain(tb: _Tables, p: _Params, sf, hf, mr, mr_id, offs, cnt):
 
 
 def list_sweep_plain(tri, rays, ids, cnts, t_min: float, *, occl: bool,
-                     n_live: int | None = None):
+                     n_live: int | None = None, cull=None):
     """The cluster sweep over per-tile lists in PyTorch: the loops of the
     sweep kernels (csrc/cluster_tri.cuh).  rays (P, T, L): the rays of T
     tiles, P = 6 [o d] (nearest) or 7 [o d lim] (occlusion); tile t sweeps
@@ -495,7 +495,10 @@ def list_sweep_plain(tri, rays, ids, cnts, t_min: float, *, occl: bool,
     best_slot (T, L) i64 row of tri.reshape(-1, MESH_NF) or -1, tests) for
     nearest and (occluded (T, L) bool, None, tests) for occlusion; tests
     (T, L) i64 counts the triangle tests the kernels make (an occluded ray
-    stops at its first occluder)."""
+    stops at its first occluder).  ``cull`` (nearest only): cull(cid (A,),
+    rays (6, A, lc)) -> (A, CS, lc) bool, the rows of clusters cid that
+    each ray tests (the others it skips; csrc/coherent.cu's cull, which
+    is conservative, so the results stay the unculled sweep's)."""
     where = torch.where
     dev = rays.device
     cs = tri.shape[1]
@@ -561,6 +564,9 @@ def list_sweep_plain(tri, rays, ids, cnts, t_min: float, *, occl: bool,
             b2 = (s2x * dx + s2y * dy + s2z * dz) * inv
             ok = (okd & (t > t_min) & (b1 >= 0.0) & (b2 >= 0.0)
                   & (1.0 - b1 - b2 >= 0.0))
+            if cull is not None:
+                tested = cull(cid, rays[0:6, tt][:, :, :lc])    # (A, CS, lc)
+                ok &= tested
             tm = where(ok, t, NO_HIT)                           # (A, CS, lc)
             t_c = torch.amin(tm, 1)
             # the strict t < best_t chain keeps the first row at the least t
@@ -570,12 +576,12 @@ def list_sweep_plain(tri, rays, ids, cnts, t_min: float, *, occl: bool,
             best[tt, :lc] = where(better, t_c, bt)
             slot[tt, :lc] = where(better, cid[:, None] * cs + i_c,
                                   slot[tt, :lc])
-            tests[tt, :lc] += cs
+            tests[tt, :lc] += cs if cull is None else tested.sum(1)
     return best, slot, tests
 
 
 def split_sweep_plain(tri, rays, ids, cnts, t_min: float, k: int, *,
-                      occl: bool, n_live: int | None = None):
+                      occl: bool, n_live: int | None = None, cull=None):
     """``list_sweep_plain`` as the split sweep kernel computes it: each
     tile's list cut into ``k`` contiguous slices (slice i: positions
     [n * i // k, n * (i + 1) // k) of a list of n), each slice swept alone,
@@ -594,7 +600,7 @@ def split_sweep_plain(tri, rays, ids, cnts, t_min: float, k: int, *,
         take = torch.clamp(j0[:, None] + pos, max=n_c - 1)
         ids_i = torch.gather(ids.to(torch.int64), 1, take)
         r, s, t = list_sweep_plain(tri, rays, ids_i, j1 - j0, t_min,
-                                   occl=occl, n_live=n_live)
+                                   occl=occl, n_live=n_live, cull=cull)
         if best is None:
             best, slot, tests = r, s, t
             continue

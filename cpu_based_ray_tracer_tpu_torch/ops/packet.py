@@ -55,9 +55,6 @@ _PLAIN_CHUNK = 65536
 LAUNCHES = 0
 # (device index, cluster size) -> the kernel's resident block slots on it.
 _SLOTS: dict = {}
-# (device index, stream) -> the launches' tickets, zero between launches
-# (the kernel's last block of a ray block sets its ticket back to 0).
-_TICKETS: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,17 +244,6 @@ def slices(r: int, n_clusters: int, cs: int) -> int:
                                   k_max)
 
 
-def _tickets(n: int, stream) -> torch.Tensor:
-    """n zero tickets for a launch on ``stream``, from a buffer kept for
-    the stream (the launches on one stream run one after another)."""
-    key = (stream.device.index, stream.cuda_stream)
-    buf = _TICKETS.get(key)
-    if buf is None or buf.shape[0] < n:
-        buf = _TICKETS[key] = torch.zeros((n,), dtype=torch.int32,
-                                          device=stream.device)
-    return buf
-
-
 def _nearest_kernel(clusters: Clusters, origin, direction, t_min: float):
     """Launch csrc/packet.cu on CUDA tensors -> (t (R,), index (R,) i32)."""
     global LAUNCHES
@@ -288,7 +274,7 @@ def _nearest_kernel(clusters: Clusters, origin, direction, t_min: float):
     part = tickets = None
     if k > 1:
         part = torch.empty((2 * k * r,), dtype=torch.int32, device=dev)
-        tickets = _tickets(-(-r // BLOCK), stream)
+        tickets = kernels.tickets(-(-r // BLOCK), stream)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     rc = _fn("packet_nearest")(
         aabb.data_ptr(), tri.data_ptr(), tri_id.data_ptr(),

@@ -31,6 +31,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
+# (device index, stream) -> the split sweeps' tickets, zero between
+# launches (a kernel's last block of a ray block sets its ticket back to 0).
+TICKETS: dict = {}
 _lock = threading.Lock()
 # name -> the compiler's report (ptxas registers / spills) of the last build
 BUILD_LOG: dict[str, str] = {}
@@ -100,3 +103,15 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(_target(name)[1])
         return lib
+
+
+def tickets(n: int, stream) -> torch.Tensor:
+    """n zero tickets for a split sweep's launch on ``stream``, from a
+    buffer kept for the stream (the launches on one stream run one after
+    another, and each leaves its tickets zero)."""
+    key = (stream.device.index, stream.cuda_stream)
+    buf = TICKETS.get(key)
+    if buf is None or buf.shape[0] < n:
+        buf = TICKETS[key] = torch.zeros((n,), dtype=torch.int32,
+                                         device=stream.device)
+    return buf

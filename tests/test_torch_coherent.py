@@ -295,7 +295,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(which):
             coherent._mask_kernel(pack.aabb, rays, T_MIN)
         else:
             ids, cnts = coherent._shortlists(pack.aabb, rays, T_MIN)
-            coherent._sweep_kernel(pack.tri, rays, ids, cnts, T_MIN)
+            coherent._sweep_kernel(pack.tri, pack.aabb, rays, ids, cnts,
+                                   T_MIN)
     assert coherent.LAUNCHES[which] == launches
 
 
@@ -304,3 +305,176 @@ def test_fused_render_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError):
         mesh.render(_fused_bundle(), meshes.bvh_stage_camera(),
                     RenderConfig(width=8, height=8))
+
+
+def _edge_case_pack():
+    """A hand-made pack of four 32-triangle clusters (two row groups each
+    for the kernel's sub-box cull) and three 4,096-ray strip tiles of
+    rays, made with numpy from a seed.
+    - cluster 0: a 4 x 4 grid of half-unit squares in the plane z = 5 (its
+      box flat in z; its row groups meet at x = 0); cluster 1: the same
+      triangles under other indices, so
+      every ray that hits cluster 0 meets two triangles at the same t (the
+      first cluster of the list must win); cluster 2: a grid tilted about
+      the y axis near x = 3; cluster 3: far off, crossed by no ray;
+    - tile 0: rays from the origin toward the grids and toward their edges
+      and corners, within 1e-6 of them, inside and out;
+    - tile 1: rays that graze cluster 0's and cluster 2's boxes: along
+      their faces at heights within 1e-6, nearly parallel to them;
+    - tile 2: rays pointing away from every box: an empty list.
+    -> tri (4, 32, MESH_NF) f32, aabb (4, 8) f32, origins and directions
+    (12288, 3) f32."""
+    g = np.random.default_rng(11)
+    cs, nf = 32, fused_mesh.MESH_NF
+    tri = np.zeros((4, cs, nf), np.float32)
+
+    def grid(corner, du, dv):
+        rows = []
+        for i in range(4):
+            for j in range(4):
+                p = corner + i * du + j * dv
+                rows += [(p, du, du + dv), (p, du + dv, dv)]
+        return rows
+
+    z0 = np.array([-1.0, -1.0, 5.0])
+    flat = grid(z0, np.array([0.5, 0, 0]), np.array([0, 0.5, 0]))
+    tilt = grid(np.array([3.0, -1.0, 1.0]), np.array([0.125, 0, 0.5]),
+                np.array([0, 0.5, 0]))
+    far = grid(np.array([50.0, 50.0, -60.0]), np.array([0.5, 0, 0]),
+               np.array([0, 0, 0.5]))
+    for c, rows in enumerate((flat, flat, tilt, far)):
+        for k, (v0, e1, e2) in enumerate(rows):
+            tri[c, k, 0:3], tri[c, k, 3:6], tri[c, k, 6:9] = v0, e1, e2
+            n = np.cross(e1, e2)
+            tri[c, k, 9:12] = n / np.linalg.norm(n)
+            tri[c, k, 13] = 100 * c + k
+    aabb = np.zeros((4, 8), np.float32)
+    for c in range(4):
+        v = tri[c, :, 0:3].astype(np.float64)
+        vs = np.concatenate([v, v + tri[c, :, 3:6], v + tri[c, :, 6:9]])
+        aabb[c, 0:3] = np.nextafter(vs.min(0).astype(np.float32), -np.inf)
+        aabb[c, 3:6] = np.nextafter(vs.max(0).astype(np.float32), np.inf)
+    n = 4096
+    off = g.uniform(-1e-6, 1e-6, (n, 3))
+    # tile 0: toward the flat grid's points, edges and corners, and the
+    # tilted grid's
+    edge = g.choice([-1.0, 0.0, 1.0], (n, 2))
+    free = g.uniform(-1.0, 1.0, (n, 2))
+    pick = g.integers(0, 3, (n, 2))
+    xy = np.where(pick == 0, edge, free)
+    target = np.where(g.integers(0, 2, (n, 1)) == 0,
+                      np.c_[xy, np.full(n, 5.0)],
+                      np.c_[3.0 + 0.25 * (xy[:, 0] + 1.0), xy[:, 1],
+                            1.0 + (xy[:, 0] + 1.0)]) + off
+    o0, d0 = np.zeros((n, 3)), target
+    # tile 1: along the faces z = 5 and x = 3, at heights within 1e-6, with
+    # a slope of at most 1e-5
+    o1 = g.uniform(-3.0, 3.0, (n, 3))
+    d1 = g.normal(size=(n, 3))
+    face = g.integers(0, 2, n)
+    o1[:, 2] = np.where(face == 0, 5.0 + off[:, 2], o1[:, 2])
+    d1[:, 2] = np.where(face == 0, g.uniform(-1e-5, 1e-5, n), d1[:, 2])
+    o1[:, 0] = np.where(face == 1, 3.0 + off[:, 0], o1[:, 0])
+    d1[:, 0] = np.where(face == 1, g.uniform(-1e-5, 1e-5, n), d1[:, 0])
+    # tile 2: from (0, 0, -10), away from every box
+    o2 = np.tile([0.0, 0.0, -10.0], (n, 1))
+    d2 = np.c_[g.uniform(-0.1, 0.1, (n, 2)), -np.ones(n)]
+    o = np.concatenate([o0, o1, o2]).astype(np.float32)
+    d = np.concatenate([d0, d1, d2]).astype(np.float32)
+    return tri, aabb, o, d
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_case_jax():
+    tri, aabb, o, d = _edge_case_pack()
+    tt, idx = jcoherent.nearest(
+        jnp.asarray(tri.reshape(4, -1, 128)), jnp.asarray(aabb),
+        jnp.asarray(o), jnp.asarray(d), n_cl=4, cs=32, t_min=T_MIN,
+        interpret=True)
+    return np.asarray(tt), np.asarray(idx)
+
+
+def test_sweep_edge_cases_match_jax():
+    """The sweep's semantics through its plain version on the hand-made
+    pack against JAX ``coherent.nearest`` (its Pallas kernels in interpret
+    mode): hit masks and indices equal on all but knife-edge rays (XLA's
+    multiply-adds: the rays aimed within 1e-6 of an edge are knife edges
+    by design), t rtol 1e-5 where both hit; at the exact-t ties between
+    clusters 0 and 1 both pick cluster 0's triangle; the third tile's list
+    is empty and its rays miss."""
+    tri, aabb, o, d = _edge_case_pack()
+    pack = coherent.CoherentPack(tri=torch.as_tensor(tri),
+                                 aabb=torch.as_tensor(aabb), cs=32, n_tri=128)
+    tt, idx = coherent.nearest(pack, torch.as_tensor(o), torch.as_tensor(d),
+                               T_MIN)
+    tt, idx = tt.numpy(), idx.numpy()
+    want_t, want_i = _edge_case_jax()
+    hit = want_t < intersect.NO_HIT_T
+    both = hit & (tt < intersect.NO_HIT_T)
+    assert ((tt < intersect.NO_HIT_T) != hit).mean() < KNIFE_EDGE_SHARE
+    np.testing.assert_allclose(tt[both], want_t[both], rtol=1e-5)
+    assert (idx != want_i).mean() < KNIFE_EDGE_SHARE
+    flat = both & (want_i < 100)
+    assert flat.sum() > 1000 and (idx[flat] < 100).all()
+    assert hit[4096:8192].sum() > 100 and not hit[8192:].any()
+    rays, _ = coherent._to_planes(torch.as_tensor(o), torch.as_tensor(d),
+                                  None)
+    _, cnts = coherent._shortlists(pack.aabb, rays, T_MIN)
+    assert cnts.tolist() == [3, 3, 0]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_sweep_plain_slices_and_cull_are_bit_equal(k):
+    """``sweep_plain`` with each tile's list cut into k slices, and with
+    the kernel's padded-box cull, bit equal to the serial unculled sweep on
+    the hand-made pack's rays (grazing rays, exact-t ties, an empty list)
+    and on the test scene's camera rays (41 clusters)."""
+    tri, aabb, o, d = _edge_case_pack()
+    _, pack, _ = _packs()
+    cam_o, cam_d = _camera_rays(W, H)
+    cases = [(torch.as_tensor(tri), torch.as_tensor(aabb),
+              *coherent._to_planes(torch.as_tensor(o), torch.as_tensor(d),
+                                   None)),
+             (pack.tri, pack.aabb,
+              *coherent._to_planes(cam_o, cam_d, (H, W)))]
+    for tri_, aabb_, rays, _ in cases:
+        ids, cnts = coherent._shortlists(aabb_, rays, T_MIN)
+        want = coherent.sweep_plain(tri_, rays, ids, cnts, T_MIN)
+        assert bool((want[1] >= 0).any())
+        for cull in (None, aabb_):
+            got = coherent.sweep_plain(tri_, rays, ids, cnts, T_MIN, k=k,
+                                       aabb=cull)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("cluster_size", [8, 256])
+def test_sweep_plain_cull_takes_every_cluster_size(cluster_size):
+    """The kernel's cull in ``sweep_plain`` on packs of 8 and of 256
+    triangles a cluster (the least and the most the sweep kernel takes),
+    at 1 and 3 slices: bit equal to the serial unculled sweep of the same
+    pack, and its t bit equal to that of the test's 64-triangle pack."""
+    scene, pack64, _ = _packs()
+    pack = coherent.pack_coherent(scene, cluster_size=cluster_size)
+    assert pack.cs == cluster_size
+    cam_o, cam_d = _camera_rays(W, H)
+    rays, _ = coherent._to_planes(cam_o, cam_d, (H, W))
+    want64 = coherent.sweep_plain(pack64.tri, rays,
+                                  *coherent._shortlists(pack64.aabb, rays,
+                                                        T_MIN), T_MIN)
+    ids, cnts = coherent._shortlists(pack.aabb, rays, T_MIN)
+    want = coherent.sweep_plain(pack.tri, rays, ids, cnts, T_MIN)
+    assert bool((want[1] >= 0).any())
+    assert torch.equal(want[0].view(torch.int32), want64[0].view(torch.int32))
+    for k in (1, 3):
+        got = coherent.sweep_plain(pack.tri, rays, ids, cnts, T_MIN, k=k,
+                                   aabb=pack.aabb)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+
+
+@pytest.mark.parametrize("cluster_size", [0, 12, 264, 512])
+def test_pack_refuses_cluster_sizes_the_kernel_cannot_take(cluster_size):
+    """pack_coherent refuses, on the CPU too, a cluster size that is not a
+    multiple of 8 up to 256, with the rule in its message."""
+    scene, _, _ = _packs()
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        coherent.pack_coherent(scene, cluster_size=cluster_size)

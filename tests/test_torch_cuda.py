@@ -22,6 +22,7 @@ from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused, fused_mesh,
 from cpu_based_ray_tracer_tpu_torch.scene import make_spheres
 from cpu_based_ray_tracer_tpu_torch.scenes import (cornell, meshes, rtiow,
                                                    whitted_scene)
+from cpu_based_ray_tracer_tpu_torch.utils import kernels
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -181,7 +182,7 @@ def test_packet_kernel_slices_match_plain(cuda, r, n_clusters):
         assert torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))
         if k > 1:
             stream = torch.cuda.current_stream(o.device)
-            tickets = packet._TICKETS[(stream.device.index,
+            tickets = kernels.TICKETS[(stream.device.index,
                                        stream.cuda_stream)]
             assert not bool(tickets.any())
     assert bool((want_i >= 0).any())
@@ -245,6 +246,78 @@ def test_fused_mesh_kernel_matches_plain(cuda, op):
             assert torch.equal(ids_k[bk0:bk0 + c], ids_p[bp0:bp0 + c])
     assert torch.equal(bk.hf, bp.hf) and torch.equal(bk.kb, bp.kb)
     assert torch.equal(sf_k, sf) and torch.equal(si_k, si)
+
+
+def _k1_inputs(case, device):
+    """K1's (tables, params, sf) for a case of test_k1_kernel_matches_plain:
+    the 64x64 mesh step's state with its rays replaced ("none", "all"), a
+    ragged slab ("ragged") or a sphere among the smalls ("sphere")."""
+    if case in ("ragged", "sphere"):
+        scene = cornell.cornell_mesh_scene(meshes.icosphere(2), device=device)
+        if case == "sphere":
+            scene = scene.replace(spheres=make_spheres((1.0, 3.0, 2.0), 0.5,
+                                                       0, device))
+        cam = cornell.cornell_camera(device)
+        w, h = (41, 37) if case == "ragged" else (64, 64)
+        cfg = RenderConfig(width=w, height=h, spp=4, max_depth=6)
+        mp = fused_mesh.pack_mesh_scene(scene, cluster_size=64)
+        st = mc.wavefront_init(scene, cam, cfg, SEED, device=device)
+        st, _, _ = fused_mesh.wavefront_steps_fused_mesh_plain(
+            mp, cam, cfg, SEED, st, 3, cap_main=8192, cap_shadow=8192)
+        sf, _ = fused_mesh.state_planes(st)
+        tb = fused_mesh._tables(mp, fused._camera_words(cam))
+        if case == "sphere":
+            assert mp.n_sph == 1
+            return tb, fused_mesh.params(cfg, sf.shape[1]), sf
+        # 1,100 lanes from pixel 600 of 1,517: the last 183 lie past the
+        # image (never predicated), and the last block is partial
+        sf = torch.cat([sf[:, 600:], sf[:, :183]], 1).contiguous()
+        return tb, fused_mesh.params(cfg, sf.shape[1], pixel_offset=600), sf
+    tb, p, sf, _ = _mesh_step_inputs(device)
+    hull = tb.mp.pred_aabb[:, :6]
+    lo, hi = hull[:, :3].amin(0), hull[:, 3:].amax(0)
+    c, ext = (lo + hi) / 2, (hi - lo).max()
+    g = torch.Generator(device).manual_seed(3)
+    n = sf.shape[1]
+    u = torch.randn((n, 3), device=device, generator=g)
+    u = u / torch.linalg.norm(u, dim=1, keepdim=True)
+    # "none": from outside the ball round the hull, away from it; "all":
+    # from 0.6 of its extent off its center, toward the center
+    o = c + (1.0 if case == "none" else 0.6) * ext * u
+    d = u if case == "none" else -u
+    sf = sf.clone()
+    sf[0:3], sf[3:6] = o.T, d.T
+    return tb, p, sf
+
+
+@pytest.mark.parametrize("case", ["none", "all", "ragged", "sphere"])
+def test_k1_kernel_matches_plain(cuda, case):
+    """K1 against _k1_plain: no lane predicated (every ray leaves the
+    predicate boxes' hull), every lane predicated (every ray aims through
+    the mesh), a ragged slab at pixel_offset 600 (lanes past the image),
+    and a sphere among the smalls: the ten hf planes bit equal, the packed
+    lanes and rays as sets, each block's count, and the population."""
+    tb, p, sf = _k1_inputs(case, cuda)
+    r = sf.shape[1]
+    fm = fused_mesh
+    bp = fm.StepBuffers(*[torch.zeros_like(x) for x in
+                          fm.step_buffers(r, p, 1, cuda)])
+    bk = fm.StepBuffers(*[x.clone() for x in bp])
+    si = torch.zeros((4, r), dtype=torch.int32, device=cuda)
+    launches = fm.LAUNCHES["k1"]
+    fm.run_op(fm.KERNEL_OPS, "k1", tb, p, SEED, sf, si, bk)
+    fm.run_op(fm.PLAIN_OPS, "k1", tb, p, SEED, sf, si, bp)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES["k1"] == launches + 1
+    n = int(bp.cnt[0, 0])
+    valid = min(r, p.n_pix - p.pixel_offset)
+    assert {"none": n == 0, "all": n == valid}.get(case, 0 < n < valid), n
+    assert torch.equal(bk.cnt, bp.cnt)
+    assert torch.equal(bk.hf.view(torch.int32), bp.hf.view(torch.int32))
+    order = torch.argsort(bk.mr_id[:n])
+    assert torch.equal(bk.mr_id[:n][order], bp.mr_id[:n])
+    assert torch.equal(bk.mr[:, :n][:, order], bp.mr[:, :n])
+    assert torch.equal(bk.offs1[:, 1], bp.offs1[:, 1])
 
 
 @pytest.mark.parametrize("stop_after", [0, 2])
@@ -360,18 +433,61 @@ def test_coherent_mask_matches_plain(cuda, case):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("case", ["camera", "packed"])
+@pytest.mark.parametrize("case", ["camera", "packed", "compacted"])
 def test_coherent_sweep_matches_plain(cuda, case):
-    """The sweep kernel against sweep_plain on the same lists: t bit equal,
-    indices equal."""
-    pack, rays, cnt = _coherent_rays(case, cuda)
+    """The sweep kernel against sweep_plain (unsliced, no cull) on the same
+    lists, at the default slice count and at each of 1, 2, 3, 7 and 16
+    slices: t and indices bit equal, and the tickets left zero.
+    "compacted": the shadow rays of the camera rays' hits toward a point
+    light, compacted into strip tiles (as a caller packs them)."""
+    pack, rays, cnt = _coherent_rays(
+        "camera" if case == "compacted" else case, cuda)
+    if case == "compacted":
+        o, d = (rays[0:3, :, :64].reshape(3, -1).T.contiguous(),
+                rays[3:6, :, :64].reshape(3, -1).T.contiguous())
+        t, _ = coherent.nearest(pack, o, d, 1e-3)
+        hit = t < 1e30
+        p = o[hit] + t[hit, None] * d[hit]
+        light = torch.tensor([0.5, 6.0, 2.0], device=cuda)
+        sd = light - p
+        sd = sd / torch.linalg.norm(sd, dim=1, keepdim=True)
+        rays, _ = coherent._to_planes(p.contiguous(), sd.contiguous(), None)
     ids, cnts = coherent._shortlists(pack.aabb, rays, 1e-3, cnt)
-    launches = coherent.LAUNCHES["sweep"]
-    got = coherent._sweep_kernel(pack.tri, rays, ids, cnts, 1e-3)
     want = coherent.sweep_plain(pack.tri, rays, ids, cnts, 1e-3)
-    torch.cuda.synchronize()
-    assert coherent.LAUNCHES["sweep"] == launches + 1
-    assert torch.equal(got, want) and bool((want[1] >= 0).any())
+    assert bool((want[1] >= 0).any()) and int(cnts.min()) >= 0
+    stream = torch.cuda.current_stream(cuda)
+    for k in (None, 1, 2, 3, 7, 16):
+        launches = coherent.LAUNCHES["sweep"]
+        got = coherent._sweep_kernel(pack.tri, pack.aabb, rays, ids, cnts,
+                                     1e-3, k=k)
+        torch.cuda.synchronize()
+        assert coherent.LAUNCHES["sweep"] == launches + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+        tickets = kernels.TICKETS.get((stream.device.index,
+                                       stream.cuda_stream))
+        assert tickets is None or not bool(tickets.any())
+
+
+@pytest.mark.parametrize("cluster_size", [8, 256])
+def test_coherent_sweep_takes_every_cluster_size(cuda, cluster_size):
+    """The sweep kernel on packs of 8 and of 256 triangles a cluster (the
+    least and the most it takes: one thread a row) against sweep_plain at
+    1 and 3 slices: t and indices bit equal."""
+    scene = meshes.bvh_stage_scene(device=cuda)
+    pack = coherent.pack_coherent(scene, cluster_size=cluster_size)
+    assert pack.cs == cluster_size
+    cam = meshes.bvh_stage_camera(cuda)
+    d = camera.perspective_rays(cam, 64, 64).reshape(-1, 3).contiguous()
+    o = cam.position.expand(d.shape).contiguous()
+    rays, _ = coherent._to_planes(o, d, (64, 64))
+    ids, cnts = coherent._shortlists(pack.aabb, rays, 1e-3)
+    want = coherent.sweep_plain(pack.tri, rays, ids, cnts, 1e-3)
+    assert bool((want[1] >= 0).any())
+    for k in (1, 3):
+        got = coherent._sweep_kernel(pack.tri, pack.aabb, rays, ids, cnts,
+                                     1e-3, k=k)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
 
 
 @pytest.mark.parametrize("op", ["nearest", "occl"])

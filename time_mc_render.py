@@ -5,36 +5,29 @@ The launches are those of ``models.monte_carlo.render_turbo_exact`` on the
 Cornell box at 896x896, 4 spp, depth 16, RR 0.8 (bench.py's key): from
 ``wavefront_init``, chunks of 32, 64, ... steps in the ``stop_after`` mode
 until every lane has its 4 samples.  Each checkout replays them alone from
-the same initial state, timed with CUDA events (the first replay warms
-up), and writes the state planes they leave; every checkout must leave
-the same planes, bit for bit.  To compare two commits, unpack each into a
-directory that .gitignore lists and give them as A B B A:
+the same initial state, ``repeats`` times, timed with CUDA events (a first
+replay warms up), and writes the state planes they leave; every checkout
+must leave the same planes, bit for bit.  To compare two commits, unpack
+each into a directory that .gitignore lists and give them as A B B A:
 
     python3 time_mc_render.py build/parent . . build/parent
 
-Needs a CUDA card.  Prints one JSON line a run, then the card's name and
-power limit, then a summary line; the state planes go to
-build/time_mc_render/.
+Needs a CUDA card.  The output is time_checkouts.py's; the state planes
+go to build/time_mc_render/.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
-import sys
+import time_checkouts
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-OUT = os.path.join(HERE, "build", "time_mc_render")
 SEED = 4070199207          # render_key(0), bench.py's key
 WIDTH = HEIGHT = 896
 SPP, DEPTH, RR = 4, 16, 0.8
 
 
-def one(root: str, out: str, n_iters: int) -> dict:
+def one(root: str, out: str, repeats: int) -> dict:
     """Time the render's launches with the port found under ``root``."""
-    sys.path.insert(0, os.path.abspath(root))
+    time_checkouts.use_checkout(root)
     import torch
 
     from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
@@ -42,9 +35,6 @@ def one(root: str, out: str, n_iters: int) -> dict:
     from cpu_based_ray_tracer_tpu_torch.ops import fused, fused_mesh
     from cpu_based_ray_tracer_tpu_torch.scenes import cornell
 
-    pkg = os.path.dirname(fused.__file__)
-    if not pkg.startswith(os.path.abspath(root) + os.sep):
-        raise RuntimeError(f"imported the port from {pkg}, not from {root}")
     dev = torch.device("cuda")
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=SPP, max_depth=DEPTH,
                        rr_survival=RR)
@@ -69,7 +59,7 @@ def one(root: str, out: str, n_iters: int) -> dict:
         chunk *= 2
     ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     times = []
-    for i in range(n_iters + 1):                        # the first warms up
+    for i in range(repeats + 1):                        # the first warms up
         sf.copy_(sf0)
         si.copy_(si0)
         torch.cuda.synchronize()
@@ -86,52 +76,6 @@ def one(root: str, out: str, n_iters: int) -> dict:
                 ms_mean=sum(times) / len(times), ms_min=min(times))
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("roots", nargs="+", help="checkouts of the repo")
-    ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--out", help=argparse.SUPPRESS)
-    a = ap.parse_args()
-    if a.one:
-        print(json.dumps(one(a.roots[0], a.out, a.iters)), flush=True)
-        return
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("time_mc_render: CUDA is not available")
-    os.makedirs(OUT, exist_ok=True)
-    runs = []
-    for i, root in enumerate(a.roots):
-        out = os.path.join(OUT, f"run{i}.pt")
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__),
-             os.path.abspath(root), "--one",
-             "--out", out, "--iters", str(a.iters)],
-            capture_output=True, text=True, timeout=900,
-            cwd=os.path.abspath(root))
-        if proc.returncode != 0:
-            raise SystemExit(f"run {i} ({root}) failed:\n{proc.stderr}")
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        runs.append((json.loads(line), torch.load(out)))
-    ref = runs[0][1]
-    equal = all(torch.equal(st["sf"].view(torch.int32),
-                            ref["sf"].view(torch.int32))
-                and torch.equal(st["si"], ref["si"])
-                for _, st in runs)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    print(json.dumps({"ok": equal, "planes_bit_equal": equal,
-                      "ms_mean": {f"{i}:{r['root']}": r["ms_mean"]
-                                  for i, (r, _) in enumerate(runs)}}),
-          flush=True)
-    if not equal:
-        raise SystemExit("the checkouts leave different state planes")
-
-
 if __name__ == "__main__":
-    main()
+    time_checkouts.main(__file__, __doc__, one, ("ms",), repeats=10,
+                        equal_across=True)

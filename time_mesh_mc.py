@@ -24,23 +24,16 @@ and give them as A B B A:
 
     python3 time_mesh_mc.py build/parent . . build/parent
 
-Needs a CUDA card.  Prints one JSON line a run, then the card's name and
-power limit, then a summary line (each metric's median and spread per
-checkout); the images go to build/time_mesh_mc/.
+Needs a CUDA card.  The output is time_checkouts.py's; the images go to
+build/time_mesh_mc/.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import statistics
-import subprocess
-import sys
 import time
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-OUT = os.path.join(HERE, "build", "time_mesh_mc")
+import time_checkouts
+
 SEED = 4070199207          # render_key(0), bench.py's key
 WIDTH = HEIGHT = 896
 METRICS = ("step_ms", "occl_ms", "occl_busy_ms", "render_s", "render_mc_s")
@@ -48,7 +41,7 @@ METRICS = ("step_ms", "occl_ms", "occl_busy_ms", "render_s", "render_mc_s")
 
 def one(root: str, out: str, repeats: int) -> dict:
     """Measure the paths with the port found under ``root``."""
-    sys.path.insert(0, os.path.abspath(root))
+    time_checkouts.use_checkout(root)
     import dataclasses
 
     import torch
@@ -60,9 +53,6 @@ def one(root: str, out: str, repeats: int) -> dict:
     from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
     from cpu_based_ray_tracer_tpu_torch.scenes import cornell
 
-    pkg = os.path.dirname(fm.__file__)
-    if not pkg.startswith(os.path.abspath(root) + os.sep):
-        raise RuntimeError(f"imported the port from {pkg}, not from {root}")
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     cfg = RenderConfig(width=WIDTH, height=HEIGHT, spp=4, max_depth=16,
@@ -137,63 +127,6 @@ def one(root: str, out: str, repeats: int) -> dict:
     return dict(root=root, repeats=repeats, **res)
 
 
-def spread(xs) -> dict:
-    return dict(median=statistics.median(xs), min=min(xs), max=max(xs))
-
-
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("roots", nargs="+", help="checkouts of the repo")
-    ap.add_argument("--repeats", type=int, default=5)
-    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--out", help=argparse.SUPPRESS)
-    a = ap.parse_args()
-    if a.one:
-        print(json.dumps(one(a.roots[0], a.out, a.repeats)), flush=True)
-        return
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SystemExit("time_mesh_mc: CUDA is not available")
-    os.makedirs(OUT, exist_ok=True)
-    runs = []
-    for i, root in enumerate(a.roots):
-        out = os.path.join(OUT, f"run{i}.pt")
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__),
-             os.path.abspath(root), "--one",
-             "--out", out, "--repeats", str(a.repeats)],
-            capture_output=True, text=True, timeout=900,
-            cwd=os.path.abspath(root))
-        if proc.returncode != 0:
-            raise SystemExit(f"run {i} ({root}) failed:\n{proc.stderr}")
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        runs.append((json.loads(line), torch.load(out)))
-    same = lambda x, y: all(torch.equal(x[k].view(torch.int32),  # noqa: E731
-                                        y[k].view(torch.int32)) for k in x)
-    by_root, first = {}, {}
-    for res, imgs in runs:
-        by_root.setdefault(res["root"], []).append(res)
-        first.setdefault(res["root"], imgs)
-        if not same(imgs, first[res["root"]]):
-            raise SystemExit(f"two runs of {res['root']} gave other images")
-    roots = list(first)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    print(json.dumps({
-        "ok": True,
-        "images_equal_across_checkouts": {
-            k: all(torch.equal(first[x][k].view(torch.int32),
-                               first[roots[0]][k].view(torch.int32))
-                   for x in roots) for k in ("render_s", "render_mc_s")},
-        "spread": {root: {m: spread([x for res in rs for x in res[m]])
-                          for m in METRICS}
-                   for root, rs in by_root.items()}}), flush=True)
-
-
 if __name__ == "__main__":
-    main()
+    time_checkouts.main(__file__, __doc__, one, METRICS, repeats=5,
+                        equal_across=False)
