@@ -12,8 +12,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. device     the card's name, power limit and clocks (nvidia-smi);
 2. build      every csrc/*.cu of the port, one nvcc each, started together,
               into build/torch_kernels/; then sass: cuobjdump -sass of
-              fused_mc, fused_mesh and coherent (instructions per kernel;
-              the listing under build/chip_smoke/);
+              fused_mc, fused_mesh, coherent and fused_whitted
+              (instructions per kernel; the listing under
+              build/chip_smoke/);
 3. parity     the fused_mc kernel against its plain version: Cornell at
               896x896 from wavefront_init for 32 steps (plain mode and
               stop_after=4), and Cornell + one sphere at 256x256; then
@@ -58,9 +59,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               method="brute" on cornell_mesh_scene, 128x128, 4 spp, depth 16
               (every pixel's radiance within 2e-3);
 13. whitted_speed, packet_speed  each new kernel alone with CUDA events
-              beside its plain version: ms per 896x896 Whitted frame, ms per
-              802,816-ray packet pass on camera and on shadow rays and per
-              16,384-ray launch;
+              beside its plain version: ms per 896x896 Whitted frame (with
+              the plain version's tally of each level's live slots by kind
+              and the slot sections and branches 32-lane warps would run
+              one slot at a time), ms per 802,816-ray packet pass on camera
+              and on shadow rays and per 16,384-ray launch;
 14. mesh_fused_parity  on cornell_mesh_scene at 896x896 from
               wavefront_init: each of the five csrc/fused_mesh.cu entry
               points against its plain version for one step (outputs bit
@@ -98,14 +101,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               methods' frames timed warm (median, min, max of 7);
 19. coherent_parity  csrc/coherent.cu's mask and sweep kernels against
               mask_plain / sweep_plain (masks, tile words, ids, counts, t
-              and indices equal; the sweep at its default slice count and
-              at each of SWEEP_SLICES) on the camera rays, those shadow
-              rays, and the hit pixels' shadow rays compacted (strip
-              tiles);
+              and indices equal: the lists the mask kernel writes against
+              _lists of the plain words, mask_plain's word and group box
+              cull against the flat mask; the sweep at its default slice
+              count and at each of SWEEP_SLICES) on the camera rays, those
+              shadow rays, and the hit pixels' shadow rays compacted
+              (strip tiles);
 20. coherent_speed  the two kernels alone per 896x896 camera pass beside
-              packet.cu on the same rays (the sweep at each slice count,
+              packet.cu on the same rays (the mask kernel as the lists run
+              it, with and without the lists, and the host's wall around
+              back-to-back shortlist calls; the sweep at each slice count,
               also on the shadow and compacted rays), the plain versions,
-              the bounds (the sweep's: each ray's box tests over its
+              the bounds (the mask's: each lane's tests of the cluster
+              boxes it crosses, at least one, against its bytes; beside it
+              the flat count, every lane against every cluster, and the
+              kernel's own tests a lane and a warp; the sweep's: each
+              ray's box tests over its
               tile's list and the rows whose triangle's box it crosses;
               beside it the kernel's own work, its 8-row groups, and the
               crossed and listed clusters' triangles; the boxes, groups
@@ -116,11 +127,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               render_turbo_mesh_exact 896x896 8 spp; 16 steps with
               resident=False against resident=True (integer state,
               populations, overflow 0); one step of each shortlist sweep
-              against its plain version, with the list lengths;
+              against its plain version, and the mask kernel on each
+              sweep's packed rays against the plain mask pass and lists
+              (planes, tile words, ids, counts equal), with the list
+              lengths;
 22. sl_speed  the 164k cell timed as bench_passes' scale_case (caps rp//8
               and rp//16, 16 steps a call, 3 calls after a warm-up) in both
-              modes; each shortlist sweep and the mask pass alone beside the
-              all-cluster sweep on the same packed rays, and the bounds;
+              modes; each shortlist sweep and the mask pass alone (with and
+              without the lists) beside the all-cluster sweep on the same
+              packed rays, and the bounds (the mask's as in 20);
               each shortlist sweep split and unsplit as in 17 (the slices
               K, the grid, blocks per SM; every output bit equal to the
               plain one) and the occlusion sweep's triangle tests, serial
@@ -295,7 +310,8 @@ def build_phase():
                 for k, v in kernels.BUILD_LOG.items()})
 
 
-def sass_phase(names=("fused_mc", "fused_mesh", "coherent")) -> dict:
+def sass_phase(names=("fused_mc", "fused_mesh", "coherent",
+                      "fused_whitted")) -> dict:
     """cuobjdump -sass of the built libraries: each kernel's static
     instruction count, and its loops (a branch back to an earlier address)
     of 30 or more instructions with their f32 arithmetic, shared loads and
@@ -1098,6 +1114,13 @@ def whitted_speed_phase(dev, cfg, counts, smi, n_iters=20) -> dict:
     n_pix = cfg.width * cfg.height
     ops = whitted_ops(wp.n_tri, wp.n_sph, wp.n_light, counts)
     res = dict(ms=ms, plain_ms=plain_ms, **bound(ops, n_pix * (12 + 16)))
+    levels = counts.get("levels", [])
+    # per level: the live slots (the kernel's items) against the lane-slots
+    # 32-lane warps run one slot section at a time, and the branches
+    res["items_per_level"] = [lv["live"] for lv in levels]
+    res["warp_lane_slots_per_level"] = [32 * lv["warp_slots"]
+                                        for lv in levels]
+    res["warp_branches_per_level"] = [lv["warp_branches"] for lv in levels]
     emit(phase="whitted_speed", nvidia_smi=smi, pixels=n_pix,
          frames_per_s=1e3 / ms, ops_per_frame=ops, work=counts, **res)
     return res
@@ -1443,6 +1466,86 @@ def sweep_tests(mp, p, rays, cnt, ray_tests, listed) -> dict:
                 boxes_listed_per_ray=float(listed.double().mean()))
 
 
+def box_bits(aabb, planes, t_min: float, cnt=None):
+    """(B, n) bool: which of the boxes aabb (B, 8) each of the first n lanes
+    of the (P, H, W) ray planes crosses (the first cnt; all without cnt):
+    the mask kernel's planes, unpacked."""
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+
+    masks, _ = coherent._mask_kernel(aabb, planes, t_min, cnt, planes=True)
+    lanes = planes.shape[1] * planes.shape[2]
+    n = lanes if cnt is None else min(int(cnt), lanes)
+    m = masks.reshape(masks.shape[0], -1)[:, :n].to(torch.int64) & 0xFFFFFFFF
+    shift = torch.arange(32, device=m.device)[None, :, None]
+    return ((m[:, None, :] >> shift) & 1).bool().reshape(-1, n)[
+        :aabb.shape[0]]
+
+
+def mask_work(aabb, planes, t_min: float, cnt=None) -> dict:
+    """The mask pass's work on the first cnt lanes of these ray planes:
+    each lane's slab tests of the cluster boxes it crosses, at least one a
+    lane (``needed_tests``: what any mask pass must test; it does not move
+    with the kernel's boxes); every lane against every cluster
+    (``flat_tests``: a mask without a cull); and the kernel's own tests,
+    a lane's and its warp's: each word box, the group boxes of the words
+    it crosses, the clusters of the groups it crosses (``lane_tests``,
+    ``warp_tests``: 32 lanes each for every box a lane of the warp
+    crosses)."""
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+
+    n_cl = aabb.shape[0]
+    lv = coherent.level_boxes(aabb)
+    b32, g_per = lv.shape[0], coherent.MASK_GROUP
+    ng = -(-n_cl // g_per)
+    words = lv[:, 0].contiguous()
+    groups = lv[:, 1:].reshape(-1, 8)[:ng].contiguous()
+    # what each crossed word and group makes a lane test inside it
+    w_cost = torch.tensor([min(coherent.LEVEL_ROWS - 1,
+                               -(-(n_cl - 32 * w) // g_per))
+                           for w in range(b32)], device=aabb.device)
+    g_cost = torch.tensor([min(g_per, n_cl - g_per * g) for g in range(ng)],
+                          device=aabb.device)
+    c_bits = box_bits(aabb, planes, t_min, cnt)
+    w_bits = box_bits(words, planes, t_min, cnt)
+    g_bits = box_bits(groups, planes, t_min, cnt)
+    n = c_bits.shape[1]
+    crossed = c_bits.sum(0)
+
+    def per_warp(bits):
+        nw = -(-n // 32)
+        pad = torch.zeros((bits.shape[0], nw * 32), dtype=torch.bool,
+                          device=bits.device)
+        pad[:, :n] = bits
+        return pad.view(bits.shape[0], nw, 32).any(2)
+    lane = (b32 * n + int((w_bits * w_cost[:, None]).sum())
+            + int((g_bits * g_cost[:, None]).sum()))
+    warp = 32 * (b32 * -(-n // 32)
+                 + int((per_warp(w_bits) * w_cost[:, None]).sum())
+                 + int((per_warp(g_bits) * g_cost[:, None]).sum()))
+    return dict(lanes=n, needed_tests=int(crossed.clamp(min=1).sum()),
+                flat_tests=n * n_cl, lane_tests=lane, warp_tests=warp,
+                boxes_crossed_per_lane=float(crossed.double().mean())
+                if n else 0.0,
+                words_crossed_per_lane=float(w_bits.sum(0).double().mean())
+                if n else 0.0,
+                groups_crossed_per_lane=float(g_bits.sum(0).double().mean())
+                if n else 0.0)
+
+
+def mask_bound(work: dict, n_planes: int, n_cl: int, n_tiles: int) -> dict:
+    """The mask pass's bound: SLAB_OPS per needed test against its bytes
+    (each lane's ray planes read, the boxes read, the tile words and the
+    lists written); beside it the same at the flat count
+    (``flat_bound_ms``) and at the kernel's own lane and warp tests."""
+    nbytes = (work["lanes"] * n_planes * 4 + n_cl * 32
+              + n_tiles * (-(-n_cl // 32) + n_cl + 1) * 4)
+    res = bound(work["needed_tests"] * SLAB_OPS, nbytes)
+    for k in ("flat", "lane", "warp"):
+        res[f"{k}_bound_ms"] = bound(work[f"{k}_tests"] * SLAB_OPS,
+                                     nbytes)["bound_ms"]
+    return res
+
+
 def k1_box_tests(mp, p, sf, best_t) -> int:
     """The slab tests K1's mesh predicate needs on these lanes (rays sf[0:6],
     the smalls' nearest t best_t): the predicate boxes' hull for every
@@ -1724,11 +1827,8 @@ def rows_crossed(rays, tri, t_min: float, chunk: int = 8192):
 
 
 def coherent_bounds(rays, tri, aabb, cnts, ids, t_min: float) -> dict:
-    """(ops, bytes) of the mask pass and of the shortlist sweep over these
-    ray planes, and the sweep's work.  The mask: SLAB_OPS per lane and
-    cluster against the rays, AABBs and tile words (the lists' pass writes
-    no mask planes).  The sweep: each lane's box tests over its tile's
-    list (SLAB_OPS each) and TRI_OPS per row whose triangle's box it
+    """(ops, bytes) of the shortlist sweep over these ray planes, and its
+    work: each lane's box tests over its tile's list (SLAB_OPS each) and TRI_OPS per row whose triangle's box it
     crosses (``rows_crossed``), against the rays, the lists, the clusters
     listed anywhere and the (t, index) planes.  Beside it, each as a
     bound: the kernel's own work (the rows of the 8-row groups whose boxes
@@ -1737,9 +1837,9 @@ def coherent_bounds(rays, tri, aabb, cnts, ids, t_min: float) -> dict:
     triangle of its tile's list, the count of PR 8's bound)."""
     from cpu_based_ray_tracer_tpu_torch.ops import coherent
 
-    p, hp, wp = rays.shape
+    _, hp, wp = rays.shape
     n_cl, cs = tri.shape[0], tri.shape[1]
-    lanes, n_tiles, b32 = hp * wp, cnts.numel(), -(-n_cl // 32)
+    lanes, n_tiles = hp * wp, cnts.numel()
     rows = rows_crossed(rays, tri, t_min)
     gbox = coherent.group_boxes_plain(tri)
     n_groups = gbox.shape[1]
@@ -1770,8 +1870,6 @@ def coherent_bounds(rays, tri, aabb, cnts, ids, t_min: float) -> dict:
             work[tests] * TRI_OPS + work[boxes] * SLAB_OPS,
             sweep_bytes)["bound_ms"]
     return {
-        "mask": (lanes * n_cl * SLAB_OPS,
-                 lanes * p * 4 + n_cl * 32 + n_tiles * b32 * 4),
         "sweep": (work["needed_triangle_tests"] * TRI_OPS
                   + work["box_tests"] * SLAB_OPS, sweep_bytes),
         "work": work}
@@ -1899,18 +1997,23 @@ def coherent_parity_phase(dev, cfg, shadow) -> tuple:
     swept = {}
     for name, (oo, dd, hw_) in cases.items():
         rays, _ = coherent._to_planes(oo, dd, hw_)
-        mk, wk = coherent._mask_kernel(pack.aabb, rays, cfg.t_min)
-        _, wk0 = coherent._mask_kernel(pack.aabb, rays, cfg.t_min,
-                                       planes=False)   # as the lists run it
+        mk, wk = coherent._mask_kernel(pack.aabb, rays, cfg.t_min,
+                                       boxes=pack.boxes)
+        # as the lists run it: no planes, the lists in the same launch
+        _, wk0, ids_k, cnts_k = coherent._mask_kernel(
+            pack.aabb, rays, cfg.t_min, planes=False, boxes=pack.boxes,
+            lists=True)
         mp_, wp_ = coherent.mask_plain(pack.aabb, rays, cfg.t_min)
-        ids_k, cnts_k = coherent._lists(wk, pack.n_clusters)
+        mc_, wc_ = coherent.mask_plain(pack.aabb, rays, cfg.t_min,
+                                       boxes=pack.boxes)
         ids, cnts = coherent._lists(wp_, pack.n_clusters)
         out_p = coherent.sweep_plain(pack.tri, rays, ids, cnts, cfg.t_min)
         k_default = coherent.slices(rays.shape[1] * rays.shape[2],
                                     pack.n_clusters, pack.cs)
         same = {"masks": torch.equal(mk, mp_), "tile_words": torch.equal(wk, wp_),
                 "tile_words_no_planes": torch.equal(wk0, wp_),
-                "ids": torch.equal(ids_k, ids), "cnts": torch.equal(cnts_k, cnts)}
+                "ids": torch.equal(ids_k, ids), "cnts": torch.equal(cnts_k, cnts),
+                "plain_cull": torch.equal(mc_, mp_) and torch.equal(wc_, wp_)}
         err = 0.0
         hits = out_p[0] < NO_HIT_T
         # the sweep at the default slice count and at each of SWEEP_SLICES:
@@ -1952,11 +2055,26 @@ def coherent_speed_phase(dev, cfg, pack, cam_rays, swept, smi,
     o, d = cam_rays
     rays, _ = coherent._to_planes(o, d, (cfg.height, cfg.width))
     t_min = cfg.t_min
-    mask = functools.partial(coherent._mask_kernel, pack.aabb, rays, t_min,
-                             planes=False)         # as the lists' pass runs
-    mask()                                                      # warm-up
-    mask_ms = timed(lambda: [mask() for _ in range(n_iters)]) / n_iters
-    ids, cnts = coherent._shortlists(pack.aabb, rays, t_min)
+    # the mask kernel as the lists run it (one launch: the tile words and
+    # the lists), and without the lists (the tile words alone)
+    lists = functools.partial(coherent._shortlists, pack.aabb, rays, t_min,
+                              boxes=pack.boxes)
+    words_only = functools.partial(coherent._mask_kernel, pack.aabb, rays,
+                                   t_min, planes=False, boxes=pack.boxes)
+    lists()
+    words_only()                                                # warm-up
+    mask_ms = timed(lambda: [lists() for _ in range(n_iters)]) / n_iters
+    words_ms = timed(lambda: [words_only() for _ in range(n_iters)]
+                     ) / n_iters
+    # the host's wall around back-to-back calls on an idle card: what
+    # mesh.render, host-bound, waits for the lists
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n_iters):
+        lists()
+    sync(dev)
+    lists_wall_ms = (time.perf_counter() - t0) / n_iters * 1e3
+    ids, cnts = lists()
     lanes = rays.shape[1] * rays.shape[2]
     k_default = coherent.slices(lanes, pack.n_clusters, pack.cs)
     sweep_ms = {}
@@ -1982,8 +2100,8 @@ def coherent_speed_phase(dev, cfg, pack, cam_rays, swept, smi,
             sweep()                                             # warm-up
             by_case[name]["ms_by_slices"][k] = timed(
                 lambda: [sweep() for _ in range(n_iters)]) / n_iters
-    mask_plain_ms = timed(lambda: coherent.mask_plain(pack.aabb, rays, t_min,
-                                                      planes=False))
+    mask_plain_ms = timed(lambda: coherent._lists(coherent.mask_plain(
+        pack.aabb, rays, t_min, planes=False)[1], pack.n_clusters))
     sweep_plain_ms = timed(lambda: coherent.sweep_plain(pack.tri, rays, ids,
                                                         cnts, t_min))
     cl = mesh.prepare(meshes.bvh_stage_scene(BVH_SUBDIVISIONS,
@@ -1993,8 +2111,12 @@ def coherent_speed_phase(dev, cfg, pack, cam_rays, swept, smi,
                                for _ in range(n_iters)]) / n_iters
     bounds = coherent_bounds(rays, pack.tri, pack.aabb, cnts, ids, t_min)
     work = bounds["work"]
+    m_work = mask_work(pack.aabb, rays, t_min)
     res = {"mask": dict(ms=mask_ms, plain_ms=mask_plain_ms,
-                        **bound(*bounds["mask"])),
+                        words_only_ms=words_ms, lists_wall_ms=lists_wall_ms,
+                        work=m_work,
+                        **mask_bound(m_work, rays.shape[0], pack.n_clusters,
+                                     cnts.numel())),
            "sweep": dict(ms=sweep_ms[k_default], plain_ms=sweep_plain_ms,
                          slices=k_default, unsplit_ms=sweep_ms[1],
                          ms_by_slices=sweep_ms,
@@ -2037,9 +2159,10 @@ def mesh_fused_164k_phase(dev, cfg, n_steps=16) -> dict:
     """The 164k cell: the auto rule; render_turbo_mesh_exact (the main path,
     counters set to 0 just before and read just after); n_steps from
     wavefront_init with resident=False against resident=True; then one
-    step of each shortlist sweep against its plain version, with the list
-    lengths.  Returns the main path's launches and the sweeps' max abs
-    errors."""
+    step of each shortlist sweep against its plain version, and the mask
+    kernel on each sweep's packed rays against the plain mask pass and
+    lists, with the list lengths.  Returns the main path's launches and
+    the max abs errors."""
     from cpu_based_ray_tracer_tpu_torch.ops import coherent
     from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
 
@@ -2120,13 +2243,27 @@ def mesh_fused_164k_phase(dev, cfg, n_steps=16) -> dict:
         n = min(int(bp.cnt[0, k]), bp.mr.shape[1] if k == 0
                 else bp.sr.shape[1])
         rays = bp.mr if k == 0 else bp.sr
-        _, cnts = fm._lists(tb, p, rays, bp.cnt[0, k:k + 1], kernel=True)
+        # the mask kernel on this pass's packed rays against the plain
+        # mask pass and lists: planes, tile words, ids and counts
+        planes, c = rays.view(rays.shape[0], -1, 128), bp.cnt[0, k:k + 1]
+        mk, wk, ids_k, cnts_k = coherent._mask_kernel(
+            mp.smc_aabb, planes, p.t_min, c, boxes=mp.smc_level_boxes,
+            lists=True)
+        m_p, w_p = coherent.mask_plain(mp.smc_aabb, planes, p.t_min, c)
+        ids_p, cnts = coherent._lists(w_p, mp.n_clusters)
+        ids_l, cnts_l = fm._lists(tb, p, rays, c, kernel=True)
+        same[f"{name}_mask"] = (torch.equal(mk, m_p) and torch.equal(wk, w_p)
+                                and torch.equal(ids_k, ids_p)
+                                and torch.equal(cnts_k, cnts)
+                                and torch.equal(ids_l, ids_p)
+                                and torch.equal(cnts_l, cnts))
+        errs[f"{name}_mask"] = max_abs(wk, w_p)
         lists[name] = dict(packed=n, **list_stats(cnts, -(-n // 4096)))
     emit(phase="mesh_fused_164k", part="shortlist_sweeps_vs_plain",
          equal=same, max_abs_err=errs, lists=lists)
     if not all(same.values()):
-        raise RuntimeError(f"the shortlist sweeps disagree with their plain "
-                           f"versions: {same}")
+        raise RuntimeError(f"the shortlist sweeps or the mask passes "
+                           f"disagree with their plain versions: {same}")
     return launches, errs
 
 
@@ -2183,11 +2320,23 @@ def sl_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16, n_iters=10) -> dict:
         ms = timed(lambda: [run(lst) for _ in range(n_iters)]) / n_iters
         run(None)
         all_ms = timed(lambda: [run(None) for _ in range(n_iters)]) / n_iters
-        mask = functools.partial(coherent._mask_kernel, mp.smc_aabb,
-                                 rays.view(rays.shape[0], -1, 128), p.t_min,
-                                 cnt, planes=False)
-        mask()                                                  # warm-up
+        # the mask kernel as the step runs it (fm._lists: one launch, the
+        # tile words and the lists) and without the lists
+        planes = rays.view(rays.shape[0], -1, 128)
+        mask = functools.partial(fm._lists, tb, p, rays, cnt, kernel=True)
+        words_only = functools.partial(
+            coherent._mask_kernel, mp.smc_aabb, planes, p.t_min, cnt,
+            planes=False, boxes=mp.smc_level_boxes)
+        mask()
+        words_only()                                            # warm-up
         mask_ms = timed(lambda: [mask() for _ in range(n_iters)]) / n_iters
+        words_ms = timed(lambda: [words_only() for _ in range(n_iters)]
+                         ) / n_iters
+        mask_plain_ms = timed(lambda: fm._lists(tb, p, rays, cnt,
+                                                kernel=False))
+        m_work = mask_work(mp.smc_aabb, planes, p.t_min, cnt)
+        m_bound = mask_bound(m_work, rays.shape[0], mp.n_clusters,
+                             -(-n // 4096))
         outp = out.clone()
         tests = {}
         plain_ms = timed(lambda: tests.update(t=fm._sweep_plain(
@@ -2217,7 +2366,9 @@ def sl_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16, n_iters=10) -> dict:
                   * 64)
         key = "occl_sl" if occl else "nearest_sl"
         res[key] = dict(ms=ms, plain_ms=plain_ms, all_clusters_ms=all_ms,
-                        mask_ms=mask_ms, packed=n,
+                        mask_ms=mask_ms, mask_words_only_ms=words_ms,
+                        mask_plain_ms=mask_plain_ms, mask_work=m_work,
+                        mask_bound=m_bound, packed=n,
                         serial_triangle_tests=int(tests["t"].sum()),
                         **need, splits=splits, **bound(ops, nbytes))
         lists[key] = list_stats(lst[1], n_tiles)
@@ -2894,7 +3045,20 @@ def main():
             "group_bound_ms": csp[k]["group_bound_ms"],
             "crossed_cluster_bound_ms": csp[k]["crossed_cluster_bound_ms"],
             "listed_triangle_bound_ms": csp[k]["listed_triangle_bound_ms"]}
-           if k == "sweep" else {}),
+           if k == "sweep" else {
+            "words_only_ms": csp[k]["words_only_ms"],
+            "lists_wall_ms": csp[k]["lists_wall_ms"],
+            **{f"{b}_bound_ms": csp[k][f"{b}_bound_ms"]
+               for b in ("flat", "lane", "warp")},
+            "unit_164k": "ms per step of the 164k cell, its nearest and "
+                         "occlusion passes over their packed rays",
+            **{f"{f}_164k": [ssp[sl][f"mask_{f}"]
+                             for sl in ("nearest_sl", "occl_sl")]
+               for f in ("ms", "plain_ms", "words_only_ms")},
+            **{f"{f}_164k": [ssp[sl]["mask_bound"][f]
+                             for sl in ("nearest_sl", "occl_sl")]
+               for f in ("bound_ms", "bound_by", "bound_no_fma_ms",
+                         "flat_bound_ms", "warp_bound_ms")}}),
         "library_ms": None} for k in COHERENT_TPU]
     sl_kernels = [{
         "name": f"fused_mesh_{k}", "route": "cuda",
@@ -2963,6 +3127,8 @@ def main():
         "launches": w_launches, "max_abs_err": w_err, "ms": wsp["ms"],
         "plain_ms": wsp["plain_ms"], "bound_ms": wsp["bound_ms"],
         "bound_by": wsp["bound_by"], "bound_no_fma_ms": wsp["bound_no_fma_ms"],
+        "items_per_level": wsp["items_per_level"],
+        "warp_lane_slots_per_level": wsp["warp_lane_slots_per_level"],
         "library_ms": None}, {
         "name": "packet", "route": "cuda",
         "source": "cpu_based_ray_tracer_tpu_torch/csrc/packet.cu",

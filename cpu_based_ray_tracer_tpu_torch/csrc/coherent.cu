@@ -5,8 +5,8 @@
 // Replaces the Pallas TPU kernels of cpu_based_ray_tracer_tpu/ops/
 // coherent.py:
 //   mask_kernel  <- _mask_kernel (:86, launched by _shortlists :134), with
-//                   the per-tile OR that the JAX package does in XLA
-//                   (:149-151) fused in;
+//                   the per-tile OR and the lists that the JAX package
+//                   makes in XLA (:149-158) fused in;
 //   sweep_kernel <- _sweep_kernel (:165, launched by nearest :282).
 // The mask kernel also serves the fused mesh-MC stepper's
 // shortlist-streaming mode (ops/fused_mesh.py _mesh_pass :1103-1107) over
@@ -18,15 +18,24 @@
 // Wp = 128: a tile is 4,096 consecutive rays).
 //
 // What bounds them on this card, and what the design does about it:
-//   - mask: C slab tests of ~22 f32 operations a lane, against 24-28 bytes
-//     of rays read and 4 bytes a lane per 32 clusters written: operations
-//     for more than a few dozen clusters.  One thread per lane; the AABBs
-//     are staged in shared memory, 1,024 clusters (24 KB) at a time, and
-//     read as broadcasts.  Each thread builds a 32-cluster word in a
-//     register, writes it to its mask plane (when the caller asks for the
-//     planes: the lists need only the tile words), and the warp ORs its 32 words
-//     (__reduce_or_sync: a warp lies in one tile) into the tile's word with
-//     one atomicOr.
+//   - mask: a slab test is ~22 f32 operations (~30 instructions) against
+//     24-28 bytes of rays read and 4 bytes a lane per 32 clusters written:
+//     the tests a lane issues.  A ray crosses a few of the C boxes (4.7 of
+//     58 on bvh_stage_scene(4)'s camera rays, ~5 of 1,280 on the 164k
+//     cell), and the clusters come in BVH preorder, so 32 consecutive
+//     ones are a compact patch.  So a lane tests a box per 32-cluster word,
+//     in a crossed word a box per 4 clusters (4 measured faster than 2, 8
+//     and 32), and in a crossed group its 4 clusters; the boxes are read by
+//     the warp at one address (float4 rows, L1), not staged.  Where the
+//     words are many (packed rays against a big mesh), a lane's words are
+//     cut into slices taken by threads of their own, so that the small
+//     grid fills the card, and the warp shares its (lane, box) pairs out
+//     over its lanes: a warp of packed rays crosses ~6x the boxes a lane
+//     does.  A warp lies in one tile; its words are ORed into the
+//     block's in shared memory, and the tile's last block ORs its
+//     blocks' words and writes the tile's list, so the lists cost no
+//     launch of their own.  On packed rays a block past the count only
+//     writes its zero mask words.
 //   - sweep: ~48 f32 operations (~65 instructions) a triangle test, so
 //     the triangles a ray tests.  A tile's list is the union of its 4,096
 //     lanes' boxes (7.5 of 58 clusters for bvh_stage_scene(4)'s camera
@@ -78,8 +87,19 @@ static_assert(BLOCK_H * BLOCK_W == SWEEP_BLOCK && WARP_H * WARP_W == 32 &&
               TILE_H % BLOCK_H == 0 && TILE_W % BLOCK_W == 0 &&
               BLOCK_H % WARP_H == 0 && BLOCK_W % WARP_W == 0,
               "the blocks tile a tile and the warps a block");
-constexpr int AABB_CHUNK = 1024;  // clusters staged at once (a multiple of 32)
 constexpr int AABB_W = 8;         // floats per AABB row: min xyz, max xyz, pad
+// The mask pass's boxes: a box per 32-cluster word and, inside it, a box
+// per group of MASK_GROUP clusters (LEVEL_ROWS rows of AABB_W floats a
+// word: ops/coherent.py level_boxes).  A lane's words may be cut into up
+// to MAX_WORD_SLICES slices, each taken by a thread of its own.
+constexpr int MASK_GROUP = 4;
+constexpr int GROUPS_PER_WORD = 32 / MASK_GROUP;
+constexpr int LEVEL_ROWS = 1 + GROUPS_PER_WORD;
+static_assert(32 * GROUPS_PER_WORD <= 256 && GROUPS_PER_WORD < 32,
+              "a (lane, group) pair's code is a byte, a lane's groups a mask");
+constexpr int MAX_WORD_SLICES = 8;
+static_assert(TILE % MASK_BLOCK == 0 && MASK_BLOCK / MAX_WORD_SLICES >= 32,
+              "a mask block's lanes lie in one tile, in whole warps");
 constexpr float NO_HIT = FLT_MAX;
 
 // 1 / v with |v| raised to at least 1e-20, keeping its sign.
@@ -88,61 +108,274 @@ __device__ __forceinline__ float sinv(float v) {
   return 1.0f / (fabsf(v) < 1e-20f ? tiny : v);
 }
 
-__global__ void __launch_bounds__(MASK_BLOCK)
-mask_kernel(const float* __restrict__ aabb, int n_cl,
-            const float* __restrict__ rays, bool has_lim, int hp, int wp,
-            float t_min, const int* __restrict__ cnt,
-            uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_words) {
-  __shared__ float box[AABB_CHUNK * 6];
-  const size_t n_lanes = (size_t)hp * wp;
-  const int lane = blockIdx.x * MASK_BLOCK + threadIdx.x;  // < n_lanes
-  const int y = lane / wp, x = lane - y * wp;
-  const int tile = (y / TILE_H) * (wp / TILE_W) + x / TILE_W;
-  const int b32 = (n_cl + 31) / 32;
-  // packed rays: only the first *cnt lanes (at most all) are rays
-  const bool active = cnt == nullptr || lane < *cnt;
-  float ox = 0.f, oy = 0.f, oz = 0.f, ivx = 0.f, ivy = 0.f, ivz = 0.f;
-  float hi_bound = 0.f;
-  if (active) {
-    ox = rays[lane];
-    oy = rays[n_lanes + lane];
-    oz = rays[2 * n_lanes + lane];
-    ivx = sinv(rays[3 * n_lanes + lane]);
-    ivy = sinv(rays[4 * n_lanes + lane]);
-    ivz = sinv(rays[5 * n_lanes + lane]);
-    if (has_lim) hi_bound = rays[6 * n_lanes + lane] * 1.000001f + 1e-5f;
+// The slab test of the mask pass: does the ray's segment from t_lo (up to
+// hi with a lim plane) cross the box at `row` (min xyz, max xyz, pad: two
+// float4, read by the whole warp at one address)?  The TPU kernel's
+// operations in its order.
+struct MaskRay {
+  float ox, oy, oz, ivx, ivy, ivz, t_lo, hi;
+};
+
+__device__ __forceinline__ bool slab_crossed(const float* __restrict__ row,
+                                             const MaskRay& r, bool has_lim) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(row));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(row) + 1);
+  const float tx0 = (a.x - r.ox) * r.ivx, tx1 = (a.w - r.ox) * r.ivx;
+  const float ty0 = (a.y - r.oy) * r.ivy, ty1 = (b.x - r.oy) * r.ivy;
+  const float tz0 = (a.z - r.oz) * r.ivz, tz1 = (b.y - r.oz) * r.ivz;
+  const float t_in = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                           fminf(tz0, tz1));
+  const float t_out = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                            fmaxf(tz0, tz1));
+  const bool crossed = (t_out >= r.t_lo) && (t_in <= t_out);
+  return has_lim ? crossed && (t_in <= r.hi) : crossed;
+}
+
+// A ray's fields from lane `src` of the warp (every lane calls it).
+__device__ __forceinline__ MaskRay ray_of(const MaskRay& r, int src) {
+  MaskRay q;
+  q.ox = __shfl_sync(0xffffffffu, r.ox, src);
+  q.oy = __shfl_sync(0xffffffffu, r.oy, src);
+  q.oz = __shfl_sync(0xffffffffu, r.oz, src);
+  q.ivx = __shfl_sync(0xffffffffu, r.ivx, src);
+  q.ivy = __shfl_sync(0xffffffffu, r.ivy, src);
+  q.ivz = __shfl_sync(0xffffffffu, r.ivz, src);
+  q.t_lo = r.t_lo;
+  q.hi = __shfl_sync(0xffffffffu, r.hi, src);
+  return q;
+}
+
+// The lane's word w: the clusters it crosses in the word's crossed groups
+// (lv: the word's box, then its groups').  Every lane of the warp calls
+// it.  The warp runs a level's tests for the union of its lanes where the
+// lanes that need them are many (a coherent warp), and otherwise as a
+// list of (lane, box) pairs shared out over the warp, each lane testing
+// with the pair's ray (shuffled from its lane): the same tests, so the
+// same bits, in fewer rounds when the lanes cross different boxes (the
+// packed rays of the fused mesh stepper).  `owner` and `pair` are the
+// warp's scratch (32 and 32 * GROUPS_PER_WORD bytes), `acc` its 32 words.
+__device__ __forceinline__ uint32_t word_bits(
+    const float* __restrict__ aabb, const float* __restrict__ lv, int w,
+    int n_cl, const MaskRay& r, bool active, bool has_lim, uint8_t* owner,
+    uint8_t* pair, uint32_t* acc) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const bool in_w = active && slab_crossed(lv, r, has_lim);
+  const unsigned wm = __ballot_sync(0xffffffffu, in_w);
+  if (wm == 0u) return 0u;
+  const int ng = min(GROUPS_PER_WORD,
+                     (n_cl - w * 32 + MASK_GROUP - 1) / MASK_GROUP);
+  // the group boxes, for the lanes that cross the word
+  constexpr int OWNERS = 32 / GROUPS_PER_WORD;   // lanes a round serves
+  uint32_t gbits = 0u;
+  const int nw = __popc(wm);
+  if (nw > 4 * OWNERS) {
+    if (in_w)
+      for (int g = 0; g < ng; ++g)
+        if (slab_crossed(lv + (1 + g) * AABB_W, r, has_lim)) gbits |= 1u << g;
+  } else {
+    const int rank = __popc(wm & below);
+    if (in_w) owner[rank] = (uint8_t)lane;
+    __syncwarp();
+    for (int rd = 0; rd * OWNERS < nw; ++rd) {
+      const int k = rd * OWNERS + lane / GROUPS_PER_WORD;
+      const int g = lane % GROUPS_PER_WORD;
+      const MaskRay q = ray_of(r, k < nw ? owner[k] : lane);
+      const bool hit = k < nw && g < ng &&
+                       slab_crossed(lv + (1 + g) * AABB_W, q, has_lim);
+      const unsigned bal = __ballot_sync(0xffffffffu, hit);
+      if (in_w && rank / OWNERS == rd)
+        gbits = (bal >> (rank % OWNERS * GROUPS_PER_WORD)) &
+                ((1u << GROUPS_PER_WORD) - 1u);
+    }
+    __syncwarp();
   }
-  const float t_lo = fminf(t_min, 0.0f);
-  for (int c0 = 0; c0 < n_cl; c0 += AABB_CHUNK) {
-    const int nc = min(AABB_CHUNK, n_cl - c0);
-    __syncthreads();  // the previous chunk is no longer read
-    for (int w = threadIdx.x; w < nc * 6; w += MASK_BLOCK)
-      box[w] = aabb[(size_t)(c0 + w / 6) * AABB_W + w % 6];
+  // the clusters of the crossed groups
+  const unsigned g_or = __reduce_or_sync(0xffffffffu, gbits);
+  if (g_or == 0u) return 0u;
+  const int npair = __popc(gbits);
+  int incl = npair;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, 31);
+  constexpr int PER_ROUND = 32 / MASK_GROUP;     // pairs a round tests
+  uint32_t word = 0u;
+  if ((total + PER_ROUND - 1) / PER_ROUND + 1 >= 2 * __popc(g_or)) {
+    for (int g = 0; g < ng; ++g) {
+      if (!((g_or >> g) & 1u)) continue;
+      if ((gbits >> g) & 1u) {
+        const int c0 = w * 32 + g * MASK_GROUP;
+        const int nb = min(MASK_GROUP, n_cl - c0);
+#pragma unroll
+        for (int j = 0; j < MASK_GROUP; ++j)
+          if (j < nb &&
+              slab_crossed(aabb + (size_t)(c0 + j) * AABB_W, r, has_lim))
+            word |= 1u << (g * MASK_GROUP + j);
+      }
+    }
+    return word;
+  }
+  int at = incl - npair;
+  for (unsigned b = gbits; b != 0u; b &= b - 1u)
+    pair[at++] = (uint8_t)(lane * GROUPS_PER_WORD + __ffs(b) - 1);
+  acc[lane] = 0u;
+  __syncwarp();
+  for (int rd = 0; rd * PER_ROUND < total; ++rd) {
+    const int p = rd * PER_ROUND + lane / MASK_GROUP;
+    const int j = lane % MASK_GROUP;
+    const int code = p < total ? pair[p] : lane * GROUPS_PER_WORD;
+    const int src = code / GROUPS_PER_WORD, g = code % GROUPS_PER_WORD;
+    const MaskRay q = ray_of(r, src);
+    const int c = w * 32 + g * MASK_GROUP + j;
+    if (p < total && c < n_cl &&
+        slab_crossed(aabb + (size_t)c * AABB_W, q, has_lim))
+      atomicOr(&acc[src], 1u << (g * MASK_GROUP + j));
+  }
+  __syncwarp();
+  word = acc[lane];
+  __syncwarp();
+  return word;
+}
+
+// The mask pass and the lists.  A lane's words are cut into S slices
+// (S = 1, 2, 4 or 8: more threads where the words are many, so that a small
+// grid of packed rays still fills the card); block b takes L = MASK_BLOCK /
+// S consecutive lanes of tile b / (TILE / L), thread t slice t / L of lane
+// t % L (a warp: 32 lanes, one slice).  A lane tests the box of each
+// 32-cluster word of its slice, in a crossed word the boxes of its groups
+// of MASK_GROUP clusters, and in a crossed group its clusters' boxes
+// (word_bits: the warp's union of boxes, or its (lane, box) pairs).  A
+// word's or a group's box holds its members' boxes, and the rounded slab
+// arithmetic is monotone in the box's sides, so a ray that crosses a
+// member crosses it: no bit is lost (ops/coherent.py level_boxes,
+// mask_plain).  The warps OR their words into the block's words in shared
+// memory, the block writes them to its slot of `part`, and the last block
+// of the tile to finish (a ticket per tile) ORs the tile's partials into
+// its tile words and, when ids is given, writes the tile's list: the set
+// bits in ascending cluster order, then the unset ones, and their count.
+// On packed rays (cnt) a block whose first lane is at or past *cnt writes
+// only its zero mask words, and no one reads its partials.
+template <int S>
+__global__ void __launch_bounds__(MASK_BLOCK)
+mask_kernel(const float* __restrict__ aabb, const float* __restrict__ levels,
+            int n_cl, const float* __restrict__ rays, bool has_lim, int hp,
+            int wp, float t_min, const int* __restrict__ cnt,
+            uint32_t* __restrict__ masks, uint32_t* __restrict__ tile_words,
+            uint32_t* part, int* __restrict__ tickets, int* __restrict__ ids,
+            int* __restrict__ cnts) {
+  extern __shared__ uint32_t sw[];  // b32 words: the block's, then the tile's
+  __shared__ uint8_t owner_s[MASK_BLOCK / 32][32];
+  __shared__ uint8_t pair_s[MASK_BLOCK / 32][32 * GROUPS_PER_WORD];
+  __shared__ uint32_t acc_s[MASK_BLOCK / 32][32];
+  constexpr int L = MASK_BLOCK / S, per_tile = TILE / L;
+  const int b32 = (n_cl + 31) / 32;
+  const int tile = blockIdx.x / per_tile;
+  const int sub = blockIdx.x - tile * per_tile;
+  const int gw = wp / TILE_W;
+  const int ty = tile / gw, tx = tile - ty * gw;
+  const size_t n_lanes = (size_t)hp * wp;
+  // lane i of the tile's TILE_H x TILE_W, row-major
+  const auto lane_of = [&](int i) {
+    return (long long)(ty * TILE_H + i / TILE_W) * wp + tx * TILE_W +
+           i % TILE_W;
+  };
+  const int slice = threadIdx.x / L;
+  const size_t lane = (size_t)lane_of(sub * L + threadIdx.x % L);
+  const int w0 = slice * b32 / S, w1 = (slice + 1) * b32 / S;
+  // packed rays: only the first *cnt lanes (at most all) are rays
+  const long long n_act = cnt == nullptr ? (long long)n_lanes : *cnt;
+  if (lane_of(sub * L) < n_act) {
+    for (int w = threadIdx.x; w < b32; w += MASK_BLOCK) sw[w] = 0u;
     __syncthreads();
-    for (int w0 = 0; w0 < nc; w0 += 32) {
+    const bool active = (long long)lane < n_act;
+    MaskRay r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, fminf(t_min, 0.0f), 0.f};
+    if (active) {
+      r.ox = rays[lane];
+      r.oy = rays[n_lanes + lane];
+      r.oz = rays[2 * n_lanes + lane];
+      r.ivx = sinv(rays[3 * n_lanes + lane]);
+      r.ivy = sinv(rays[4 * n_lanes + lane]);
+      r.ivz = sinv(rays[5 * n_lanes + lane]);
+      if (has_lim) r.hi = rays[6 * n_lanes + lane] * 1.000001f + 1e-5f;
+    }
+    const int wi = threadIdx.x / 32;
+    for (int w = w0; w < w1; ++w) {
+      // Where a lane's words are sliced (the clusters are many: the 164k
+      // cell's packed rays), word_bits; else a warp runs the boxes its
+      // lanes cross, fused (camera and shadow rays: measured faster than
+      // word_bits there).
+      const float* lv = levels + (size_t)w * LEVEL_ROWS * AABB_W;
       uint32_t word = 0u;
-      if (active) {
-        const int nb = min(32, nc - w0);
-        for (int j = 0; j < nb; ++j) {
-          const float* A = box + (w0 + j) * 6;
-          const float tx0 = (A[0] - ox) * ivx, tx1 = (A[3] - ox) * ivx;
-          const float ty0 = (A[1] - oy) * ivy, ty1 = (A[4] - oy) * ivy;
-          const float tz0 = (A[2] - oz) * ivz, tz1 = (A[5] - oz) * ivz;
-          const float t_in = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                                   fminf(tz0, tz1));
-          const float t_out = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                                    fmaxf(tz0, tz1));
-          bool crossed = (t_out >= t_lo) && (t_in <= t_out);
-          if (has_lim) crossed = crossed && (t_in <= hi_bound);
-          if (crossed) word |= 1u << j;
+      if (S > 1) {
+        word = word_bits(aabb, lv, w, n_cl, r, active, has_lim, owner_s[wi],
+                         pair_s[wi], acc_s[wi]);
+      } else {
+        const bool in_w = active && slab_crossed(lv, r, has_lim);
+        if (__any_sync(0xffffffffu, in_w)) {
+#pragma unroll
+          for (int g = 0; g < GROUPS_PER_WORD; ++g) {
+            const int c0 = w * 32 + g * MASK_GROUP;
+            if (c0 >= n_cl) break;
+            const bool in_g =
+                in_w && slab_crossed(lv + (1 + g) * AABB_W, r, has_lim);
+            if (!__any_sync(0xffffffffu, in_g)) continue;
+            if (in_g) {
+              const int nb = min(MASK_GROUP, n_cl - c0);
+#pragma unroll
+              for (int j = 0; j < MASK_GROUP; ++j)
+                if (j < nb && slab_crossed(aabb + (size_t)(c0 + j) * AABB_W,
+                                           r, has_lim))
+                  word |= 1u << (g * MASK_GROUP + j);
+            }
+          }
         }
       }
-      const int w = (c0 + w0) / 32;
       if (masks != nullptr) masks[(size_t)w * n_lanes + lane] = word;
-      const uint32_t tile_or = __reduce_or_sync(0xffffffffu, word);
-      if ((threadIdx.x & 31) == 0 && tile_or != 0u)
-        atomicOr(&tile_words[(size_t)tile * b32 + w], tile_or);
+      const uint32_t warp_or = __reduce_or_sync(0xffffffffu, word);
+      if ((threadIdx.x & 31) == 0 && warp_or != 0u) atomicOr(&sw[w], warp_or);
     }
+    __syncthreads();
+    for (int w = threadIdx.x; w < b32; w += MASK_BLOCK)
+      part[(size_t)blockIdx.x * b32 + w] = sw[w];
+  } else if (masks != nullptr) {
+    for (int w = w0; w < w1; ++w) masks[(size_t)w * n_lanes + lane] = 0u;
+  }
+  if (!cluster_tri::last_slice(tickets, tile, per_tile)) return;
+
+  // The tile's last block: the tile's words are the OR of the partials of
+  // its blocks that hold a ray (the others' words are 0), read past L1.
+  int n_sub = 0;
+  while (n_sub < per_tile && lane_of(n_sub * L) < n_act) ++n_sub;
+  const uint32_t* tp = part + (size_t)tile * per_tile * b32;
+  for (int w = threadIdx.x; w < b32; w += MASK_BLOCK) {
+    uint32_t acc = 0u;
+    for (int s = 0; s < n_sub; ++s) acc |= __ldcg(tp + (size_t)s * b32 + w);
+    sw[w] = acc;
+    tile_words[(size_t)tile * b32 + w] = acc;
+  }
+  if (ids == nullptr) return;
+  __syncthreads();
+  // The list: cluster c goes to its rank among the set bits or, after all
+  // of them, to its rank among the unset ones.  A pass of MASK_BLOCK
+  // clusters covers MASK_BLOCK / 32 whole words, thread t's word being
+  // the pass's t / 32-th.
+  int n_set = 0;
+  for (int w = 0; w < b32; ++w) n_set += __popc(sw[w]);
+  if (threadIdx.x == 0) cnts[tile] = n_set;
+  int* list = ids + (size_t)tile * n_cl;
+  int before = 0;  // set bits of the earlier passes
+  for (int base = 0; base < n_cl; base += MASK_BLOCK) {
+    const int c = base + threadIdx.x;
+    const int w0 = base / 32, w = c / 32;
+    int set = before;
+    for (int v = w0; v < w && v < b32; ++v) set += __popc(sw[v]);
+    const uint32_t word = w < b32 ? sw[w] : 0u;
+    set += __popc(word & ((1u << (c & 31)) - 1u));
+    if (c < n_cl) list[(word >> (c & 31)) & 1u ? set : n_set + (c - set)] = c;
+    for (int v = w0; v < w0 + MASK_BLOCK / 32 && v < b32; ++v)
+      before += __popc(sw[v]);
   }
 }
 
@@ -293,21 +526,43 @@ cudaError_t allow_smem(int cs) {
 // Each entry point launches one kernel on `stream` and returns
 // cudaGetLastError().
 
-// The mask pass: rays (n_planes, hp, wp) -> masks (ceil(n_cl / 32), hp, wp)
-// u32 (bit c % 32 of word c / 32: the lane's segment crosses cluster c's
-// AABB; not written when masks is null), and ORs each word into tile_words
-// (tiles, ceil(n_cl / 32)), which the caller zeroes.  n_planes 7: the segment ends at lim * 1.000001 +
-// 1e-5.  cnt (nullable): only the first *cnt lanes are rays (all of them
-// when *cnt >= hp * wp), the others get 0 words.
-extern "C" int coherent_mask(const float* aabb, int n_cl, const float* rays,
-                             int n_planes, int hp, int wp, float t_min,
-                             const int* cnt, uint32_t* masks,
-                             uint32_t* tile_words, void* stream) {
-  if (n_cl <= 0 || (n_planes != 6 && n_planes != 7) || bad_planes(hp, wp))
+// The mask pass and the shortlists: rays (n_planes, hp, wp), the cluster
+// boxes aabb (n_cl, 8) and their word and group boxes levels
+// (ceil(n_cl / 32), LEVEL_ROWS, 8) -> masks (ceil(n_cl / 32), hp, wp) u32
+// (bit c % 32 of word c / 32: the lane's segment crosses cluster c's AABB;
+// not written when masks is null) and the tiles' ORs tile_words (tiles,
+// ceil(n_cl / 32)); with ids, per tile ids[tile * n_cl + j] (the crossed
+// clusters ascending, then the others) and cnts[tile], their number.
+// n_planes 7: the segment ends at lim * 1.000001 + 1e-5.  cnt (nullable):
+// only the first *cnt lanes are rays (all of them when *cnt >= hp * wp),
+// the others get 0 words.  part (hp wp / 32 * ceil(n_cl / 32) u32) and
+// tickets (tiles i32, zero, left zero) are scratch.
+extern "C" int coherent_mask(const float* aabb, const float* levels, int n_cl,
+                             const float* rays, int n_planes, int hp, int wp,
+                             float t_min, const int* cnt, uint32_t* masks,
+                             uint32_t* tile_words, uint32_t* part,
+                             int* tickets, int* ids, int* cnts,
+                             void* stream) {
+  const size_t smem = (size_t)(n_cl + 31) / 32 * sizeof(uint32_t);
+  if (n_cl <= 0 || (n_planes != 6 && n_planes != 7) || bad_planes(hp, wp) ||
+      smem > 48 * 1024 || tile_words == nullptr || part == nullptr ||
+      tickets == nullptr || (ids == nullptr) != (cnts == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (int)((size_t)hp * wp / MASK_BLOCK);
-  mask_kernel<<<blocks, MASK_BLOCK, 0, (cudaStream_t)stream>>>(
-      aabb, n_cl, rays, n_planes == 7, hp, wp, t_min, cnt, masks, tile_words);
+  // a slice of at least 4 words a thread, up to MAX_WORD_SLICES slices
+  const int b32 = (n_cl + 31) / 32;
+  int S = 1;
+  while (S < MAX_WORD_SLICES && 8 * S <= b32) S *= 2;
+  const int blocks = (int)((size_t)hp * wp / (MASK_BLOCK / S));
+  const auto go = [&](auto kernel) {
+    kernel<<<blocks, MASK_BLOCK, smem, (cudaStream_t)stream>>>(
+        aabb, levels, n_cl, rays, n_planes == 7, hp, wp, t_min, cnt, masks,
+        tile_words, part, tickets, ids, cnts);
+  };
+  static_assert(MAX_WORD_SLICES <= 8, "a kernel for each slice count");
+  if (S == 1) go(mask_kernel<1>);
+  if (S == 2) go(mask_kernel<2>);
+  if (S == 4) go(mask_kernel<4>);
+  if (S == 8) go(mask_kernel<8>);
   return (int)cudaGetLastError();
 }
 

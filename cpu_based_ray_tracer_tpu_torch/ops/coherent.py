@@ -6,9 +6,12 @@ block of pixels crosses only a handful of the mesh's clusters.  So the work
 list is computed exactly, per tile, ahead of the sweep:
 
   mask pass   per-lane cluster-AABB crossing bitmasks (u32 words, bit c % 32
-              of word c / 32), each word ORed into its tile's word;
+              of word c / 32), each word ORed into its tile's word; on the
+              card a ray tests the clusters of the 4-cluster groups and
+              32-cluster words whose boxes it crosses (``level_boxes``);
   lists       per tile the crossed clusters in ascending order, then the
-              others (ids), and their number (cnts);
+              others (ids), and their number (cnts); on the card the mask
+              kernel writes them;
   sweep       each tile runs Moller-Trumbore over only its listed clusters
               -> nearest (t, triangle index); on the card a ray tests only
               the rows of the 8-row groups whose padded boxes it crosses,
@@ -22,12 +25,13 @@ Tiles are 32 x 128 pixel rectangles when the caller passes the image shape
 and both versions use the JAX package's tiles.
 
 - ``csrc/coherent.cu`` holds the mask and the sweep kernels (CUDA C++ for
-  sm_90a, loaded with ``ctypes``); ``mask`` and ``sweep`` launch them for
-  CUDA tensors.
+  sm_90a, loaded with ``ctypes``); ``_shortlists`` and ``sweep`` launch
+  them for CUDA tensors.
 - ``mask_plain`` and ``sweep_plain`` are the same arithmetic in PyTorch,
   with the same inputs and outputs; the entry points run them only for CPU
-  tensors.  Turning the tile words into lists (``_lists``) is plain
-  PyTorch on every device, as it is XLA in the JAX package.
+  tensors.  ``_lists``, the tile words made into lists in PyTorch (XLA in
+  the JAX package), is the plain version of the lists the mask kernel
+  writes.
 
 Mask words are stored as int32 tensors holding the u32 bit patterns.
 """
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -51,6 +56,8 @@ SUB = 32                 # tile rows
 TILE_W = 128             # tile columns
 TILE = SUB * TILE_W      # lanes per tile
 _WORD = 32               # clusters per mask word
+MASK_GROUP = 4           # clusters a group box of the mask pass covers
+LEVEL_ROWS = 1 + _WORD // MASK_GROUP   # a word's box, then its groups'
 GROUP_ROWS = 8           # rows of a cluster a sub-box covers (csrc/coherent.cu)
 MAX_CLUSTER_SIZE = 256   # rows the sweep kernel's block stages (SWEEP_BLOCK)
 
@@ -71,6 +78,12 @@ class CoherentPack:
     @property
     def n_clusters(self) -> int:
         return self.aabb.shape[0]
+
+    @functools.cached_property
+    def boxes(self) -> torch.Tensor:
+        """The mask pass's word and group boxes (``level_boxes``), made
+        once a pack."""
+        return level_boxes(self.aabb)
 
     def to(self, device) -> "CoherentPack":
         return dataclasses.replace(self, tri=self.tri.to(device),
@@ -160,13 +173,44 @@ def _wrap_u32(x):
 
 # --- mask pass ----------------------------------------------------------------
 
-def mask_plain(aabb, rays, t_min: float, cnt=None, planes: bool = True):
+def level_boxes(aabb):
+    """The boxes the mask kernel culls by: for each word of 32 clusters of
+    aabb (C, 8), the least and greatest coordinates of its clusters' boxes
+    (row 0), then those of each group of MASK_GROUP of them (rows 1 to
+    LEVEL_ROWS - 1) -> (ceil(C / 32), LEVEL_ROWS, 8) f32 min xyz, max xyz,
+    pad.  A box holds its members' boxes exactly (min and max round
+    nothing), so a ray whose segment crosses a member crosses it.  A member
+    whose sides are not ordered (or NaN) gives its group and word the
+    whole space; a group past the last cluster is empty (never tested)."""
+    c = aabb.shape[0]
+    b32 = -(-c // _WORD)
+    ng = b32 * (_WORD // MASK_GROUP)
+    inf = float("inf")
+    lo = torch.full((b32 * _WORD, 3), inf, device=aabb.device)
+    hi = torch.full_like(lo, -inf)
+    lo[:c], hi[:c] = aabb[:, 0:3], aabb[:, 3:6]
+    whole = torch.zeros((b32 * _WORD,), dtype=torch.bool, device=aabb.device)
+    whole[:c] = ~(aabb[:, 0:3] <= aabb[:, 3:6]).all(1)
+    lo[whole], hi[whole] = -inf, inf
+    box = torch.zeros((b32, LEVEL_ROWS, 8), dtype=torch.float32,
+                      device=aabb.device)
+    box[:, 0, 0:3] = lo.view(b32, _WORD, 3).amin(1)
+    box[:, 0, 3:6] = hi.view(b32, _WORD, 3).amax(1)
+    box[:, 1:, 0:3] = lo.view(ng, MASK_GROUP, 3).amin(1).view(b32, -1, 3)
+    box[:, 1:, 3:6] = hi.view(ng, MASK_GROUP, 3).amax(1).view(b32, -1, 3)
+    return box
+
+
+def mask_plain(aabb, rays, t_min: float, cnt=None, planes: bool = True,
+               boxes=None):
     """The mask pass in PyTorch.  aabb (C, 8); rays (6 or 7, Hp, Wp) [o d]
     or [o d lim]; ``cnt`` (1,) i32 or None: only the first cnt lanes in
     row-major order are rays (the others get 0 words).  Returns masks
     (ceil(C / 32), Hp, Wp), or None when not ``planes`` (the lists need
     only the tile words), and the ORed tile words (T, ceil(C / 32)), both
-    int32 holding u32 bits."""
+    int32 holding u32 bits.  With ``boxes`` (``level_boxes``), a lane
+    tests a cluster only where it crosses the boxes of the cluster's word
+    and group, as the kernel does; that changes no bit."""
     _check_planes(rays)
     p, hp, wp = rays.shape
     dev = rays.device
@@ -181,17 +225,9 @@ def mask_plain(aabb, rays, t_min: float, cnt=None, planes: bool = True):
     ivx, ivy, ivz = sinv(rays[3]), sinv(rays[4]), sinv(rays[5])
     t_lo = min(float(t_min), 0.0)
     hi_bound = rays[6] * 1.000001 + 1e-5 if p == 7 else None
-    active = None
-    if cnt is not None:
-        lanes = torch.arange(hp * wp, device=dev).view(hp, wp)
-        active = lanes < int(cnt.reshape(-1)[0])
-    masks = (torch.zeros((b32, hp, wp), dtype=torch.int32, device=dev)
-             if planes else None)
-    words = torch.zeros((hp // SUB * (wp // TILE_W), b32), dtype=torch.int64,
-                        device=dev)
-    for w in range(b32):
-        box = aabb[w * _WORD:(w + 1) * _WORD, :6].to(dev)
-        bx0, by0, bz0, bx1, by1, bz1 = (box[:, j, None, None]
+
+    def crossed_by(box):                                     # (k, >= 6)
+        bx0, by0, bz0, bx1, by1, bz1 = (box[:, j, None, None].to(dev)
                                         for j in range(6))   # (k, 1, 1)
         tx0, tx1 = (bx0 - ox) * ivx, (bx1 - ox) * ivx
         ty0, ty1 = (by0 - oy) * ivy, (by1 - oy) * ivy
@@ -205,9 +241,27 @@ def mask_plain(aabb, rays, t_min: float, cnt=None, planes: bool = True):
         crossed = (t_out >= t_lo) & (t_in <= t_out)          # (k, Hp, Wp)
         if hi_bound is not None:
             crossed &= t_in <= hi_bound
+        return crossed
+
+    active = None
+    if cnt is not None:
+        lanes = torch.arange(hp * wp, device=dev).view(hp, wp)
+        active = lanes < int(cnt.reshape(-1)[0])
+    masks = (torch.zeros((b32, hp, wp), dtype=torch.int32, device=dev)
+             if planes else None)
+    words = torch.zeros((hp // SUB * (wp // TILE_W), b32), dtype=torch.int64,
+                        device=dev)
+    for w in range(b32):
+        box = aabb[w * _WORD:(w + 1) * _WORD, :6]
+        k = box.shape[0]
+        crossed = crossed_by(box)
+        if boxes is not None:
+            ng = -(-k // MASK_GROUP)
+            tested = crossed_by(boxes[w, 1:1 + ng]) & crossed_by(boxes[w, 0:1])
+            crossed &= tested.repeat_interleave(MASK_GROUP, 0)[:k]
         if active is not None:
             crossed &= active
-        bit = (1 << torch.arange(box.shape[0], dtype=torch.int64,
+        bit = (1 << torch.arange(k, dtype=torch.int64,
                                  device=dev))[:, None, None]
         if planes:
             masks[w] = _wrap_u32((crossed.to(torch.int64) * bit).sum(0))
@@ -216,50 +270,59 @@ def mask_plain(aabb, rays, t_min: float, cnt=None, planes: bool = True):
     return masks, _wrap_u32(words)
 
 
-def _mask_kernel(aabb, rays, t_min: float, cnt=None, planes: bool = True):
+def _mask_kernel(aabb, rays, t_min: float, cnt=None, planes: bool = True,
+                 boxes=None, lists: bool = False):
     """Launch the mask kernel of csrc/coherent.cu on CUDA tensors; as
-    ``mask_plain``."""
+    ``mask_plain``.  ``boxes``: the pack's ``level_boxes`` (made here when
+    not given).  With ``lists`` the same launch also writes the shortlists:
+    returns (masks, tile words, ids, cnts), the last two as ``_lists``
+    makes them."""
     _check_planes(rays)
-    tensors = [aabb, rays] + ([] if cnt is None else [cnt])
+    if boxes is None:
+        boxes = level_boxes(aabb)
+    tensors = [aabb, boxes, rays] + ([] if cnt is None else [cnt])
     if not all(isinstance(x, torch.Tensor) and x.is_cuda
                and x.is_contiguous() for x in tensors):
         raise ValueError("the mask kernel takes contiguous CUDA tensors")
-    if (aabb.dtype != torch.float32 or rays.dtype != torch.float32
-            or aabb.dim() != 2 or aabb.shape[1] != 8
-            or (cnt is not None and (cnt.dtype != torch.int32
-                                     or cnt.numel() != 1))):
-        raise ValueError("the mask kernel takes aabb (C, 8) f32, rays f32 "
-                         "and cnt (1,) i32")
     p, hp, wp = rays.shape
     n_cl = aabb.shape[0]
     b32 = -(-n_cl // _WORD)
-    masks = (torch.empty((b32, hp, wp), dtype=torch.int32,
-                         device=rays.device) if planes else None)
-    words = torch.zeros((hp // SUB * (wp // TILE_W), b32), dtype=torch.int32,
-                        device=rays.device)
+    if (aabb.dtype != torch.float32 or rays.dtype != torch.float32
+            or aabb.dim() != 2 or aabb.shape[1] != 8
+            or boxes.dtype != torch.float32
+            or boxes.shape != (b32, LEVEL_ROWS, 8)
+            or aabb.data_ptr() % 16 or boxes.data_ptr() % 16
+            or (cnt is not None and (cnt.dtype != torch.int32
+                                     or cnt.numel() != 1))):
+        raise ValueError("the mask kernel takes aabb (C, 8) f32 and its "
+                         "level boxes, 16-byte aligned, rays f32 and cnt "
+                         "(1,) i32")
+    dev = rays.device
+    stream = torch.cuda.current_stream(dev)
+    n_tiles = hp // SUB * (wp // TILE_W)
+    i32 = dict(dtype=torch.int32, device=dev)
+    masks = torch.empty((b32, hp, wp), **i32) if planes else None
+    words = torch.empty((n_tiles, b32), **i32)
+    part = torch.empty((hp * wp // 32 * b32,), **i32)
+    ids = torch.empty((n_tiles * n_cl,), **i32) if lists else None
+    cnts = torch.empty((n_tiles,), **i32) if lists else None
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     rc = _fn("coherent_mask")(
-        aabb.data_ptr(), n_cl, rays.data_ptr(), p, hp, wp, float(t_min),
-        None if cnt is None else cnt.data_ptr(),
-        None if masks is None else masks.data_ptr(),
-        words.data_ptr(), torch.cuda.current_stream(rays.device).cuda_stream)
+        aabb.data_ptr(), boxes.data_ptr(), n_cl, rays.data_ptr(), p, hp, wp,
+        float(t_min), ptr(cnt), ptr(masks), words.data_ptr(),
+        part.data_ptr(), kernels.tickets(n_tiles, stream).data_ptr(),
+        ptr(ids), ptr(cnts), stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"coherent mask kernel launch failed: "
                            f"cudaError {rc}")
     LAUNCHES["mask"] += 1
-    return masks, words
-
-
-def mask(aabb, rays, t_min: float, cnt=None, planes: bool = True):
-    """The mask pass: the kernel for CUDA rays, the plain version for CPU
-    rays."""
-    if rays.is_cuda:
-        return _mask_kernel(aabb, rays, t_min, cnt, planes)
-    return mask_plain(aabb, rays, t_min, cnt, planes)
+    return (masks, words, ids, cnts) if lists else (masks, words)
 
 
 def _lists(words, n_cl: int):
     """Tile words (T, ceil(C / 32)) -> (ids (T * C,) i32: per tile the set
-    bits in ascending cluster order, then the unset ones; cnts (T,) i32)."""
+    bits in ascending cluster order, then the unset ones; cnts (T,) i32).
+    The plain version of the lists the mask kernel writes."""
     c = torch.arange(n_cl, device=words.device)
     w64 = words.to(torch.int64) & 0xFFFFFFFF
     bset = ((w64[:, c // _WORD] >> (c % _WORD)) & 1).T        # (C, T)
@@ -268,10 +331,15 @@ def _lists(words, n_cl: int):
     return ids.T.to(torch.int32).reshape(-1).contiguous(), cnts
 
 
-def _shortlists(aabb, rays, t_min: float, cnt=None):
+def _shortlists(aabb, rays, t_min: float, cnt=None, boxes=None):
     """(T * C,) shortlist ids + (T,) counts for a (6 or 7, Hp, Wp) ray-plane
-    set (7: with a lim plane)."""
-    return _lists(mask(aabb, rays, t_min, cnt, planes=False)[1],
+    set (7: with a lim plane): one mask kernel launch for CUDA rays (with
+    the pack's ``boxes``), the plain mask pass and ``_lists`` for CPU
+    rays."""
+    if rays.is_cuda:
+        return _mask_kernel(aabb, rays, t_min, cnt, planes=False,
+                            boxes=boxes, lists=True)[2:]
+    return _lists(mask_plain(aabb, rays, t_min, cnt, planes=False)[1],
                   aabb.shape[0])
 
 
@@ -410,7 +478,7 @@ def nearest(pack: CoherentPack, origin, direction, t_min: float,
     set; misses (NO_HIT_T, -1).  ``hw=(h, w)``: the rays are a row-major
     h x w image, tiled over 32 x 128 pixel rectangles."""
     rays, shape = _to_planes(origin, direction, hw)
-    ids, cnts = _shortlists(pack.aabb, rays, t_min)
+    ids, cnts = _shortlists(pack.aabb, rays, t_min, boxes=pack.boxes)
     out = _from_planes(sweep(pack.tri, pack.aabb, rays, ids, cnts, t_min),
                        shape)
     tt = torch.where(out[0] < intersect.NO_HIT_T, out[0], intersect.NO_HIT_T)
@@ -421,9 +489,10 @@ def nearest(pack: CoherentPack, origin, direction, t_min: float,
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # (aabb, n_cl, rays, n_planes, hp, wp, t_min, cnt, masks, words, stream)
-    "coherent_mask": [_P, ctypes.c_int, _P] + [ctypes.c_int] * 3
-    + [ctypes.c_float] + [_P] * 4,
+    # (aabb, levels, n_cl, rays, n_planes, hp, wp, t_min, cnt, masks,
+    #  words, part, tickets, ids, cnts, stream)
+    "coherent_mask": [_P, _P, ctypes.c_int, _P] + [ctypes.c_int] * 3
+    + [ctypes.c_float] + [_P] * 8,
     # (cs, out)
     "coherent_sweep_slots": [ctypes.c_int, _P],
     # (tri, aabb, n_cl, cs, rays, hp, wp, ids, cnts, t_min, K, part,

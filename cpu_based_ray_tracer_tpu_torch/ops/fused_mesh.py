@@ -209,6 +209,14 @@ class MeshPack:
         else the coarser spatial boxes."""
         return self.smc_aabb if self.n_clusters <= 64 else self.smc_box_aabb
 
+    @functools.cached_property
+    def smc_level_boxes(self) -> torch.Tensor:
+        """The mask pass's word and group boxes of the cluster AABBs
+        (``ops.coherent.level_boxes``), made once a pack."""
+        from cpu_based_ray_tracer_tpu_torch.ops import coherent
+
+        return coherent.level_boxes(self.smc_aabb)
+
     def to(self, device) -> "MeshPack":
         kw = {f.name: getattr(self, f.name).to(device)
               for f in dataclasses.fields(self)
@@ -1017,13 +1025,17 @@ _occl_kernel = functools.partial(_grouped_sweep_kernel, occl=True)
 def _lists(tb: _Tables, p: _Params, rays, cnt, kernel: bool):
     """The shortlists of the packed rays (P, cap): the mask pass of
     ``ops.coherent`` over the first cnt rays, in strips of 4,096, against
-    the cluster AABBs (P = 7: up to lim)."""
+    the cluster AABBs (P = 7: up to lim); the kernel writes the lists in
+    the same launch, the plain version makes them with ``_lists``."""
     from cpu_based_ray_tracer_tpu_torch.ops import coherent
 
-    mask = coherent._mask_kernel if kernel else coherent.mask_plain
-    _, words = mask(tb.mp.smc_aabb, rays.view(rays.shape[0], -1,
-                                              coherent.TILE_W),
-                    p.t_min, cnt, planes=False)
+    planes = rays.view(rays.shape[0], -1, coherent.TILE_W)
+    if kernel:
+        return coherent._mask_kernel(
+            tb.mp.smc_aabb, planes, p.t_min, cnt, planes=False,
+            boxes=tb.mp.smc_level_boxes, lists=True)[2:]
+    _, words = coherent.mask_plain(tb.mp.smc_aabb, planes, p.t_min, cnt,
+                                   planes=False)
     return coherent._lists(words, tb.mp.n_clusters)
 
 

@@ -13,8 +13,9 @@ a Batcher sorting network by weight and the top Q survive; the weight of
 the rest is summed into ``truncated`` (0 on the reference scene for Q >= 4:
 then the result is the tree of ``models.whitted.trace``).
 
-- ``csrc/fused_whitted.cu`` is the kernel (CUDA C++ for sm_90a, one thread
-  per pixel); ``render_fused`` launches it for CUDA tensors.
+- ``csrc/fused_whitted.cu`` is the kernel (CUDA C++ for sm_90a: a block of
+  128 pixels traces its live slots compacted, level by level);
+  ``render_fused`` launches it for CUDA tensors.
 - ``render_fused_plain`` is the same Q-slot algorithm in PyTorch,
   vectorized over lanes, with the same sorting network.  The wrapper runs
   it for CPU tensors only; ``chip_smoke.py`` holds the kernel against it.
@@ -138,9 +139,15 @@ def _tree_plain(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
     """The Q-slot tree of every lane; dirs (3, R) f32 primary directions
     from the camera position cam3 (3,).  Returns (4, R): rgb, truncated.
     ``counts``: a dict that receives the work this data needs — live slot
-    evaluations, and of those the Diffuse_Glossy and the specular hits.
-    Only the kernel's speed bound in chip_smoke.py reads it; it changes
-    nothing computed."""
+    evaluations, and of those the Diffuse_Glossy and the specular hits —
+    and under "levels" for each level the same by kind ("live", "miss",
+    "diffuse", "specular"), the lanes with a live slot ("lanes") and with
+    every slot live ("full_lanes"), the specular hits whose refracted
+    child total internal reflection kills ("tir"), and what 32-lane warps
+    of consecutive lanes would run one slot at a time:
+    "warp_slots", the (warp, slot) pairs with a live lane, and
+    "warp_branches", the (warp, slot, kind) triples with a lane of that
+    kind.  Only chip_smoke.py reads it; it changes nothing computed."""
     where = torch.where
     dev = dirs.device
     r = dirs.shape[1]
@@ -230,8 +237,18 @@ def _tree_plain(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
                 best_t, sphere_t(ox, oy, oz, dx, dy, dz, scx, scy, scz, rad))
         return best_t
 
+    def warps_with(m):
+        """How many 32-lane warps of consecutive lanes have m set."""
+        pad = torch.zeros((-(-r // 32) * 32,), dtype=torch.bool, device=dev)
+        pad[:r] = m
+        return int(pad.view(-1, 32).any(1).sum())
+
     def level(slots, rad, trunc):
         cand = []
+        tally = dict(live=0, miss=0, diffuse=0, specular=0, tir=0,
+                     warp_slots=0, warp_branches=0)
+        any_live = torch.zeros((r,), dtype=torch.bool, device=dev)
+        all_live = torch.ones((r,), dtype=torch.bool, device=dev)
         for (ox, oy, oz, dx, dy, dz, w) in slots:
             live = w > 0.0
             t, nxr, nyr, nzr, mid, bu, bv = intersect(ox, oy, oz, dx, dy, dz)
@@ -303,6 +320,15 @@ def _tree_plain(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
                 for k, m in (("live", live), ("diffuse", is_diff),
                              ("specular", is_refl | is_glass)):
                     counts[k] = counts.get(k, 0) + int(m.sum())
+                kinds = {"miss": miss, "diffuse": is_diff,
+                         "specular": is_refl | is_glass}
+                for k, m in [("live", live)] + list(kinds.items()):
+                    tally[k] += int(m.sum())
+                tally["warp_slots"] += warps_with(live)
+                tally["warp_branches"] += sum(warps_with(m)
+                                              for m in kinds.values())
+                any_live |= live
+                all_live &= live
             cos_i = torch.clamp(dx * nx + dy * ny + dz * nz, -1.0, 1.0)
             outside = cos_i < 0.0
             eta_in, eta_out = where(outside, one, ior), where(outside, ior, one)
@@ -342,6 +368,8 @@ def _tree_plain(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
             tox, toy, toz = child_origin(rrx, rry, rrz)
             refl_w = where(is_refl | is_glass, w * fres, zero)
             refr_w = where(is_glass & ~tir, w * (1.0 - fres), zero)
+            if counts is not None:
+                tally["tir"] += int((is_glass & tir).sum())
             cand.append((refl_w, rox, roy, roz, rfx, rfy, rfz))
             cand.append((refr_w, tox, toy, toz, rrx, rry, rrz))
 
@@ -353,6 +381,10 @@ def _tree_plain(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
             cand[a], cand[b] = na, nb
         for q in range(queue, 2 * queue):
             trunc = trunc + cand[q][0]
+        if counts is not None:
+            tally["lanes"] = int(any_live.sum())
+            tally["full_lanes"] = int(all_live.sum())
+            counts.setdefault("levels", []).append(tally)
         slots = [(c[1], c[2], c[3], c[4], c[5], c[6], c[0])
                  for c in cand[:queue]]
         return slots, rad, trunc

@@ -478,3 +478,127 @@ def test_pack_refuses_cluster_sizes_the_kernel_cannot_take(cluster_size):
     scene, _, _ = _packs()
     with pytest.raises(ValueError, match="multiple of 8 up to 256"):
         coherent.pack_coherent(scene, cluster_size=cluster_size)
+
+
+def _cull_boxes(n=45, seed=7):
+    """n small boxes on a sphere of radius 2 in sorted-centre order (a
+    compact patch per 32-cluster word, as a BVH preorder gives), (n, 8)
+    f32."""
+    g = np.random.default_rng(seed)
+    c = g.normal(size=(n, 3))
+    c = 2.0 * c / np.linalg.norm(c, axis=1, keepdims=True)
+    c = c[np.lexsort((c[:, 2], c[:, 1], np.round(c[:, 0], 0)))]
+    half = g.uniform(0.05, 0.3, (n, 3))
+    box = np.zeros((n, 8), np.float32)
+    box[:, 0:3], box[:, 3:6] = c - half, c + half
+    return torch.as_tensor(box)
+
+
+def _grazing_rays(aabb, levels):
+    """Rays along every face and edge of each word and group box where a
+    member box attains it: an origin on that member's face (the face's
+    centre) or edge (its midpoint) and a direction in the face's plane
+    (along the edge), so the ray's segment touches the box at t = 0 only
+    where its side lies; plus random rays through the boxes' sphere."""
+    a = aabb.numpy().astype(np.float64)
+    o, d = [], []
+    for w in range(levels.shape[0]):
+        for row in range(levels.shape[1]):
+            lo, hi = levels[w, row, 0:3].numpy(), levels[w, row, 3:6].numpy()
+            mem = np.arange(w * 32, min((w + 1) * 32, a.shape[0]))
+            if row:
+                mem = mem[(row - 1) * coherent.MASK_GROUP:
+                          row * coherent.MASK_GROUP]
+            for ax in range(3):
+                for side, val in ((0, lo[ax]), (3, hi[ax])):
+                    m = mem[a[mem, side + ax] == val]
+                    if not len(m):
+                        continue
+                    b = a[m[0]]
+                    ctr = (b[0:3] + b[3:6]) / 2
+                    ctr[ax] = val
+                    u, v = [k for k in range(3) if k != ax]
+                    dd = np.zeros(3)
+                    dd[u], dd[v] = 0.6, 0.8
+                    o.append(ctr.copy())
+                    d.append(dd)
+                    # the edge at this face's max along u, along v
+                    e = ctr.copy()
+                    e[u] = b[3 + u]
+                    dd = np.zeros(3)
+                    dd[v] = 1.0
+                    o.append(e)
+                    d.append(dd)
+    g = np.random.default_rng(11)
+    ro = g.normal(size=(3000, 3))
+    ro = 5.0 * ro / np.linalg.norm(ro, axis=1, keepdims=True)
+    rd = g.uniform(-2.0, 2.0, (3000, 3)) - ro
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    o = np.concatenate([np.array(o), ro]).astype(np.float32)
+    d = np.concatenate([np.array(d), rd]).astype(np.float32)
+    return torch.as_tensor(o), torch.as_tensor(d)
+
+
+@pytest.mark.parametrize("case", ["grazing", "lim", "ragged", "camera"])
+def test_mask_plain_cull_is_bit_equal(case):
+    """``mask_plain`` with the kernel's word and group box cull
+    (``level_boxes``) bit equal to the flat mask: masks and tile words, on
+    45 boxes (not a multiple of 32) under rays grazing each word and group
+    box's faces and edges ("grazing"; with a lim plane ending each segment
+    at random: "lim"; the first 2,500 counting: "ragged"), and on the test
+    scene's camera rays (41 clusters).  A copy of the boxes with the word
+    boxes, or the group boxes, shrunk by one ulp fails the grazing case."""
+    if case == "camera":
+        _, pack, _ = _packs()
+        aabb = pack.aabb
+        rays, _ = coherent._to_planes(*_camera_rays(W, H), (H, W))
+    else:
+        aabb = _cull_boxes()
+        o, d = _grazing_rays(aabb, coherent.level_boxes(aabb))
+        rays, _ = coherent._to_planes(o, d, None)
+        if case == "lim":
+            lim = torch.as_tensor(np.random.default_rng(3).uniform(
+                0.0, 6.0, rays.shape[1:]).astype(np.float32))
+            rays = torch.cat([rays, lim[None]], 0)
+    cnt = torch.tensor([2500], dtype=torch.int32) if case == "ragged" else None
+    levels = coherent.level_boxes(aabb)
+    want = coherent.mask_plain(aabb, rays, T_MIN, cnt)
+    got = coherent.mask_plain(aabb, rays, T_MIN, cnt, boxes=levels)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((want[1] != 0).any())
+    if case == "grazing":
+        for rows in (slice(0, 1), slice(1, None)):
+            shrunk = levels.clone()
+            shrunk[:, rows, 3:6] = torch.nextafter(
+                shrunk[:, rows, 3:6], torch.tensor(-np.inf))
+            bad = coherent.mask_plain(aabb, rays, T_MIN, cnt, boxes=shrunk)
+            assert not torch.equal(bad[0], want[0])
+
+
+def test_level_boxes_hold_their_members():
+    """Each word box holds its 32 clusters' boxes and each group box its
+    MASK_GROUP, with a side equal to a member's; a member whose sides are not
+    ordered makes its group and word the whole space; a group past the
+    last cluster is empty."""
+    aabb = _cull_boxes()
+    lv = coherent.level_boxes(aabb)
+    assert lv.shape == (2, coherent.LEVEL_ROWS, 8)
+    for w in range(2):
+        for row in range(coherent.LEVEL_ROWS):
+            mem = aabb[w * 32:(w + 1) * 32]
+            g = coherent.MASK_GROUP
+            if row:
+                mem = mem[(row - 1) * g:row * g]
+            if not len(mem):
+                assert bool((lv[w, row, 0:3] > lv[w, row, 3:6]).all())
+                continue
+            assert torch.equal(lv[w, row, 0:3], mem[:, 0:3].amin(0))
+            assert torch.equal(lv[w, row, 3:6], mem[:, 3:6].amax(0))
+    bad = aabb.clone()
+    bad[40, 0], bad[40, 3] = 1.0, -1.0
+    lv = coherent.level_boxes(bad)
+    inf = float("inf")
+    for row in (0, 1 + (40 - 32) // coherent.MASK_GROUP):
+        assert lv[1, row, 0:3].tolist() == [-inf] * 3
+        assert lv[1, row, 3:6].tolist() == [inf] * 3
+    assert torch.equal(lv[0], coherent.level_boxes(aabb)[0])

@@ -19,7 +19,11 @@ from cpu_based_ray_tracer_tpu_torch.models import denoiser
 from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused, fused_mesh,
                                                 fused_rtiow, fused_whitted,
                                                 packet)
-from cpu_based_ray_tracer_tpu_torch.scene import make_spheres
+from cpu_based_ray_tracer_tpu_torch.scene import (REFLECTIVE_REFRACTIVE,
+                                                  MaterialBuilder,
+                                                  PointLights, make_scene,
+                                                  make_spheres,
+                                                  make_triangles)
 from cpu_based_ray_tracer_tpu_torch.scenes import (cornell, meshes, rtiow,
                                                    whitted_scene)
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
@@ -93,6 +97,55 @@ def test_whitted_kernel_matches_plain(cuda, queue):
     np.testing.assert_allclose(float(t), float(want_t), rtol=1e-5)
     if queue == 4:
         assert float(t) == 0.0
+
+
+def full_queue_scene(device="cpu"):
+    """The Whitted scene with both spheres glass (ior 2.4 and 1.5) and the
+    floor a glass quad (ior 2.4) facing down, so that camera rays meet its
+    back: at 96x80 some pixels keep every slot of a Q = 4 or Q = 2 queue
+    live, and grazing rays lose their refracted child to total internal
+    reflection (a sphere never reflects totally what entered it)."""
+    mb = MaterialBuilder()
+    dense = mb.add(REFLECTIVE_REFRACTIVE, ior=2.4)
+    glass = mb.add(REFLECTIVE_REFRACTIVE, ior=1.5)
+    spheres = make_spheres(center=[[-1.0, 0.0, -12.0], [0.5, -0.5, -8.0]],
+                           radius=[2.0, 1.5], material=[dense, glass],
+                           device=device)
+    v = np.array([[-5, -3, -6], [5, -3, -6], [5, -3, -16], [-5, -3, -16]],
+                 np.float64)
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float64)
+    idx = np.array([[0, 3, 1], [1, 3, 2]])
+    tris = make_triangles(v[idx], np.array([dense, dense]), uv=uv[idx],
+                          device=device)
+    sky = whitted_scene.SKY
+    lights = PointLights(
+        position=torch.tensor([[-20.0, 70.0, 20.0], [30.0, 50.0, -12.0]],
+                              device=device),
+        radiance=torch.full((2, 3), 0.5, device=device))
+    return make_scene(triangles=tris, spheres=spheres,
+                      materials=mb.build(device), lights=lights,
+                      sky_bottom=sky, sky_top=sky, device=device)
+
+
+@pytest.mark.parametrize("queue", [4, 2])
+def test_whitted_kernel_matches_plain_on_full_queues(cuda, queue):
+    """The kernel against its plain version (run on the card) within
+    chip_smoke's PLAIN_ATOL of 1e-6 on every pixel, the truncated weight
+    too, on a frame where some pixel has every slot live and total
+    internal reflection kills a child (the plain version's tally says
+    so)."""
+    scene, cam = full_queue_scene(cuda), whitted_scene.whitted_camera(cuda)
+    cfg = RenderConfig(width=96, height=80)
+    counts = {}
+    want, want_t = fused_whitted.render_fused_plain(
+        scene, cam, cfg, queue=queue, device=cuda, counts=counts)
+    assert max(lv["full_lanes"] for lv in counts["levels"]) > 0
+    assert sum(lv["tir"] for lv in counts["levels"]) > 0
+    got, t = fused_whitted.render_fused(scene, cam, cfg, queue=queue)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-6
+    assert abs(float(t) - float(want_t)) <= 1e-6 * max(1.0, float(want_t))
+    assert float(want_t) > 0.0
 
 
 def _rays(seed, n, lo, hi, device):
@@ -388,17 +441,40 @@ def test_mesh_render_on_card(cuda):
 
 # --- the shortlist intersector and the shortlist-streaming sweep ------------
 
+def sphere_boxes(n: int, seed: int = 3):
+    """n small cluster boxes on a sphere of radius 2 about the origin, in
+    the order of their centres' 3-bit-per-axis cell codes (a spatial order,
+    as the BVH preorder of a pack gives), (n, 8) f32."""
+    g = np.random.default_rng(seed)
+    c = g.normal(size=(n, 3))
+    c = 2.0 * c / np.linalg.norm(c, axis=1, keepdims=True)
+    cell = np.clip(((c + 2.0) / 4.0 * 8).astype(int), 0, 7)
+    code = np.zeros(n, int)
+    for b in range(3):
+        for a in range(3):
+            code |= ((cell[:, a] >> b) & 1) << (3 * b + a)
+    c = c[np.argsort(code, kind="stable")]
+    half = g.uniform(0.02, 0.15, (n, 3))
+    box = np.zeros((n, 8), np.float32)
+    box[:, 0:3], box[:, 3:6] = c - half, c + half
+    return box
+
+
 def _coherent_rays(case, device):
     """(pack, ray planes, cnt) of bvh_stage_scene: its 64x64 camera rays
-    in pixel tiles, random segments with a lim plane, or a strip-tiled
-    packed buffer of which the first 3,000 rays count."""
+    in pixel tiles ("camera"; in 80-triangle clusters, 45 of them:
+    "clusters_45"), random segments with a lim plane, or a strip-tiled
+    packed buffer of which the first 3,000 rays ("packed") or none
+    ("packed_none") count; "clusters_1280": 1,280 boxes on a sphere
+    (``sphere_boxes``) under 8,192 random rays toward it, 5,000 counting."""
     scene = meshes.bvh_stage_scene(device=device)
-    pack = coherent.pack_coherent(scene)
+    pack = coherent.pack_coherent(
+        scene, cluster_size=80 if case == "clusters_45" else 128)
     cam = meshes.bvh_stage_camera(device)
     d = camera.perspective_rays(cam, 64, 64).reshape(-1, 3).contiguous()
     o = cam.position.expand(d.shape).contiguous()
     cnt = None
-    if case == "camera":
+    if case in ("camera", "clusters_45"):
         rays, _ = coherent._to_planes(o, d, (64, 64))
     elif case == "lim":
         o, d = _rays(4, 4096, -3.0, 6.0, device)
@@ -406,18 +482,34 @@ def _coherent_rays(case, device):
         lim = torch.rand((1,) + rays.shape[1:], device=device,
                          generator=torch.Generator(device).manual_seed(0))
         rays = torch.cat([rays, 6.0 * lim], 0).contiguous()
+    elif case == "clusters_1280":
+        aabb = torch.as_tensor(sphere_boxes(1280), device=device)
+        pack = dataclasses.replace(pack, aabb=aabb)
+        g = np.random.default_rng(6)
+        o = g.normal(size=(8192, 3))
+        o = 5.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+        d = g.uniform(-1.6, 1.6, (8192, 3)) - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        rays, _ = coherent._to_planes(
+            *(torch.as_tensor(x.astype(np.float32), device=device)
+              for x in (o, d)), None)
+        cnt = torch.tensor([5000], dtype=torch.int32, device=device)
     else:
         rays, _ = coherent._to_planes(o, d, None)
-        cnt = torch.tensor([3000], dtype=torch.int32, device=device)
+        cnt = torch.tensor([3000 if case == "packed" else 0],
+                           dtype=torch.int32, device=device)
     return pack, rays, cnt
 
 
-@pytest.mark.parametrize("case", ["camera", "lim", "packed"])
+@pytest.mark.parametrize("case", ["camera", "lim", "packed", "packed_none",
+                                  "clusters_45", "clusters_1280"])
 def test_coherent_mask_matches_plain(cuda, case):
     """The mask kernel against mask_plain: mask planes and tile words bit
-    equal, so the same ids and counts; without the planes (as the lists
-    run it) the same tile words."""
+    equal; without the planes (as the lists run it) the same tile words;
+    the lists it writes in the same launch (with and without the planes)
+    equal to ``_lists`` of the plain words; the tickets left zero."""
     pack, rays, cnt = _coherent_rays(case, cuda)
+    stream = torch.cuda.current_stream(cuda)
     launches = coherent.LAUNCHES["mask"]
     mk, wk = coherent._mask_kernel(pack.aabb, rays, 1e-3, cnt)
     none, wk0 = coherent._mask_kernel(pack.aabb, rays, 1e-3, cnt,
@@ -427,10 +519,20 @@ def test_coherent_mask_matches_plain(cuda, case):
     assert coherent.LAUNCHES["mask"] == launches + 2
     assert torch.equal(mk, mp) and torch.equal(wk, wp)
     assert none is None and torch.equal(wk0, wk)
-    assert bool((wk != 0).any())
-    for a, b in zip(coherent._lists(wk, pack.n_clusters),
-                    coherent._lists(wp, pack.n_clusters)):
-        assert torch.equal(a, b)
+    assert bool((wk != 0).any()) == (case != "packed_none")
+    want = coherent._lists(wp, pack.n_clusters)
+    for planes in (False, True):
+        got = coherent._mask_kernel(pack.aabb, rays, 1e-3, cnt, planes=planes,
+                                    boxes=pack.boxes, lists=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], wp)
+        assert torch.equal(got[2], want[0]) and torch.equal(got[3], want[1])
+        if planes:
+            assert torch.equal(got[0], mp)
+        tickets = kernels.TICKETS[(stream.device.index, stream.cuda_stream)]
+        assert not bool(tickets.any())
+    ids, cnts = coherent._shortlists(pack.aabb, rays, 1e-3, cnt)
+    assert torch.equal(ids, want[0]) and torch.equal(cnts, want[1])
 
 
 @pytest.mark.parametrize("case", ["camera", "packed", "compacted"])

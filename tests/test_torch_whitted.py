@@ -299,3 +299,29 @@ def test_fused_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         fw._tree_kernel(wp, torch.zeros(3), torch.zeros((3, 16)), 5, 4,
                         1e-3, 1e-5)
+
+
+
+@pytest.mark.parametrize("queue", [4, 2])
+def test_full_queue_scene_fills_every_slot(queue):
+    """The data of ``test_torch_cuda.py::
+    test_whitted_kernel_matches_plain_on_full_queues``: on
+    ``full_queue_scene`` at 96x80 some pixel has every slot of the queue
+    live and total internal reflection kills some refracted child (the
+    plain version's tally); the tally's levels add up to its totals, and
+    the warps' slot sections cover the live slots."""
+    from test_torch_cuda import full_queue_scene
+
+    counts = {}
+    fw.render_fused_plain(full_queue_scene(), whitted_scene.whitted_camera(),
+                          RenderConfig(width=96, height=80), queue=queue,
+                          device="cpu", counts=counts)
+    levels = counts["levels"]
+    assert max(lv["full_lanes"] for lv in levels) > 0
+    assert sum(lv["tir"] for lv in levels) > 0
+    for k in ("live", "diffuse", "specular"):
+        assert sum(lv[k] for lv in levels) == counts[k]
+    for lv in levels:
+        assert lv["miss"] + lv["diffuse"] + lv["specular"] <= lv["live"]
+        assert lv["warp_slots"] * 32 >= lv["live"] >= lv["lanes"]
+        assert lv["lanes"] >= lv["full_lanes"]
