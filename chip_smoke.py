@@ -177,12 +177,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               seconds per frame and one fused_mc launch a frame; image to
               build/;
 30. single_path_speed  one single_path launch alone, its plain version,
-              the bound of its live lane-steps and shadow rays.
+              the bound of its live lane-steps and shadow rays;
+31. mc_equal_spp  tools/bench_passes.py's mc_equal_spp: render_wavefront
+              (the plain equal-spp engine, no kernel) at 896x896, 4 spp,
+              depth 16, RR 0.8: seconds (median, min, max of 3 warm runs),
+              rays/s, spp/s, steps and host polls, beside
+              render_turbo_exact's seconds; against render_turbo_exact
+              (<= 1e-4 of the pixels off by more than 2e-3 + 2e-3 |want|)
+              and, at 1 spp, its ray count equal to count_rays';
+32. mc_equal_spp_golden  render_wavefront at 128x128, 64 spp, against
+              goldens/test/mc_cornell.png (mean <= 2, p99 <= 16);
+33. slabs     wavefront_init / wavefront_steps at 896x896, 16 steps, on two
+              slabs cut on a row boundary and off one: every plane bit
+              equal to the whole image's state;
+34. min_spp   render_turbo(min_spp=1) and render_turbo() at 896x896, 4 spp:
+              launches and seconds; min(n_done) reaches the target at the
+              last launch, the image bit equal to the launches replayed;
+35. soft_shadow  soft_shadow_beta > 0: soft_visibility card against CPU on
+              65,536 segments (1e-6); render and render_wavefront at
+              896x896, 4 spp, beta 0.05 (seconds; finite, mean > 0) and at
+              32x32 card against CPU (2e-3); beta 1e-4 against the hard test
+              (every pixel within 1e-3 at tests/test_grad.py's 16x16, at
+              most 0.5% of the pixels beyond it at 128x128); make_soft_vis_fn
+              on cornell_mesh_scene against brute (rtol = atol = 2e-4), and
+              mesh.render_mc through packet at 128x128, 4 spp, beta 0.05
+              (seconds, packet launches, 0 pixels off against brute).
 
-Each main path (5, 9, 11, 12, 15, 18, 21, 25, 29) runs with every launch
-counter set to 0 just before it and read just after.  Then the kernels line, the nvidia-smi
-line, and the last line {"ok": true, "device": {...}}.  Exits non-zero,
-printing no result, where CUDA is not available.
+Each main path (5, 9, 11, 12, 15, 18, 21, 25, 29, 31, 34, 35) runs with
+every launch counter set to 0 just before it and read just after.  Then
+the kernels line, the nvidia-smi line, and the last line {"ok": true,
+"device": {...}}.  Exits non-zero, printing no result, where CUDA is not
+available.
 """
 
 from __future__ import annotations
@@ -207,6 +232,7 @@ OUT = os.path.join(ROOT, "build", "chip_smoke")
 # computed there (jax.random.bits of the key); the port takes the word.
 SEED_KEY0 = 4070199207   # render_key(0): bench.py's key, the main path
 SEED_KEY2 = 2752176745   # render_key(2): tools/make_goldens.mc_cornell
+SEED_KEY15 = 1709130268  # render_key(15): tests/test_grad.py's beta limit
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores (counting an FMA as two operations) and HBM bandwidth; every
@@ -2920,6 +2946,366 @@ def single_path_speed_phase(dev, cfg, smi, n_iters=10) -> dict:
     return res
 
 
+# --- the equal-spp engine, the slabs, min_spp and soft shadows -------------
+
+@contextlib.contextmanager
+def counting_steps():
+    """Count the calls of models.monte_carlo._bounce_step made inside the
+    block: the bounce steps of a plain-engine render."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+
+    calls = [0]
+    step = mc._bounce_step
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return step(*args, **kw)
+
+    mc._bounce_step = counted
+    try:
+        yield calls
+    finally:
+        mc._bounce_step = step
+
+
+def timed_runs(fn, dev, n_iters: int) -> dict:
+    """Host seconds of n_iters calls of fn() ending in a synchronise:
+    spread() of the samples."""
+    secs = []
+    for _ in range(n_iters):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        secs.append(time.perf_counter() - t0)
+    return spread(secs)
+
+
+def mc_equal_spp_phase(dev, full: RenderConfig, smi: str, n_iters=3) -> dict:
+    """tools/bench_passes.py's mc_equal_spp: render_wavefront, the plain
+    equal-spp engine, at the main path's configuration, the launch
+    counters set to 0 just before its first run and read just after (it
+    launches no kernel); then timed warm.  Gates: against
+    render_turbo_exact (the same estimator in one kernel) at most
+    MAX_INT_MISMATCH of the pixels off by more than TOL + TOL * |want|;
+    at 1 spp its ray count equals the scan engine's count_rays."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    acc0 = torch.zeros((full.height, full.width, 3), dtype=torch.float32,
+                       device=dev)
+
+    def render(cfg=full):
+        return mc.render_wavefront(scene, cam, cfg, SEED_KEY0, acc0, 0,
+                                   return_rays=True, device=dev)
+
+    sync(dev)
+    reset_counts()
+    with counting_steps() as steps:
+        acc, nxt, nrays = render()
+    sync(dev)
+    launches = read_counts()
+    n_steps, max_steps = steps[0], full.spp * full.max_depth
+    secs = timed_runs(render, dev, n_iters)
+    img = acc / torch.tensor(float(full.spp), device=dev)
+    turbo = mc.render_turbo_exact(scene, cam, full, SEED_KEY0, device=dev)
+    turbo_secs = timed_runs(lambda: mc.render_turbo_exact(
+        scene, cam, full, SEED_KEY0, device=dev), dev, n_iters)
+    vs_turbo = pixels_off(img, turbo, TOL, TOL)
+    share = vs_turbo["pixels_off"] / (full.width * full.height)
+    one = full.replace(spp=1)
+    _, _, n_wf1 = render(one)
+    n_scan1 = mc.count_rays(scene, cam, one, SEED_KEY0)
+    rays = int(nrays)
+    res = dict(seconds=secs, rays_per_s=rays / secs["median"],
+               spp_per_s=full.spp / secs["median"], nrays=rays,
+               steps=n_steps, max_steps=max_steps,
+               host_polls=n_steps + (n_steps < max_steps),
+               next_sample=nxt, launches=launches,
+               fused_equal_spp_seconds=turbo_secs)
+    emit(phase="mc_equal_spp", nvidia_smi=smi,
+         config=f"{full.width}x{full.height} {full.spp}spp "
+         f"depth{full.max_depth} rr{full.rr_survival}", **res,
+         finite=bool(torch.isfinite(img).all()),
+         mean_radiance=float(img.mean()), vs_render_turbo_exact=vs_turbo,
+         pixels_off_share=share, max_share=MAX_INT_MISMATCH,
+         nrays_1spp=int(n_wf1), count_rays_1spp=int(n_scan1),
+         png=save_png(img, f"mc_equal_spp_{full.width}.png", gamma=2.0))
+    if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+            and nxt == full.spp):
+        raise RuntimeError("render_wavefront's image is wrong")
+    if share > MAX_INT_MISMATCH:
+        raise RuntimeError(f"render_wavefront vs render_turbo_exact: "
+                           f"{vs_turbo}")
+    if int(n_wf1) != int(n_scan1):
+        raise RuntimeError(f"render_wavefront traced {int(n_wf1)} rays at 1 "
+                           f"spp, the scan engine {int(n_scan1)}")
+    return res
+
+
+def mc_equal_spp_golden_phase(dev, gcfg: RenderConfig, smi: str) -> dict:
+    """render_wavefront, the engine that rendered goldens/test/
+    mc_cornell.png, at its configuration and seed, against it."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    sync(dev)
+    t0 = time.perf_counter()
+    with counting_steps() as steps:
+        acc, _ = mc.render_wavefront(
+            cornell.cornell_scene(dev), cornell.cornell_camera(dev), gcfg,
+            SEED_KEY2, torch.zeros((gcfg.height, gcfg.width, 3),
+                                   dtype=torch.float32, device=dev), 0,
+            device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    img = acc / torch.tensor(float(gcfg.spp), device=dev)
+    res = u8_gate(img, "mc_cornell", 1.0, 2.0, 16)
+    emit(phase="mc_equal_spp_golden", nvidia_smi=smi,
+         config=f"{gcfg.width}x{gcfg.height} "
+         f"{gcfg.spp}spp depth{gcfg.max_depth} rr{gcfg.rr_survival}",
+         seconds=secs, steps=steps[0], **res)
+    return res
+
+
+def concat_states(parts):
+    """Slab lane states, in pixel order, as one state; the ray counts
+    summed as int32."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
+
+    cat = {f: torch.cat([getattr(p, f) for p in parts])
+           for f in ("s", "b", "o", "d", "tp", "cur", "acc", "n_done")}
+    nrays = fused._wrap_i32(sum(p.nrays.to(torch.int64) for p in parts))
+    return mc.WavefrontState(nrays=nrays, **cat)
+
+
+def slabs_phase(dev, full: RenderConfig, smi: str, n_steps=16) -> dict:
+    """wavefront_init / wavefront_steps on two slabs of the image, cut on a
+    row boundary and off one: every plane of the slabs, concatenated, bit
+    equal to the whole image's state, at init and after n_steps."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    r = full.width * full.height
+    t0 = time.perf_counter()
+    whole0 = mc.wavefront_init(scene, cam, full, SEED_KEY0, device=dev)
+    whole1 = mc.wavefront_steps(scene, cam, full, SEED_KEY0, whole0, n_steps)
+    sync(dev)
+    whole_secs = time.perf_counter() - t0
+    cuts = {"rows": (full.height // 2) * full.width,
+            "ragged": (full.height // 2) * full.width + full.width // 3 + 1}
+    res = {}
+    for name, cut in cuts.items():
+        parts0, parts1 = [], []
+        for a, b in ((0, cut), (cut, r)):
+            st = mc.wavefront_init(scene, cam, full, SEED_KEY0,
+                                   pixel_offset=a, n_lanes=b - a, device=dev)
+            parts0.append(st)
+            parts1.append(mc.wavefront_steps(scene, cam, full, SEED_KEY0, st,
+                                             n_steps, pixel_offset=a))
+        res[name] = dict(cut=cut, on_row=cut % full.width == 0,
+                         init_bit_equal=states_bit_equal(
+                             concat_states(parts0), whole0),
+                         steps_bit_equal=states_bit_equal(
+                             concat_states(parts1), whole1))
+    emit(phase="slabs", nvidia_smi=smi,
+         config=f"{full.width}x{full.height} depth"
+         f"{full.max_depth} rr{full.rr_survival}", steps=n_steps,
+         whole_seconds=whole_secs, nrays=int(whole1.nrays), **res)
+    if not all(v["init_bit_equal"] and v["steps_bit_equal"]
+               for v in res.values()):
+        raise RuntimeError(f"slab states differ from the whole image's: "
+                           f"{res}")
+    return res
+
+
+def min_spp_phase(dev, full: RenderConfig, smi: str) -> dict:
+    """render_turbo(min_spp=1) and render_turbo() at the main path's
+    configuration, the launch counters set to 0 just before each and read
+    just after; each against its chunks replayed from wavefront_init until
+    min(n_done) reaches the target: as many launches, and the same image,
+    bit for bit."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    fs = fused.pack_scene(scene)
+    chunk = max(32, full.max_depth)
+    res = {}
+    for min_spp in (1, None):
+        target = full.spp if min_spp is None else min_spp
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        img = mc.render_turbo(scene, cam, full, SEED_KEY0, min_spp=min_spp,
+                              device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        launches = read_counts()["fused_mc"]
+        st = mc.wavefront_init(scene, cam, full, SEED_KEY0, device=dev)
+        chunks = 0
+        while int(st.n_done.min()) < target:
+            st = fused.wavefront_steps_fused(fs, cam, full, SEED_KEY0, st,
+                                             chunk, device=dev)
+            chunks += 1
+        want = mc.wavefront_image(st, full)
+        res[f"min_spp_{target}"] = dict(
+            seconds=secs, launches=launches, chunks=chunks,
+            steps=chunks * chunk, target=target,
+            min_n_done=int(st.n_done.min()), max_n_done=int(st.n_done.max()),
+            image_bit_equal=bool(torch.equal(img.view(torch.int32),
+                                             want.view(torch.int32))))
+    emit(phase="min_spp", nvidia_smi=smi,
+         config=f"{full.width}x{full.height} "
+         f"{full.spp}spp depth{full.max_depth} rr{full.rr_survival}",
+         chunk=chunk, **res)
+    for k, v in res.items():
+        kernel_ok = dev.type != "cuda" or v["launches"] == v["chunks"]
+        if not (kernel_ok and v["min_n_done"] >= v["target"]
+                and v["image_bit_equal"]):
+            raise RuntimeError(f"render_turbo {k}: {v}")
+    return res
+
+
+def shadow_segments(n: int, seed: int):
+    """Seeded shadow segments in the Cornell room: each from a point in
+    the room to a point on the ceiling light quad, its length dist."""
+    g = np.random.default_rng(seed)
+    p = g.uniform([0.2, 0.2, 0.2], [3.5, 3.5, 3.3], (n, 3))
+    q = np.stack([g.uniform(1.4, 2.2, n), np.full(n, 3.59),
+                  g.uniform(1.3, 2.1, n)], -1)
+    w = q - p
+    dist = np.linalg.norm(w, axis=-1)
+    return ((p).astype(np.float32), (w / dist[:, None]).astype(np.float32),
+            dist.astype(np.float32))
+
+
+def soft_shadow_phase(dev, smi: str, full: RenderConfig,
+                      mcfg: RenderConfig, n_seg=65536) -> dict:
+    """Soft shadows (soft_shadow_beta > 0) in the plain engines, on the card:
+    (a) soft_visibility card against CPU on seeded segments; (b) the scan
+    render and render_wavefront at ``full`` (timed; finite, mean > 0), and
+    at 32x32 card against CPU; (c) beta = 1e-4 against the hard test; (d)
+    make_soft_vis_fn on cornell_mesh_scene against brute soft_visibility,
+    and mesh.render_mc through the packet kernel at ``mcfg`` against
+    method="brute".  ``full.soft_shadow_beta`` is the beta of (a), (b) and
+    (d)."""
+    from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.ops import intersect
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    cpu = torch.device("cpu")
+    beta = full.soft_shadow_beta
+    res = {}
+    # (a)
+    seg = shadow_segments(n_seg, 11)
+    vis = {}
+    for d in (dev, cpu):
+        args = [torch.as_tensor(x, device=d) for x in seg]
+        vis[d.type] = intersect.soft_visibility(
+            cornell.cornell_scene(d), *args, 1e-3, beta, 0.01)
+    err = max_abs(vis[dev.type].cpu(), vis["cpu"])
+    res["visibility"] = dict(segments=n_seg, beta=beta, max_abs_err=err,
+                             tol=1e-6, mean=float(vis["cpu"].mean()))
+    # (b)
+    small = RenderConfig(width=32, height=32, spp=2, max_depth=4,
+                         rr_survival=0.8, soft_shadow_beta=beta)
+    zeros = lambda c, d: torch.zeros((c.height, c.width, 3),  # noqa: E731
+                                     dtype=torch.float32, device=d)
+    engines = {
+        "render": lambda c, d: mc.render(
+            cornell.cornell_scene(d), cornell.cornell_camera(d), c,
+            SEED_KEY0, device=d),
+        "render_wavefront": lambda c, d: mc.render_wavefront(
+            cornell.cornell_scene(d), cornell.cornell_camera(d), c,
+            SEED_KEY0, zeros(c, d), 0, device=d)[0]
+        / torch.tensor(float(c.spp), device=d)}
+    for name, fn in engines.items():
+        sync(dev)
+        t0 = time.perf_counter()
+        img = fn(full, dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        got, want = fn(small, dev).cpu(), fn(small, cpu)
+        res[name] = dict(seconds=secs, finite=bool(torch.isfinite(img).all()),
+                         mean_radiance=float(img.mean()),
+                         small_vs_cpu=pixels_off(got, want, 0.0, TOL),
+                         png=save_png(img, f"soft_{name}_{full.width}.png",
+                                      gamma=2.0))
+    # (c)
+    for name, c, seed in (
+            ("limit_16", RenderConfig(width=16, height=16, spp=2,
+                                      max_depth=2), SEED_KEY15),
+            ("limit_128", RenderConfig(width=128, height=128, spp=2,
+                                       max_depth=2), SEED_KEY0)):
+        scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+        hard = mc.render(scene, cam, c, seed, device=dev)
+        soft = mc.render(scene, cam, c.replace(soft_shadow_beta=1e-4), seed,
+                         device=dev)
+        off = pixels_off(soft, hard, 0.0, 1e-3)
+        res[name] = dict(off, pixels_off_share=off["pixels_off"]
+                         / (c.width * c.height))
+    # (d)
+    mscene = cornell.cornell_mesh_scene(device=dev)
+    fn = mesh.make_soft_vis_fn(mscene)
+    args = [torch.as_tensor(x, device=dev) for x in shadow_segments(
+        n_seg, 12)]
+    got = fn(mscene, *args, 1e-3, beta, 0.01)
+    brute = intersect.soft_visibility(mscene, *args, 1e-3, beta, 0.01)
+    res["gated"] = dict(pixels_off(got[:, None], brute[:, None], 2e-4, 2e-4),
+                        tris=mscene.triangles.count, segments=n_seg)
+    cam = cornell.cornell_camera(dev)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    img = mesh.render_mc(mesh.prepare(mscene), cam, mcfg, SEED_KEY0,
+                         device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    brute_img = mesh.render_mc(mesh.prepare(mscene, method="brute"), cam,
+                               mcfg, SEED_KEY0, device=dev)
+    res["mesh_render_mc"] = dict(
+        seconds=secs, launches=launches, finite=bool(torch.isfinite(img)
+                                                     .all()),
+        mean_radiance=float(img.mean()),
+        vs_brute=pixels_off(img, brute_img, TOL, TOL),
+        png=save_png(img, f"soft_mesh_mc_{mcfg.width}.png"))
+    emit(phase="soft_shadow", nvidia_smi=smi, beta=beta,
+         config=f"{full.width}x{full.height} {full.spp}spp depth"
+         f"{full.max_depth} rr{full.rr_survival}; small {small.width}x"
+         f"{small.height} {small.spp}spp depth{small.max_depth}; mesh "
+         f"{mcfg.width}x{mcfg.height} {mcfg.spp}spp", **res)
+    bad = []
+    if not res["visibility"]["max_abs_err"] <= 1e-6:
+        bad.append("visibility")
+    for name in engines:
+        v = res[name]
+        if not (v["finite"] and v["mean_radiance"] > 0.0
+                and v["small_vs_cpu"]["pixels_off"] == 0):
+            bad.append(name)
+    if res["limit_16"]["pixels_off"] != 0:
+        bad.append("limit_16")
+    if res["limit_128"]["pixels_off_share"] > KNIFE_SHARE:
+        bad.append("limit_128")
+    if res["gated"]["pixels_off"] != 0:
+        bad.append("gated")
+    m = res["mesh_render_mc"]
+    if not ((dev.type != "cuda" or m["launches"]["packet"] > 0)
+            and m["finite"]
+            and m["mean_radiance"] > 0.0 and m["vs_brute"]["pixels_off"] == 0):
+        bad.append("mesh_render_mc")
+    if bad:
+        raise RuntimeError(f"soft_shadow gates failed: {bad}")
+    return res
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3003,6 +3389,16 @@ def main():
     denoiser_golden_phase(dev)
     d_launches = denoiser_main_phase(dev, dcfg)
     dsp = single_path_speed_phase(dev, dcfg, smi)
+
+    mc_equal_spp_phase(dev, full, smi)
+    mc_equal_spp_golden_phase(dev, RenderConfig(width=128, height=128,
+                                                spp=64, max_depth=16,
+                                                rr_survival=0.8), smi)
+    slabs_phase(dev, full, smi)
+    min_spp_phase(dev, full, smi)
+    soft_shadow_phase(dev, smi, full.replace(soft_shadow_beta=0.05),
+                      RenderConfig(width=128, height=128, spp=4, max_depth=16,
+                                   rr_survival=0.8, soft_shadow_beta=0.05))
 
     r = full.width * full.height
     mesh_kernels = [{

@@ -29,8 +29,8 @@ class RenderConfig:
     rr_survival: float = 0.8
     shadow_tolerance: float = 1e-2
     # 0 = the reference's hard shadow test; > 0 = sigmoid-relaxed visibility
-    # (the differentiable mode): every engine of the port raises
-    # NotImplementedError for it until soft_visibility is ported.
+    # (the differentiable mode, ops.intersect.soft_visibility) in the plain
+    # MC engines; the fused steppers raise NotImplementedError for it.
     soft_shadow_beta: float = 0.0
     # Whitted stage:
     whitted_depth: int = 5

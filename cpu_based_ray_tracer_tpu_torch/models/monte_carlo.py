@@ -17,10 +17,15 @@ the counter-based pcg4d hash of (pixel, sample, bounce, stream):
   launch for ``n_steps`` steps — what ``render_turbo_exact`` and
   ``render_turbo`` run.
 
+- ``render_wavefront`` / ``render_fast``: the equal-spp wavefront engine,
+  the same stepper run until every pixel has its ``cfg.spp`` samples.
+
 ``intersect_fn`` / ``nearest_t_fn`` swap in an accelerated intersector
 (``models.mesh``: the packet kernel) for the main and the shadow rays.
-The replay, soft-visibility and record branches of ``_bounce_step`` wait
-for the gradient slice.
+``cfg.soft_shadow_beta > 0`` replaces the hard shadow test by the
+sigmoid-relaxed visibility (``soft_vis_fn``, default brute-force
+``intersect.soft_visibility``).  The replay and record branches of
+``_bounce_step`` wait for the gradient slice.
 """
 
 from __future__ import annotations
@@ -46,19 +51,16 @@ def _brdf_diffuse(albedo, cos_in):
 
 def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
                  bounce, o, d, throughput, alive, intersect_fn=None,
-                 nearest_t_fn=None):
-    """One path-tracing bounce for a batch of lanes (hard shadows).
+                 nearest_t_fn=None, soft_vis_fn=None):
+    """One path-tracing bounce for a batch of lanes.
 
     ``intersect_fn(scene, o, d, t_min) -> Hit`` and ``nearest_t_fn(scene,
-    o, d, t_min) -> t`` default to exact brute force.  Returns
-    ``(radiance_delta, o', d', throughput', continues, n_main, n_shadow)``;
-    the n_* are the ray counts of this step.  Every plain engine steps
-    through here, so here it refuses ``soft_shadow_beta > 0``."""
-    if cfg.soft_shadow_beta > 0.0:
-        raise NotImplementedError(
-            "soft_shadow_beta > 0 (sigmoid-relaxed visibility) waits for the "
-            "port of soft_visibility with the gradient slice; the plain "
-            "engines implement the reference's hard shadow test only")
+    o, d, t_min) -> t`` default to exact brute force.  With
+    ``cfg.soft_shadow_beta > 0`` the shadow test is ``soft_vis_fn(scene,
+    p, wi, dist, t_min, beta, tolerance) -> (R,)`` (default
+    ``intersect.soft_visibility``) and ``nearest_t_fn`` is not called.
+    Returns ``(radiance_delta, o', d', throughput', continues, n_main,
+    n_shadow)``; the n_* are the ray counts of this step."""
     mats = scene.materials
     if intersect_fn is None:
         intersect_fn = lambda s, oo, dd, tm: intersect.intersect_scene(  # noqa: E731
@@ -92,9 +94,14 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
     dist = vec.norm(to_l)[:, 0]
     wi_l = to_l / torch.clamp(dist, min=1e-20)[:, None]
     ln = torch.where(vec.dot(ls.normal, -wi_l) < 0.0, -ls.normal, ls.normal)
-    occ_t = nearest_t_fn(scene, p, wi_l, cfg.t_min)
-    visible = dist < occ_t + cfg.shadow_tolerance
-    vis_w = visible.to(torch.float32)
+    if cfg.soft_shadow_beta > 0.0:
+        svf = soft_vis_fn or intersect.soft_visibility
+        vis_w = svf(scene, p, wi_l, dist, cfg.t_min, cfg.soft_shadow_beta,
+                    cfg.shadow_tolerance)
+    else:
+        occ_t = nearest_t_fn(scene, p, wi_l, cfg.t_min)
+        visible = dist < occ_t + cfg.shadow_tolerance
+        vis_w = visible.to(torch.float32)
     n_shadow = torch.sum(alive)
     cos_s = vec.dot(wi_l, n)[:, 0]
     cos_l = vec.dot(-wi_l, ln)[:, 0]
@@ -124,7 +131,8 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
 
 def trace(scene: Scene, origin, direction, cfg: RenderConfig, *, seed, pixel,
           sample, count_rays: bool = False, intersect_fn=None,
-          nearest_t_fn=None, first_hit: intersect.Hit | None = None):
+          nearest_t_fn=None, soft_vis_fn=None,
+          first_hit: intersect.Hit | None = None):
     """Path radiance for a batch of primary rays, (R, 3): the fixed-depth
     engine (every lane runs all ``cfg.max_depth`` bounces, dead ones
     masked).  ``count_rays``: also return the rays traced (main + shadow).
@@ -144,42 +152,49 @@ def trace(scene: Scene, origin, direction, cfg: RenderConfig, *, seed, pixel,
         delta, o, d, tp, alive, n_main, n_shadow = _bounce_step(
             scene, cfg, seed=seed, pixel=pixel, sample=sample, bounce=bounce,
             o=o, d=d, throughput=tp, alive=alive, intersect_fn=fn,
-            nearest_t_fn=nearest_t_fn)
+            nearest_t_fn=nearest_t_fn, soft_vis_fn=soft_vis_fn)
         radiance = radiance + delta
         nrays = nrays + n_main + n_shadow
     return (radiance, fused._wrap_i32(nrays)) if count_rays else radiance
 
 
-def _primary_rays(camera, cfg: RenderConfig, seed, sample):
-    """Jittered primary rays of the whole image for one sample index."""
-    h, w = cfg.height, cfg.width
+def _primary_rays(camera, cfg: RenderConfig, seed, sample,
+                  pixel_offset: int = 0, height: int | None = None):
+    """Jittered primary rays of a row-major image slab for one sample index:
+    ``height`` rows (default: the whole image) from the absolute pixel
+    ``pixel_offset``, the RNG counter, so slabs compose into the whole
+    image."""
+    h = cfg.height if height is None else height
+    w = cfg.width
     pixel = torch.arange(h * w, dtype=torch.int64,
-                         device=camera.position.device)
+                         device=camera.position.device) + pixel_offset
     uj = rng.uniforms4(seed, pixel, sample, 0, rng.JITTER)
     jitter = torch.stack([uj[0].reshape(h, w), uj[1].reshape(h, w)], -1)
-    d = cam_mod.perspective_rays(camera, w, h, jitter).reshape(-1, 3)
+    d = cam_mod.perspective_rays_slab(camera, w, cfg.height,
+                                      pixel_offset // w, h,
+                                      jitter).reshape(-1, 3)
     return camera.position.expand(d.shape), d, pixel
 
 
 def render(scene: Scene, camera, cfg: RenderConfig, seed: int,
-           device=None, *, intersect_fn=None,
-           nearest_t_fn=None) -> torch.Tensor:
+           device=None, *, intersect_fn=None, nearest_t_fn=None,
+           soft_vis_fn=None) -> torch.Tensor:
     """Mean linear radiance, (H, W, 3), by the fixed-depth engine: one
     jittered frame per sample, ``cfg.spp`` samples, on ``device`` (default:
     the card), through ``intersect_fn`` / ``nearest_t_fn`` (default: brute
-    force)."""
+    force) and, at ``cfg.soft_shadow_beta > 0``, ``soft_vis_fn``."""
     dev = resolve_device(device)
     acc, _ = render_progressive(
         scene.to(dev), camera.to(dev), cfg, seed,
         torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
                     device=dev), 0, intersect_fn=intersect_fn,
-        nearest_t_fn=nearest_t_fn)
+        nearest_t_fn=nearest_t_fn, soft_vis_fn=soft_vis_fn)
     return acc / torch.tensor(float(cfg.spp), device=dev)
 
 
 def render_progressive(scene: Scene, camera, cfg: RenderConfig, seed: int,
                        accum, start_sample: int, *, intersect_fn=None,
-                       nearest_t_fn=None):
+                       nearest_t_fn=None, soft_vis_fn=None):
     """Accumulate ``cfg.spp`` more samples (indices ``start_sample`` ..
     ``start_sample + spp``) on top of ``accum``; returns the checkpointable
     ``(accum', next_sample)`` pair."""
@@ -187,7 +202,8 @@ def render_progressive(scene: Scene, camera, cfg: RenderConfig, seed: int,
     for s in range(start_sample, start_sample + cfg.spp):
         o, d, pixel = _primary_rays(camera, cfg, seed, s)
         rad = trace(scene, o, d, cfg, seed=seed, pixel=pixel, sample=s,
-                    intersect_fn=intersect_fn, nearest_t_fn=nearest_t_fn)
+                    intersect_fn=intersect_fn, nearest_t_fn=nearest_t_fn,
+                    soft_vis_fn=soft_vis_fn)
         accum = accum + rad.reshape(h, w, 3)
     return accum, start_sample + cfg.spp
 
@@ -200,6 +216,81 @@ def count_rays(scene: Scene, camera, cfg: RenderConfig, seed: int
     _, n = trace(scene, o, d, cfg, seed=seed, pixel=pixel, sample=0,
                  count_rays=True)
     return n
+
+
+def _camera_rays_at(camera, cfg: RenderConfig, seed, pixel, sample):
+    """(o, d) of the jittered camera ray of sample ``sample`` of each flat
+    pixel index ``pixel``: the ray a lane (re)starts its path with."""
+    uj = rng.uniforms4(seed, pixel, sample, 0, rng.JITTER)
+    d = cam_mod.perspective_ray_at(camera, cfg.width, cfg.height, pixel,
+                                   uj[0], uj[1])
+    return camera.position.expand(d.shape), d
+
+
+def render_wavefront(scene: Scene, camera, cfg: RenderConfig, seed: int,
+                     accum, start_sample: int, *, return_rays: bool = False,
+                     device=None):
+    """The equal-spp wavefront engine, on ``device`` (default: the card).
+
+    Each lane is a persistent worker for its pixel: when its path ends
+    (miss, emissive hit, RR death, depth cap) it regenerates the primary
+    ray of its pixel's next sample, until every lane has finished samples
+    ``start_sample .. start_sample + cfg.spp`` (at most ``spp *
+    max_depth`` steps).  The paths are the scan engine's, bit for bit (the
+    RNG is a hash of pixel, sample, bounce); only the order of the sums
+    differs.  A lane past its quota adds +0.0 and traces no ray.  The
+    host reads whether a lane is still live once a step, as JAX's
+    ``while_loop`` tests its condition.
+
+    Returns ``(accum', next_sample)`` like ``render_progressive``; with
+    ``return_rays`` also the traced-ray count (int32, wrapping)."""
+    dev = resolve_device(device)
+    scene, camera = scene.to(dev), camera.to(dev)
+    h, w = cfg.height, cfg.width
+    n_lanes = h * w
+    pixel = torch.arange(n_lanes, dtype=torch.int64, device=dev)
+    end = start_sample + cfg.spp
+
+    s = torch.full((n_lanes,), start_sample, dtype=torch.int32, device=dev)
+    b = torch.zeros_like(s)
+    o, d = _camera_rays_at(camera, cfg, seed, pixel, s)
+    tp = torch.ones((n_lanes, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
+    nrays = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(cfg.spp * cfg.max_depth):
+        alive = s < end
+        if not bool(torch.any(alive)):
+            break
+        delta, o2, d2, tp2, continues, n_main, n_shadow = _bounce_step(
+            scene, cfg, seed=seed, pixel=pixel, sample=s, bounce=b, o=o,
+            d=d, throughput=tp, alive=alive)
+        acc = acc + delta
+        nrays = fused._wrap_i32(nrays.to(torch.int64) + n_main + n_shadow)
+        # A path continues only below the depth cap (the scan engine's
+        # truncation at cfg.max_depth).
+        cont = continues & (b + 1 < cfg.max_depth)
+        s = torch.where(alive & ~cont, s + 1, s)
+        b = torch.where(cont, b + 1, 0).to(torch.int32)
+        po, pd = _camera_rays_at(camera, cfg, seed, pixel, s)
+        o = torch.where(cont[:, None], o2, po)
+        d = torch.where(cont[:, None], d2, pd)
+        tp = torch.where(cont[:, None], tp2, 1.0)
+    out = accum.to(dev) + acc.reshape(h, w, 3)
+    if return_rays:
+        return out, end, nrays
+    return out, end
+
+
+def render_fast(scene: Scene, camera, cfg: RenderConfig, seed: int,
+                device=None) -> torch.Tensor:
+    """Mean linear radiance, (H, W, 3), by the equal-spp wavefront engine,
+    on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    acc, _ = render_wavefront(
+        scene, camera, cfg, seed,
+        torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                    device=dev), 0, device=dev)
+    return acc / torch.tensor(float(cfg.spp), device=dev)
 
 
 # --- Persistent wavefront stepper ------------------------------------------
@@ -225,18 +316,21 @@ class WavefrontState:
 
 
 def wavefront_init(scene: Scene, camera, cfg: RenderConfig, seed: int,
+                   pixel_offset: int = 0, n_lanes: int | None = None,
                    device=None) -> WavefrontState:
     """Fresh lane state on ``device`` (default: the card): every lane on its
-    pixel's sample 0 primary ray."""
+    pixel's sample 0 primary ray.  ``pixel_offset`` / ``n_lanes`` (default
+    the whole image) select a row-major slab of the image's lanes: the RNG
+    counter is the absolute pixel index, so slab states concatenate into
+    the whole image's state bit for bit."""
     dev = resolve_device(device)
     camera = camera.to(dev)
-    h, w = cfg.height, cfg.width
-    n_lanes = h * w
-    pixel = torch.arange(n_lanes, dtype=torch.int64, device=dev)
+    if n_lanes is None:
+        n_lanes = cfg.height * cfg.width
+    pixel = torch.arange(n_lanes, dtype=torch.int64, device=dev) + pixel_offset
     s0 = torch.zeros((n_lanes,), dtype=torch.int32, device=dev)
-    uj = rng.uniforms4(seed, pixel, s0, 0, rng.JITTER)
-    d = cam_mod.perspective_ray_at(camera, w, h, pixel, uj[0], uj[1])
-    o = camera.position.expand(d.shape).clone()
+    o, d = _camera_rays_at(camera, cfg, seed, pixel, s0)
+    o = o.clone()
     z3 = torch.zeros((n_lanes, 3), dtype=torch.float32, device=dev)
     return WavefrontState(
         s=s0, b=torch.zeros_like(s0), o=o, d=d,
@@ -247,14 +341,16 @@ def wavefront_init(scene: Scene, camera, cfg: RenderConfig, seed: int,
 
 def wavefront_steps(scene: Scene, camera, cfg: RenderConfig, seed: int,
                     state: WavefrontState, n_steps: int, intersect_fn=None,
-                    nearest_t_fn=None) -> WavefrontState:
+                    nearest_t_fn=None, pixel_offset: int = 0
+                    ) -> WavefrontState:
     """Advance every lane by ``n_steps`` bounce steps, one ``_bounce_step``
-    per step in plain PyTorch, on the device ``state`` lies on."""
+    per step in plain PyTorch, on the device ``state`` lies on.
+    ``pixel_offset``: the absolute pixel of the state's first lane (see
+    ``wavefront_init``)."""
     dev = state.s.device
     scene, camera = scene.to(dev), camera.to(dev)
-    h, w = cfg.height, cfg.width
     n_lanes = state.s.shape[0]
-    pixel = torch.arange(n_lanes, dtype=torch.int64, device=dev)
+    pixel = torch.arange(n_lanes, dtype=torch.int64, device=dev) + pixel_offset
     alive = torch.ones((n_lanes,), dtype=torch.bool, device=dev)
     st = state
     for _ in range(n_steps):
@@ -266,9 +362,7 @@ def wavefront_steps(scene: Scene, camera, cfg: RenderConfig, seed: int,
         cont = continues & (st.b + 1 < cfg.max_depth)
         done = ~cont
         s_next = st.s + done.to(torch.int32)
-        uj = rng.uniforms4(seed, pixel, s_next, 0, rng.JITTER)
-        pd = cam_mod.perspective_ray_at(camera, w, h, pixel, uj[0], uj[1])
-        po = camera.position.expand(pd.shape)
+        po, pd = _camera_rays_at(camera, cfg, seed, pixel, s_next)
         st = WavefrontState(
             s=s_next, b=torch.where(cont, st.b + 1, 0).to(torch.int32),
             o=torch.where(cont[:, None], o2, po),
@@ -289,20 +383,22 @@ def wavefront_image(state: WavefrontState, cfg: RenderConfig) -> torch.Tensor:
 
 
 def render_turbo(scene: Scene, camera, cfg: RenderConfig, seed: int,
-                 device=None) -> torch.Tensor:
+                 min_spp: int | None = None, device=None) -> torch.Tensor:
     """Mean linear radiance via the fused kernel, equal-*time* progressive:
-    steps in chunks until every pixel has completed at least ``cfg.spp``
-    samples, then averages each pixel's completed samples (a small
-    stopping-time bias; ``render_turbo_exact`` has none)."""
+    steps in chunks until every pixel has completed at least ``min_spp``
+    (default ``cfg.spp``) samples, then averages each pixel's completed
+    samples (a small stopping-time bias; ``render_turbo_exact`` has
+    none)."""
     dev = resolve_device(device)
     scene = scene.to(dev)
+    target = cfg.spp if min_spp is None else min_spp
     fs = fused.pack_scene(scene)
     state = wavefront_init(scene, camera, cfg, seed, device=dev)
     chunk = max(32, cfg.max_depth)
-    for _ in range(cfg.spp * cfg.max_depth):
+    for _ in range(target * cfg.max_depth):
         state = fused.wavefront_steps_fused(fs, camera, cfg, seed, state,
                                             chunk, device=dev)
-        if int(torch.min(state.n_done)) >= cfg.spp:
+        if int(torch.min(state.n_done)) >= target:
             break
     return wavefront_image(state, cfg)
 

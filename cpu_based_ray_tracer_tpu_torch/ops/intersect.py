@@ -191,3 +191,82 @@ def occluded(scene: Scene, origin, direction, max_dist,
     (the MC test ``|to_sample| < occlusion.t + 0.01``)."""
     return ~(max_dist < nearest_t(scene, origin, direction, t_min=t_min)
              + tolerance)
+
+
+def soft_visibility(scene: Scene, origin, direction, max_dist,
+                    t_min: float, beta: float,
+                    tolerance: float = 0.01) -> torch.Tensor:
+    """Differentiable shadow-ray visibility in [0, 1], (R,): the product
+    over every primitive of 1 - its soft coverage.  A triangle covers by
+    sigmoid(margin / beta), the margin the world-space distance of the
+    ray's plane point to the triangle's nearest edge (barycentric margin
+    x sqrt(2A)); a sphere by sigmoid((radius - impact parameter) / beta).
+    Only occluders in the window t in (t_min, max_dist - tolerance) count.
+    beta -> 0 recovers the hard test up to the edge set.  O(R x N), like
+    the brute-force intersector."""
+    tr, sp = scene.triangles, scene.spheres
+    return (soft_visibility_tris(tr.v0, tr.e1, tr.e2, tr.area, origin,
+                                 direction, max_dist, t_min, beta,
+                                 tolerance)
+            * soft_visibility_spheres(sp.center, sp.radius, origin,
+                                      direction, max_dist, t_min, beta,
+                                      tolerance))
+
+
+def _soft_cover(x, beta):
+    """sigmoid(clip(x / beta, -30, 30)), dividing by beta as a 0-dim
+    tensor (IEEE division on every device)."""
+    return torch.sigmoid(torch.clamp(vec.div(x, beta), -30.0, 30.0))
+
+
+def soft_visibility_tris(v0, e1, e2, area, origin, direction, max_dist,
+                         t_min: float, beta: float,
+                         tolerance: float) -> torch.Tensor:
+    """``prod(1 - soft_cover)`` over an explicit triangle set, (R,): the
+    core of ``soft_visibility``, which ``models.mesh.make_soft_vis_fn``
+    also runs over a compacted subset of the rays."""
+    ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
+    dx, dy, dz = direction[:, 0:1], direction[:, 1:2], direction[:, 2:3]
+    e1x, e1y, e1z = e1[None, :, 0], e1[None, :, 1], e1[None, :, 2]
+    e2x, e2y, e2z = e2[None, :, 0], e2[None, :, 1], e2[None, :, 2]
+    v0x, v0y, v0z = v0[None, :, 0], v0[None, :, 1], v0[None, :, 2]
+    s1x = dy * e2z - dz * e2y
+    s1y = dz * e2x - dx * e2z
+    s1z = dx * e2y - dy * e2x
+    det = _dot3(s1x, s1y, s1z, e1x, e1y, e1z)
+    ok_det = torch.abs(det) > _DET_EPS
+    inv_det = 1.0 / torch.where(ok_det, det, 1.0)  # in_window masks these
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    s2x = sy * e1z - sz * e1y
+    s2y = sz * e1x - sx * e1z
+    s2z = sx * e1y - sy * e1x
+    t = _dot3(s2x, s2y, s2z, e2x, e2y, e2z) * inv_det
+    b1 = _dot3(s1x, s1y, s1z, sx, sy, sz) * inv_det
+    b2 = _dot3(s2x, s2y, s2z, dx, dy, dz) * inv_det
+    in_window = (ok_det & (t > t_min)
+                 & (t < max_dist[:, None] - tolerance))       # (R, N)
+    bary_margin = torch.minimum(torch.minimum(b1, b2), 1.0 - b1 - b2)
+    height_scale = torch.sqrt(torch.clamp(2.0 * area, min=1e-12))[None, :]
+    cover = _soft_cover(bary_margin * height_scale, beta)
+    cover = torch.where(in_window, cover, 0.0)
+    return torch.prod(1.0 - cover, -1)
+
+
+def soft_visibility_spheres(center, radius, origin, direction, max_dist,
+                            t_min: float, beta: float,
+                            tolerance: float) -> torch.Tensor:
+    """``prod(1 - soft_cover)`` over a sphere set, (R,); a sphere of radius
+    0 covers nothing."""
+    oc = center[None, :, :] - origin[:, None, :]               # (R, S, 3)
+    dd = direction[:, None, :]
+    proj = _dot3(oc[..., 0], oc[..., 1], oc[..., 2],
+                 dd[..., 0], dd[..., 1], dd[..., 2])           # (R, S)
+    d2 = torch.clamp(_dot3(oc[..., 0], oc[..., 1], oc[..., 2],
+                           oc[..., 0], oc[..., 1], oc[..., 2])
+                     - proj * proj, min=1e-12)
+    impact = torch.sqrt(d2)
+    r_abs = torch.abs(radius)[None, :]
+    in_window = ((proj > t_min) & (proj < max_dist[:, None] - tolerance)
+                 & (r_abs > 0.0))
+    cover = torch.where(in_window, _soft_cover(r_abs - impact, beta), 0.0)
+    return torch.prod(1.0 - cover, -1)

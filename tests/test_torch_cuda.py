@@ -18,7 +18,7 @@ from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
 from cpu_based_ray_tracer_tpu_torch.models import denoiser
 from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused, fused_mesh,
                                                 fused_rtiow, fused_whitted,
-                                                packet)
+                                                intersect, packet)
 from cpu_based_ray_tracer_tpu_torch.scene import (REFLECTIVE_REFRACTIVE,
                                                   MaterialBuilder,
                                                   PointLights, make_scene,
@@ -1070,3 +1070,73 @@ def test_grouped_occlusion_sweep_matches_plain_every_step(cuda):
         assert _bits_equal((bk.kb[8],), (bp.kb[8],)), k
     assert fm.LAUNCHES["group_occl"] == launches + n_steps
     assert _bits_equal((sf_k, si_k), (sf_p, si_p))
+
+
+# --- the plain equal-spp engine, slabs and soft shadows on the card ----------
+
+def test_render_wavefront_on_card(cuda):
+    """The equal-spp engine on the card against the CPU (2e-3), and at 1
+    spp its ray count equal to the scan engine's on the card."""
+    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=5)
+    scene, cam = cornell.cornell_scene(), cornell.cornell_camera()
+    acc, nxt, n = mc.render_wavefront(scene, cam, cfg, SEED,
+                                      torch.zeros((32, 32, 3)), 0,
+                                      return_rays=True)
+    assert acc.is_cuda and nxt == 2
+    want, _, n_cpu = mc.render_wavefront(scene, cam, cfg, SEED,
+                                         torch.zeros((32, 32, 3)), 0,
+                                         return_rays=True, device="cpu")
+    np.testing.assert_allclose(acc.cpu().numpy(), want.numpy(), rtol=2e-3,
+                               atol=2e-3)
+    one = cfg.replace(spp=1)
+    _, _, n1 = mc.render_wavefront(scene, cam, one, SEED,
+                                   torch.zeros((32, 32, 3)), 0,
+                                   return_rays=True)
+    assert int(n1) == int(mc.count_rays(cornell.cornell_scene(cuda), cam,
+                                        one, SEED))
+
+
+def test_slabs_compose_on_card(cuda):
+    """Slab states (one cut on a row boundary, one off it) concatenate
+    into the whole image's state bit for bit, after init and 6 steps."""
+    cfg = RenderConfig(width=40, height=24, spp=2, max_depth=4)
+    scene, cam = cornell.cornell_scene(cuda), cornell.cornell_camera(cuda)
+    r = cfg.width * cfg.height
+    whole = mc.wavefront_init(scene, cam, cfg, SEED, device=cuda)
+    stepped = mc.wavefront_steps(scene, cam, cfg, SEED, whole, 6)
+    for cut in (12 * cfg.width, 12 * cfg.width + 7):
+        parts0, parts1 = [], []
+        for a, b in ((0, cut), (cut, r)):
+            st = mc.wavefront_init(scene, cam, cfg, SEED, pixel_offset=a,
+                                   n_lanes=b - a, device=cuda)
+            parts0.append(st)
+            parts1.append(mc.wavefront_steps(scene, cam, cfg, SEED, st, 6,
+                                             pixel_offset=a))
+        for want, parts in ((whole, parts0), (stepped, parts1)):
+            for f in ("s", "b", "n_done", "o", "d", "tp", "cur", "acc"):
+                got = torch.cat([getattr(p, f) for p in parts])
+                assert _bits_equal((got,), (getattr(want, f),)), (cut, f)
+            assert int(sum(p.nrays for p in parts)) == int(want.nrays)
+
+
+def test_soft_visibility_on_card(cuda):
+    """soft_visibility and the mesh-gated make_soft_vis_fn on the card
+    against the CPU (1e-6) on seeded segments in the room."""
+    g = np.random.default_rng(7)
+    p = g.uniform([0.2, 0.2, 0.2], [3.5, 3.5, 3.3], (4096, 3))
+    w = g.standard_normal((4096, 3))
+    w /= np.linalg.norm(w, axis=-1, keepdims=True)
+    dist = g.uniform(0.5, 4.0, 4096)
+    mscene = cornell.cornell_mesh_scene(meshes.icosphere(2))
+    fn = mesh.make_soft_vis_fn(mscene)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        args = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+                for x in (p, w, dist)] + [1e-3, 0.05, 0.01]
+        out[dev.type] = (
+            intersect.soft_visibility(cornell.cornell_scene(dev), *args),
+            intersect.soft_visibility(mscene.to(dev), *args),
+            fn(mscene.to(dev), *args))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6)
