@@ -2,8 +2,9 @@
 Monte Carlo Cornell path tracer, the Whitted stage, the BVH mesh stage
 (packet and fused shortlist intersectors), the fused mesh Monte Carlo
 stage (resident and shortlist-streaming sweeps), the RTIOW stages (offline
-prototype and NPPT) and the Denoiser — and hold every kernel against its
-plain PyTorch version.
+prototype and NPPT), the Denoiser, and the gradients of the Monte Carlo
+path (standard and record / replay engines, inverse rendering) — and hold
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -201,10 +202,36 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               most 0.5% of the pixels beyond it at 128x128); make_soft_vis_fn
               on cornell_mesh_scene against brute (rtol = atol = 2e-4), and
               mesh.render_mc through packet at 128x128, 4 spp, beta 0.05
-              (seconds, packet launches, 0 pixels off against brute).
+              (seconds, packet launches, 0 pixels off against brute);
+36. grad_step_cornell  tools/bench_passes.py's gradstep cell: the gradient
+              of mean(render(albedo)^2) w.r.t. the albedo table on
+              cornell_scene at 448x448, 4 spp, depth 8, by the standard
+              engine (render, backward), record_trace and the replay
+              (render_from_trace, backward): each timed (median of 3 CUDA-
+              event timings after a warm call) with its peak memory, the
+              speedups of a material stage (standard / replay) and of a
+              geometry stage (standard / (replay + record)), whether the
+              losses are bit equal; gates: the two engines' gradients
+              allclose (rtol 1e-4, atol 1e-6), finite, the replay image
+              against render's (rtol 1e-4, atol 4e-6; unequal pixels
+              counted);
+37. grad_step_mesh_bunny  the same on cornell_mesh_scene (the icosphere(3)
+              stand-in for the bunny, 1,302 triangles), 448x448, 2 spp,
+              depth 8, through csrc/packet.cu: the standard engine with
+              make_intersect_fn(sort_rays=True, differentiable=True), the
+              record pass with make_intersect_fn / make_nearest_t_fn
+              (sort_rays=True); packet launches in each pass (the replay
+              none);
+38. inverse   recover_albedo on Cornell at 448x448, 4 spp, depth 8,
+              engine="replay", 20 steps (seconds a step, loss ratio), and
+              tests/test_inverse.py's convergence checks at 24x24 on the
+              card (albedo: loss down 10x, error < 0.08; emission: loss
+              down 10x, relative error < 0.15).
 
-Each main path (5, 9, 11, 12, 15, 18, 21, 25, 29, 31, 34, 35) runs with
-every launch counter set to 0 just before it and read just after.  Then
+Each main path (5, 9, 11, 12, 15, 18, 21, 25, 29, 31, 34, 35, and each
+pass of 36, 37 and 38) runs with every launch counter set to 0 just
+before it and read just after; packet's line in the kernels line holds
+its launches by path.  Then
 the kernels line, the nvidia-smi line, and the last line {"ok": true,
 "device": {...}}.  Exits non-zero, printing no result, where CUDA is not
 available.
@@ -3306,6 +3333,212 @@ def soft_shadow_phase(dev, smi: str, full: RenderConfig,
     return res
 
 
+# --- gradients, record / replay and inverse rendering ------------------------
+
+def median_ms(fn, n_iters=3) -> float:
+    """Median of n_iters CUDA-event timings of fn() after one warm call."""
+    fn()
+    return float(np.median([timed(fn) for _ in range(n_iters)]))
+
+
+def peak_mb(fn, dev) -> float:
+    """Peak device memory allocated while fn() runs, in MB."""
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    sync(dev)
+    return torch.cuda.max_memory_allocated(dev) / 1e6
+
+
+def grad_case(dev, smi, tag, scene, cam, cfg, isect=None, near=None,
+              isect_dif=None, n_iters=3) -> dict:
+    """tools/bench_passes.py's gradstep case in the port: the gradient of
+    mean(render(albedo)^2) w.r.t. the albedo table by the standard engine
+    (through ``isect_dif or isect``) and by the replay from a record made
+    through ``isect`` / ``near``; each pass timed (median of n_iters after
+    a warm call), its peak memory and its launches (counts set to 0 just
+    before one run, read just after); the gates: standard against replay
+    gradients (rtol 1e-4, atol 1e-6), every gradient finite, the replay
+    image against render's (rtol 1e-4, atol 4e-6, unequal pixels
+    counted)."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+
+    a0 = scene.materials.albedo
+
+    def with_albedo(a):
+        return scene.replace(materials=scene.materials.replace(albedo=a))
+
+    def std():
+        a = a0.clone().requires_grad_(True)
+        img = mc.render(with_albedo(a), cam, cfg, SEED_KEY0, device=dev,
+                        intersect_fn=isect_dif or isect, nearest_t_fn=near)
+        loss = torch.mean(img ** 2)
+        return loss.detach(), torch.autograd.grad(loss, a)[0], img.detach()
+
+    def record():
+        return mc.record_trace(scene, cam, cfg, SEED_KEY0, dev,
+                               intersect_fn=isect, nearest_t_fn=near)
+
+    recs = record()
+
+    def rep():
+        a = a0.clone().requires_grad_(True)
+        img = mc.render_from_trace(with_albedo(a), cam, cfg, SEED_KEY0, recs,
+                                   dev)
+        loss = torch.mean(img ** 2)
+        return loss.detach(), torch.autograd.grad(loss, a)[0], img.detach()
+
+    res, outs = {}, {}
+    for name, fn in (("grad_std", std), ("record_pass", record),
+                     ("grad_replay", rep)):
+        res[f"{name}_ms"] = median_ms(fn, n_iters)
+        res[f"{name}_peak_mb"] = peak_mb(fn, dev)
+        sync(dev)
+        reset_counts()
+        outs[name] = fn()
+        sync(dev)
+        res[f"{name}_launches"] = read_counts()
+    (l_std, g_std, img_std), (l_rep, g_rep, img_rep) = (outs["grad_std"],
+                                                        outs["grad_replay"])
+    res["speedup_material_stage"] = res["grad_std_ms"] / res["grad_replay_ms"]
+    res["speedup_geometry_stage"] = res["grad_std_ms"] / (
+        res["grad_replay_ms"] + res["record_pass_ms"])
+    res["loss_equal"] = bool(l_std == l_rep)
+    res["loss"] = [float(l_std), float(l_rep)]
+    res["grads_finite"] = bool(torch.isfinite(g_std).all()
+                               and torch.isfinite(g_rep).all())
+    res["grads_allclose"] = bool(torch.allclose(g_rep, g_std, rtol=1e-4,
+                                                atol=1e-6))
+    res["grad_max_abs_diff"] = float((g_rep - g_std).abs().max())
+    res["grad_max_abs"] = float(g_std.abs().max())
+    res["replay_vs_render"] = pixels_off(img_rep, img_std, 1e-4, 4e-6)
+    res["replay_vs_render"]["pixels_unequal"] = int(
+        (img_rep != img_std).any(-1).sum())
+    res["record_mb"] = sum(getattr(recs, f.name).numel()
+                           * getattr(recs, f.name).element_size()
+                           for f in dataclasses.fields(recs)) / 1e6
+    emit(phase=tag, nvidia_smi=smi, tris=scene.triangles.count,
+         config=f"{cfg.width}x{cfg.height} {cfg.spp}spp depth{cfg.max_depth} "
+         f"rr{cfg.rr_survival}; loss mean(render(albedo)^2); timed: median "
+         f"of {n_iters} CUDA-event timings after a warm call", **res)
+    bad = [k for k in ("grads_finite", "grads_allclose") if not res[k]]
+    if res["replay_vs_render"]["pixels_off"] != 0:
+        bad.append("replay_vs_render")
+    if bad:
+        raise RuntimeError(f"{tag} gates failed: {bad}")
+    return res
+
+
+def grad_step_phases(dev, smi, size=448) -> dict:
+    """The gradstep cells of tools/bench_passes.py: grad_step_cornell
+    (cornell_scene, 448x448, 4 spp, depth 8) and grad_step_mesh_bunny
+    (cornell_mesh_scene's icosphere(3) stand-in for the bunny, through
+    csrc/packet.cu: the standard engine with make_intersect_fn(sort_rays,
+    differentiable=True), the record pass with make_intersect_fn /
+    make_nearest_t_fn(sort_rays); 448x448, 2 spp, depth 8)."""
+    from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+    from cpu_based_ray_tracer_tpu_torch.models import mesh
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    cam = cornell.cornell_camera(dev)
+    out = {"grad_step_cornell": grad_case(
+        dev, smi, "grad_step_cornell", cornell.cornell_scene(dev), cam,
+        RenderConfig(width=size, height=size, spp=4, max_depth=8))}
+    msc = cornell.cornell_mesh_scene(device=dev)
+    bundle = mesh.prepare(msc, method="packet")
+    res = grad_case(
+        dev, smi, "grad_step_mesh_bunny", msc, cam,
+        RenderConfig(width=size, height=size, spp=2, max_depth=8),
+        isect=mesh.make_intersect_fn(bundle, sort_rays=True),
+        near=mesh.make_nearest_t_fn(bundle, sort_rays=True),
+        isect_dif=mesh.make_intersect_fn(bundle, sort_rays=True,
+                                         differentiable=True))
+    if dev.type == "cuda" and not (res["grad_std_launches"]["packet"] > 0
+            and res["record_pass_launches"]["packet"] > 0
+            and res["grad_replay_launches"]["packet"] == 0):
+        raise RuntimeError("grad_step_mesh_bunny: packet.cu launches "
+                           f"{res['grad_std_launches']['packet']}, "
+                           f"{res['record_pass_launches']['packet']}, "
+                           f"{res['grad_replay_launches']['packet']}")
+    out["grad_step_mesh_bunny"] = res
+    return out
+
+
+def inverse_phase(dev, smi, size=448, n_steps=20) -> dict:
+    """recover_albedo on Cornell at 448x448, 4 spp, depth 8,
+    engine="replay", n_steps steps (seconds a step, loss ratio); then
+    tests/test_inverse.py's checks on the card (24x24, 2 spp, depth 3:
+    recover_albedo 60 steps lr 0.2, loss down >= 10x, albedo error < 0.08;
+    recover_emission 50 steps lr 0.3, loss down >= 10x, relative emission
+    error < 0.15)."""
+    from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+    from cpu_based_ray_tracer_tpu_torch.models import inverse
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    res = {}
+    cfg = RenderConfig(width=size, height=size, spp=4, max_depth=8)
+    target = mc.render(scene, cam, cfg, SEED_KEY0, device=dev)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    r = inverse.recover_albedo(scene, cam, cfg, SEED_KEY0, target,
+                               n_steps=n_steps, lr=0.1, engine="replay",
+                               device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    losses = r.losses.cpu().numpy()
+    res["cornell_448"] = dict(
+        steps=n_steps, seconds=secs, seconds_per_step=secs / n_steps,
+        launches=read_counts(), loss_first=float(losses[0]),
+        loss_last=float(losses[-1]),
+        loss_ratio=float(losses[-1] / losses[0]),
+        note="seconds include the one record pass and the final render")
+    free = ~scene.materials.emissive
+    small = RenderConfig(width=24, height=24, spp=2, max_depth=3,
+                         rr_survival=0.8)
+    target = mc.render(scene, cam, small, SEED_KEY0, device=dev)
+    t0 = time.perf_counter()
+    r = inverse.recover_albedo(scene, cam, small, SEED_KEY0, target,
+                               n_steps=60, lr=0.2, device=dev)
+    sync(dev)
+    losses = r.losses.cpu().numpy()
+    res["albedo_24"] = dict(
+        seconds=time.perf_counter() - t0, loss_ratio=float(
+            losses[-1] / losses[0]),
+        albedo_err=float((scene.materials.albedo - r.params).abs()[free]
+                         .max()))
+    t0 = time.perf_counter()
+    r = inverse.recover_emission(scene, cam, small, SEED_KEY0, target,
+                                 n_steps=50, lr=0.3, device=dev)
+    sync(dev)
+    losses = r.losses.cpu().numpy()
+    em, true_em = scene.materials.emissive, scene.materials.emission
+    res["emission_24"] = dict(
+        seconds=time.perf_counter() - t0, loss_ratio=float(
+            losses[-1] / losses[0]),
+        emission_rel_err=float(((true_em - r.params).abs()
+                                / torch.clamp(true_em, min=1.0))[em].max()))
+    emit(phase="inverse", nvidia_smi=smi,
+         config=f"cornell_scene {cfg.width}x{cfg.height} {cfg.spp}spp depth"
+         f"{cfg.max_depth} replay lr 0.1; small {small.width}x{small.height}"
+         f" {small.spp}spp depth{small.max_depth}", **res)
+    bad = []
+    if not (res["cornell_448"]["loss_ratio"] < 1.0
+            and math.isfinite(res["cornell_448"]["loss_last"])):
+        bad.append("cornell_448")
+    if not (res["albedo_24"]["loss_ratio"] < 0.1
+            and res["albedo_24"]["albedo_err"] < 0.08):
+        bad.append("albedo_24")
+    if not (res["emission_24"]["loss_ratio"] < 0.1
+            and res["emission_24"]["emission_rel_err"] < 0.15):
+        bad.append("emission_24")
+    if bad:
+        raise RuntimeError(f"inverse gates failed: {bad}")
+    return res
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3399,6 +3632,9 @@ def main():
     soft_shadow_phase(dev, smi, full.replace(soft_shadow_beta=0.05),
                       RenderConfig(width=128, height=128, spp=4, max_depth=16,
                                    rr_survival=0.8, soft_shadow_beta=0.05))
+    grads = grad_step_phases(dev, smi)
+    inverse_phase(dev, smi)
+    bunny = grads["grad_step_mesh_bunny"]
 
     r = full.width * full.height
     mesh_kernels = [{
@@ -3533,6 +3769,10 @@ def main():
         "unit": f"ms per {r}-ray pass, bvh_stage_scene camera rays "
                 f"(shadow rays: shadow_ms)",
         "launches": p_launches, "max_abs_err": p_err,
+        "launches_by_path": {
+            "mesh_render": p_launches,
+            **{f"grad_step_mesh_bunny_{k}": bunny[f"{k}_launches"]["packet"]
+               for k in ("grad_std", "record_pass", "grad_replay")}},
         "ms": psp["camera"]["ms"], "plain_ms": psp["camera"]["plain_ms"],
         "bound_ms": psp["camera"]["bound_ms"],
         "bound_by": psp["camera"]["bound_by"],

@@ -18,7 +18,10 @@ and ``camera_from_arrays`` a camera's leaves: ``position``, ``forward``,
 ``lens_radius`` of a ``ThinLensCamera``.  Fed the same arrays, both packages compute the same
 image.  ``scene_to_arrays`` / ``camera_to_arrays`` go the other way.
 ``mesh_pack_from_arrays`` and ``coherent_pack_from_arrays`` carry the
-fused mesh engine's and the shortlist intersector's packs across.
+fused mesh engine's and the shortlist intersector's packs across;
+``record_from_arrays`` / ``record_to_arrays`` a ``BounceRecord`` (the
+leaves ``prim``, ``is_triangle``, ``hit`` and ``visible``), so that either
+package can replay the other's trace.
 """
 
 from __future__ import annotations
@@ -112,3 +115,20 @@ def coherent_pack_from_arrays(d: dict, device="cpu"):
     return coherent.CoherentPack(
         tri=tri.reshape(aabb.shape[0], cs, fused_mesh.MESH_NF), aabb=aabb,
         cs=cs, n_tri=int(d["n_tri"]))
+
+
+def record_from_arrays(d: dict, device="cpu"):
+    """A ``models.monte_carlo.BounceRecord`` on ``device`` from numpy
+    leaves of any leading shape: ``prim`` as int32, the flags as bool."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo
+
+    return monte_carlo.BounceRecord(
+        prim=torch.as_tensor(np.asarray(d["prim"]).astype(np.int32),
+                             device=device),
+        **{k: torch.as_tensor(np.asarray(d[k]).astype(bool), device=device)
+           for k in ("is_triangle", "hit", "visible")})
+
+
+def record_to_arrays(rec) -> dict:
+    return {f.name: getattr(rec, f.name).cpu().numpy()
+            for f in dataclasses.fields(rec)}

@@ -35,6 +35,7 @@ from cpu_based_ray_tracer_tpu_torch.ops import coherent as coherent_ops
 from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh
 from cpu_based_ray_tracer_tpu_torch.ops import intersect
 from cpu_based_ray_tracer_tpu_torch.ops import packet as packet_ops
+from cpu_based_ray_tracer_tpu_torch.ops import vec
 from cpu_based_ray_tracer_tpu_torch.scene import Scene
 from cpu_based_ray_tracer_tpu_torch.utils.kernels import resolve_device
 
@@ -141,26 +142,51 @@ def _packet_nearest(bundle: MeshBundle, origin, direction, t_min,
 
 def _nearest(bundle: MeshBundle, origin, direction, t_min, sort_rays: bool,
              hw):
-    """(t, triangle index) through the bundle's accelerated intersector."""
+    """(t, triangle index) through the bundle's accelerated intersector.
+    The kernel routes (``packet``, ``fused``) take the rays detached: the
+    traversal carries no gradient on any device (their plain versions
+    would carry one on the CPU, their kernels none on the card), as the
+    JAX package stops gradients before its Pallas kernels.  ``sparse``
+    (plain PyTorch everywhere) stays attached, as JAX's ``bvh.traverse``
+    route."""
+    if bundle.method == "sparse":
+        return bvh_ops.traverse(bundle.bvh, bundle.pv0, bundle.pe1,
+                                bundle.pe2, origin, direction, t_min)
+    origin, direction = origin.detach(), direction.detach()
     if bundle.method == "packet":
         return _packet_nearest(bundle, origin, direction, t_min, sort_rays)
-    if bundle.method == "fused":
-        return coherent_ops.nearest(bundle.coherent, origin, direction,
-                                    float(t_min), hw=hw)
-    return bvh_ops.traverse(bundle.bvh, bundle.pv0, bundle.pe1, bundle.pe2,
-                            origin, direction, t_min)
+    return coherent_ops.nearest(bundle.coherent, origin, direction,
+                                float(t_min), hw=hw)
 
 
-def make_intersect_fn(bundle: MeshBundle, sort_rays: bool = False, hw=None):
+def make_intersect_fn(bundle: MeshBundle, sort_rays: bool = False, hw=None,
+                      differentiable: bool = False):
     """An ``intersect_fn(scene, o, d, t_min) -> Hit`` through the bundle's
     intersector, plus the brute-force sphere pass of ``assemble_hit``.
     ``sort_rays``: reorder the rays for block coherence first (the packet
     kernel, for the incoherent bounce rays of the MC path).  ``hw``: the
-    image shape, for the ``fused`` intersector's pixel tiles."""
+    image shape, for the ``fused`` intersector's pixel tiles.
+
+    ``differentiable``: on the packet route, recompute the winner's t
+    with the attached ``intersect.moller_trumbore_single`` at the detached
+    winner index, so gradients reach the rays and the mesh geometry
+    through the accelerated route while the kernel's t feeds nothing
+    differentiable (detached traversal, attached shading), as the JAX
+    package's packet route.  Its t may differ from the kernel's by
+    rounding; one R-row gather more, off on the forward-only paths."""
     if bundle.method in ("packet", "fused", "sparse"):
+        recompute = differentiable and bundle.method == "packet"
+
         def fn(scene, origin, direction, t_min):
             tt, idx = _nearest(bundle, origin, direction, t_min, sort_rays,
                                hw)
+            if recompute:
+                tr = scene.triangles
+                j = torch.clamp(idx, 0, tr.count - 1).long()
+                t_rec, _, _ = intersect.moller_trumbore_single(
+                    origin, direction,
+                    *(vec.take(x, j) for x in (tr.v0, tr.e1, tr.e2)))
+                tt = torch.where(idx >= 0, t_rec, intersect.NO_HIT_T)
             return intersect.assemble_hit(scene, origin, direction, tt, idx,
                                           t_min)
         return fn
@@ -170,9 +196,12 @@ def make_intersect_fn(bundle: MeshBundle, sort_rays: bool = False, hw=None):
 
 def make_nearest_t_fn(bundle: MeshBundle, sort_rays: bool = False, hw=None):
     """A ``nearest_t_fn(scene, o, d, t_min) -> t (R,)`` shadow-ray path
-    through the bundle's intersector (triangles) and the brute sphere min."""
+    through the bundle's intersector (triangles) and the brute sphere min.
+    On the kernel routes the rays are detached, the sphere pass included:
+    the hard shadow test only compares this t."""
     if bundle.method in ("packet", "fused"):
         def fn(scene, origin, direction, t_min):
+            origin, direction = origin.detach(), direction.detach()
             tt, _ = _nearest(bundle, origin, direction, t_min, sort_rays, hw)
             sp = scene.spheres
             ts = torch.amin(intersect.intersect_spheres(

@@ -24,8 +24,16 @@ the counter-based pcg4d hash of (pixel, sample, bounce, stream):
 (``models.mesh``: the packet kernel) for the main and the shadow rays.
 ``cfg.soft_shadow_beta > 0`` replaces the hard shadow test by the
 sigmoid-relaxed visibility (``soft_vis_fn``, default brute-force
-``intersect.soft_visibility``).  The replay and record branches of
-``_bounce_step`` wait for the gradient slice.
+``intersect.soft_visibility``).
+
+Gradients: the fixed-depth engine (``render`` -> ``trace``) is reverse
+differentiable through torch autograd, with the traversal detached (the
+winner indices) and the shading attached (the recomputed hit, the light
+sample, the BRDF), as the JAX package's scan engine.  ``render_replay``
+gives the same image and the same gradients with an O(R x depth) graph:
+``record_trace`` runs the index pass once without gradients (a
+``BounceRecord`` a bounce), and ``render_from_trace`` replays the
+estimator from it, each sample rematerialized in the backward pass.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import dataclasses
 import math
 
 import torch
+from torch.utils import checkpoint
 
 from cpu_based_ray_tracer_tpu_torch import camera as cam_mod
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
@@ -49,9 +58,38 @@ def _brdf_diffuse(albedo, cos_in):
     return torch.where(cos_in[..., None] >= 0.0, albedo / pi, 0.0)
 
 
+@dataclasses.dataclass(frozen=True)
+class BounceRecord:
+    """The discrete outcome of a bounce, per lane: what a replay cannot
+    recompute cheaply (the winner) or continuously (the hard shadow bit),
+    7 bytes a lane a bounce.  The randomness is counter-based and not
+    recorded.  Leaves (R,), (max_depth, R) in ``trace`` or (spp,
+    max_depth, R) in ``record_trace``."""
+
+    prim: torch.Tensor         # i32 winner primitive index (raw hit)
+    is_triangle: torch.Tensor  # bool
+    hit: torch.Tensor          # bool raw hit flag
+    visible: torch.Tensor      # bool hard shadow-test result
+
+    def to(self, device) -> "BounceRecord":
+        return BounceRecord(*(getattr(self, f.name).to(device)
+                              for f in dataclasses.fields(self)))
+
+    def __getitem__(self, i) -> "BounceRecord":
+        return BounceRecord(*(getattr(self, f.name)[i]
+                              for f in dataclasses.fields(self)))
+
+    @staticmethod
+    def stack(recs) -> "BounceRecord":
+        return BounceRecord(*(torch.stack([getattr(r, f.name) for r in recs])
+                              for f in dataclasses.fields(BounceRecord)))
+
+
 def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
                  bounce, o, d, throughput, alive, intersect_fn=None,
-                 nearest_t_fn=None, soft_vis_fn=None):
+                 nearest_t_fn=None, soft_vis_fn=None,
+                 replay_rec: BounceRecord | None = None,
+                 with_record: bool = False):
     """One path-tracing bounce for a batch of lanes.
 
     ``intersect_fn(scene, o, d, t_min) -> Hit`` and ``nearest_t_fn(scene,
@@ -60,7 +98,12 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
     p, wi, dist, t_min, beta, tolerance) -> (R,)`` (default
     ``intersect.soft_visibility``) and ``nearest_t_fn`` is not called.
     Returns ``(radiance_delta, o', d', throughput', continues, n_main,
-    n_shadow)``; the n_* are the ray counts of this step."""
+    n_shadow)``; the n_* are the ray counts of this step.
+
+    ``replay_rec``: this bounce's recorded ``BounceRecord``; the scene
+    intersection and the shadow test are replayed from it (bit equal,
+    O(R)).  ``with_record``: also return this bounce's ``BounceRecord``
+    as a last element (soft-shadow mode records ``visible`` all true)."""
     mats = scene.materials
     if intersect_fn is None:
         intersect_fn = lambda s, oo, dd, tm: intersect.intersect_scene(  # noqa: E731
@@ -68,11 +111,16 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
     if nearest_t_fn is None:
         nearest_t_fn = lambda s, oo, dd, tm: intersect.nearest_t(  # noqa: E731
             s, oo, dd, t_min=tm)
-    hit = intersect_fn(scene, o, d, cfg.t_min)
+    if replay_rec is not None:
+        hit = intersect.hit_from_record(scene, o, d, replay_rec.prim,
+                                        replay_rec.is_triangle,
+                                        replay_rec.hit, cfg.t_min)
+    else:
+        hit = intersect_fn(scene, o, d, cfg.t_min)
     n_main = torch.sum(alive)
 
     m = hit.material.long()
-    emit, albedo = mats.emission[m], mats.albedo[m]
+    emit, albedo = vec.take(mats.emission, m), vec.take(mats.albedo, m)
     hit_emissive = hit.hit & mats.emissive[m]
     is_primary = torch.as_tensor(bounce == 0,
                                  device=alive.device).expand(alive.shape)
@@ -94,7 +142,13 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
     dist = vec.norm(to_l)[:, 0]
     wi_l = to_l / torch.clamp(dist, min=1e-20)[:, None]
     ln = torch.where(vec.dot(ls.normal, -wi_l) < 0.0, -ls.normal, ls.normal)
-    if cfg.soft_shadow_beta > 0.0:
+    visible = None
+    if replay_rec is not None:
+        # The recorded bit: the live test compares, so its occluder t
+        # carries no cotangent; only dist, recomputed here, does.
+        visible = replay_rec.visible
+        vis_w = visible.to(torch.float32)
+    elif cfg.soft_shadow_beta > 0.0:
         svf = soft_vis_fn or intersect.soft_visibility
         vis_w = svf(scene, p, wi_l, dist, cfg.t_min, cfg.soft_shadow_beta,
                     cfg.shadow_tolerance)
@@ -126,36 +180,72 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
                              throughput)
     o = torch.where(continues[:, None], p, o)
     d = torch.where(continues[:, None], wi, d)
-    return radiance, o, d, throughput, continues, n_main, n_shadow
+    out = (radiance, o, d, throughput, continues, n_main, n_shadow)
+    if with_record:
+        if visible is None:  # soft-shadow mode: no meaningful bit
+            visible = torch.ones(alive.shape, dtype=torch.bool,
+                                 device=alive.device)
+        out = out + (BounceRecord(prim=hit.prim, is_triangle=hit.is_triangle,
+                                  hit=hit.hit, visible=visible),)
+    return out
+
+
+def _check_replay(cfg: RenderConfig, first_hit=None):
+    """Record and replay need the hard shadow bit and every bounce
+    intersected (no ``first_hit`` peel)."""
+    if first_hit is not None:
+        raise ValueError("record/replay does not compose with the first_hit "
+                         "peel (the Denoiser G-buffer path)")
+    if cfg.soft_shadow_beta != 0.0:
+        raise ValueError("record/replay requires hard shadows "
+                         "(soft_shadow_beta == 0: a binary visibility bit)")
 
 
 def trace(scene: Scene, origin, direction, cfg: RenderConfig, *, seed, pixel,
           sample, count_rays: bool = False, intersect_fn=None,
           nearest_t_fn=None, soft_vis_fn=None,
-          first_hit: intersect.Hit | None = None):
+          first_hit: intersect.Hit | None = None,
+          record: BounceRecord | None = None, return_record: bool = False):
     """Path radiance for a batch of primary rays, (R, 3): the fixed-depth
     engine (every lane runs all ``cfg.max_depth`` bounces, dead ones
-    masked).  ``count_rays``: also return the rays traced (main + shadow).
-    ``first_hit``: the already-computed ``intersect.Hit`` of these primary
-    rays (the Denoiser's G-buffer needs it anyway); bounce 0 uses it in
-    place of a second intersection, with the same result."""
+    masked), reverse differentiable.  ``count_rays``: also return the rays
+    traced (main + shadow).  ``first_hit``: the already-computed
+    ``intersect.Hit`` of these primary rays (the Denoiser's G-buffer needs
+    it anyway); bounce 0 uses it in place of a second intersection, with
+    the same result.
+
+    ``return_record``: also return the stacked ``BounceRecord`` of every
+    bounce, (max_depth, R) leaves.  ``record``: replay the bounces from
+    such a record instead of intersecting the scene (``render_replay``).
+    Both raise ValueError with ``first_hit`` or soft shadows."""
+    if record is not None or return_record:
+        _check_replay(cfg, first_hit)
     r = origin.shape[0]
     o, d = origin, direction
     tp = torch.ones((r, 3), dtype=origin.dtype, device=origin.device)
     radiance = torch.zeros_like(tp)
     alive = torch.ones((r,), dtype=torch.bool, device=origin.device)
     nrays = torch.zeros((), dtype=torch.int64, device=origin.device)
+    recs = []
     for bounce in range(cfg.max_depth):
         fn = intersect_fn
         if bounce == 0 and first_hit is not None:
             fn = lambda *_args: first_hit  # noqa: E731
-        delta, o, d, tp, alive, n_main, n_shadow = _bounce_step(
+        delta, o, d, tp, alive, n_main, n_shadow, *rec = _bounce_step(
             scene, cfg, seed=seed, pixel=pixel, sample=sample, bounce=bounce,
             o=o, d=d, throughput=tp, alive=alive, intersect_fn=fn,
-            nearest_t_fn=nearest_t_fn, soft_vis_fn=soft_vis_fn)
+            nearest_t_fn=nearest_t_fn, soft_vis_fn=soft_vis_fn,
+            replay_rec=None if record is None else record[bounce],
+            with_record=return_record)
         radiance = radiance + delta
         nrays = nrays + n_main + n_shadow
-    return (radiance, fused._wrap_i32(nrays)) if count_rays else radiance
+        recs += rec
+    out = (radiance,)
+    if count_rays:
+        out = out + (fused._wrap_i32(nrays),)
+    if return_record:
+        out = out + (BounceRecord.stack(recs),)
+    return out if len(out) > 1 else radiance
 
 
 def _primary_rays(camera, cfg: RenderConfig, seed, sample,
@@ -206,6 +296,77 @@ def render_progressive(scene: Scene, camera, cfg: RenderConfig, seed: int,
                     soft_vis_fn=soft_vis_fn)
         accum = accum + rad.reshape(h, w, 3)
     return accum, start_sample + cfg.spp
+
+
+def render_replay(scene: Scene, camera, cfg: RenderConfig, seed: int,
+                  device=None, *, intersect_fn=None, nearest_t_fn=None
+                  ) -> torch.Tensor:
+    """``render`` with an O(R x depth) gradient graph, on ``device``
+    (default: the card): record the traversal, differentiate the replay.
+
+    The standard engine pays the (R, N) intersection producers forward and,
+    where the rays or the geometry carry gradients, backward.  But the
+    estimator's gradient only touches the winner, so this engine (1) runs
+    ``record_trace``, the index pass without gradients through any
+    intersector (the mesh kernels included), and (2) replays the
+    estimator from the record (``render_from_trace``): every hit rebuilt
+    from its winner by bit-equal per-lane twins
+    (``intersect.hit_from_record``), the randomness regenerated from the
+    counter-based RNG, the hard shadow bit substituted.  The image equals
+    ``render``'s and so do the gradients.  Silhouette and visibility
+    discontinuities are not differentiated, as in the standard engine;
+    soft shadows raise ValueError here."""
+    recs = record_trace(scene, camera, cfg, seed, device,
+                        intersect_fn=intersect_fn, nearest_t_fn=nearest_t_fn)
+    return render_from_trace(scene, camera, cfg, seed, recs, device)
+
+
+def record_trace(scene: Scene, camera, cfg: RenderConfig, seed: int,
+                 device=None, *, intersect_fn=None, nearest_t_fn=None
+                 ) -> BounceRecord:
+    """The index pass of ``render_replay``, on ``device`` (default: the
+    card), without gradients: the stacked (spp, max_depth, R)
+    ``BounceRecord`` of every bounce.  The record is a function of the
+    discrete scene only, so a material or emission loop records once and
+    replays every step; a geometry loop records again when it moves."""
+    _check_replay(cfg)
+    dev = resolve_device(device)
+    with torch.no_grad():
+        scene, camera = scene.to(dev), camera.to(dev)
+        recs = []
+        for s in range(cfg.spp):
+            o, d, pixel = _primary_rays(camera, cfg, seed, s)
+            _, rec = trace(scene, o.detach(), d.detach(), cfg, seed=seed,
+                           pixel=pixel, sample=s, return_record=True,
+                           intersect_fn=intersect_fn,
+                           nearest_t_fn=nearest_t_fn)
+            recs.append(rec)
+        return BounceRecord.stack(recs)
+
+
+def render_from_trace(scene: Scene, camera, cfg: RenderConfig, seed: int,
+                      recs: BounceRecord, device=None) -> torch.Tensor:
+    """The differentiable replay of ``render_replay`` from a recorded
+    trace, mean linear radiance (H, W, 3) on ``device`` (default: the
+    card).  Each sample is rematerialized in the backward pass
+    (``torch.utils.checkpoint``): its recompute is O(R) a bounce, and the
+    counter-based RNG makes it exact."""
+    _check_replay(cfg)
+    dev = resolve_device(device)
+    scene, camera = scene.to(dev), camera.to(dev)
+    h, w = cfg.height, cfg.width
+
+    def one_sample(s, rec, scene, camera):
+        o, d, pixel = _primary_rays(camera, cfg, seed, s)
+        return trace(scene, o, d, cfg, seed=seed, pixel=pixel, sample=s,
+                     record=rec).reshape(h, w, 3)
+
+    acc = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    for s in range(cfg.spp):
+        acc = acc + checkpoint.checkpoint(
+            one_sample, s, recs[s].to(dev), scene, camera,
+            use_reentrant=False, preserve_rng_state=False)
+    return acc / torch.tensor(float(cfg.spp), device=dev)
 
 
 def count_rays(scene: Scene, camera, cfg: RenderConfig, seed: int

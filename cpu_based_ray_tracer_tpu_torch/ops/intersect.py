@@ -1,10 +1,17 @@
 """Batched ray-primitive intersection (port of
-``cpu_based_ray_tracer_tpu.ops.intersect``, the forward subset).
+``cpu_based_ray_tracer_tpu.ops.intersect``).
 
 A dense (R rays x N primitives) t-matrix reduced with min/argmin, then the
 hit attributes recomputed per ray from the winning index.  Material and
 attribute lookups use tensor indexing (the JAX package's one-hot gathers in
 ``ops/gather.py`` work around the TPU's matrix unit and are not ported).
+
+Gradients: the winner indices are discrete, the recomputed t, point,
+normal and uv are differentiable functions of the gathered primitive data
+and of the ray.  ``hit_from_record`` rebuilds a Hit from a recorded winner
+alone, through per-lane twins of the t-matrix producers
+(``triangle_t_single``, ``sphere_t_single``) that repeat their operations
+one for one, so a recorded winner's t is bit equal to its matrix entry.
 """
 
 from __future__ import annotations
@@ -148,30 +155,110 @@ def assemble_hit(scene: Scene, origin, direction, tt, best_t,
 
 
 def _winner_hit(scene: Scene, origin, direction, best_t, best_s, is_tri, t,
-                hit) -> Hit:
-    """Hit record from per-lane winner data only (O(R))."""
+                hit, tri_g=None) -> Hit:
+    """Hit record from per-lane winner data only (O(R)).  ``tri_g``: the
+    winners' (v0, e1, e2), where the caller gathered them already."""
     sp, tr = scene.spheres, scene.triangles
     best_t = best_t.long()
     best_s = best_s.long()
     prim = torch.where(is_tri, best_t, best_s)
-    # Miss lanes compute the point with t = 1 (the record keeps NO_HIT_T).
+    # Miss lanes compute the point with t = 1 (the record keeps NO_HIT_T):
+    # o + 3.4e38 d would overflow downstream squares and NaN the backward.
     point = origin + torch.where(hit, t, 1.0)[:, None] * direction
-    r_hit = sp.radius[best_s]
-    n_sphere = ((point - sp.center[best_s])
+    r_hit = vec.take(sp.radius, best_s)
+    n_sphere = ((point - vec.take(sp.center, best_s))
                 / torch.where(r_hit == 0.0, 1.0, r_hit)[:, None])
-    geom_n = vec.normalize(torch.where(is_tri[:, None], tr.normal[best_t],
+    geom_n = vec.normalize(torch.where(is_tri[:, None],
+                                       vec.take(tr.normal, best_t),
                                        n_sphere))
     front = vec.dot(geom_n, direction)[:, 0] < 0.0
     # Barycentric uv interpolation at the winning triangle.
-    _, b1, b2 = moller_trumbore_single(origin, direction, tr.v0[best_t],
-                                       tr.e1[best_t], tr.e2[best_t])
-    uv = (tr.uv0[best_t] * (1.0 - b1 - b2)[:, None]
-          + tr.uv1[best_t] * b1[:, None] + tr.uv2[best_t] * b2[:, None])
+    if tri_g is None:
+        tri_g = [vec.take(x, best_t) for x in (tr.v0, tr.e1, tr.e2)]
+    _, b1, b2 = moller_trumbore_single(origin, direction, *tri_g)
+    uv = (vec.take(tr.uv0, best_t) * (1.0 - b1 - b2)[:, None]
+          + vec.take(tr.uv1, best_t) * b1[:, None]
+          + vec.take(tr.uv2, best_t) * b2[:, None])
     uv = torch.where(is_tri[:, None], uv, 0.0)
     mat = torch.where(is_tri, tr.material[best_t], sp.material[best_s])
     return Hit(t=torch.where(hit, t, NO_HIT_T), hit=hit, is_triangle=is_tri,
                prim=prim.to(torch.int32), material=mat.to(torch.int32),
                point=point, geom_normal=geom_n, front=front, uv=uv)
+
+
+def triangle_t_single(origin, direction, v0, e1, e2, t_min, t_max=INF,
+                      miss=NO_HIT_T):
+    """Per-lane twin of ``triangle_t_matrix`` for one triangle a ray (all
+    inputs (R, 3)), with its operations one for one, so the value at a
+    recorded winner is bit equal to the matrix entry.  ``miss``: the value
+    of lanes that do not accept; a caller that masks misses itself passes
+    a benign one, so that no 3.4e38 meets a zero cotangent backward."""
+    ox, oy, oz = origin[:, 0], origin[:, 1], origin[:, 2]
+    dx, dy, dz = direction[:, 0], direction[:, 1], direction[:, 2]
+    e1x, e1y, e1z = e1[:, 0], e1[:, 1], e1[:, 2]
+    e2x, e2y, e2z = e2[:, 0], e2[:, 1], e2[:, 2]
+    v0x, v0y, v0z = v0[:, 0], v0[:, 1], v0[:, 2]
+    s1x = dy * e2z - dz * e2y
+    s1y = dz * e2x - dx * e2z
+    s1z = dx * e2y - dy * e2x
+    det = _dot3(s1x, s1y, s1z, e1x, e1y, e1z)
+    ok_det = torch.abs(det) > _DET_EPS
+    inv_det = 1.0 / torch.where(ok_det, det, 1.0)
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    s2x = sy * e1z - sz * e1y
+    s2y = sz * e1x - sx * e1z
+    s2z = sx * e1y - sy * e1x
+    t = _dot3(s2x, s2y, s2z, e2x, e2y, e2z) * inv_det
+    b1 = _dot3(s1x, s1y, s1z, sx, sy, sz) * inv_det
+    b2 = _dot3(s2x, s2y, s2z, dx, dy, dz) * inv_det
+    ok = (ok_det & (t > t_min) & (t < t_max)
+          & (b1 >= 0.0) & (b2 >= 0.0) & (1.0 - b1 - b2 >= 0.0))
+    return torch.where(ok, t, miss)
+
+
+def sphere_t_single(origin, direction, center, radius, t_min, t_max=INF,
+                    miss=NO_HIT_T):
+    """Per-lane twin of ``intersect_spheres`` for one sphere a ray (center
+    (R, 3), radius (R,)), near-then-far root included, bit equal at a
+    recorded winner.  ``miss``: as in ``triangle_t_single``."""
+    oc = origin - center
+    d = direction
+    a = _dot3(d[:, 0], d[:, 1], d[:, 2], d[:, 0], d[:, 1], d[:, 2])
+    half_b = _dot3(oc[:, 0], oc[:, 1], oc[:, 2], d[:, 0], d[:, 1], d[:, 2])
+    c = (_dot3(oc[:, 0], oc[:, 1], oc[:, 2], oc[:, 0], oc[:, 1], oc[:, 2])
+         - radius * radius)
+    disc = half_b * half_b - a * c
+    ok = disc > 0.0
+    sq = torch.sqrt(torch.where(ok, disc, 1.0))
+    t_near = (-half_b - sq) / a
+    t_far = (-half_b + sq) / a
+    near_ok = ok & (t_near > t_min) & (t_near < t_max)
+    far_ok = ok & (t_far > t_min) & (t_far < t_max)
+    return torch.where(near_ok, t_near, torch.where(far_ok, t_far, miss))
+
+
+def hit_from_record(scene: Scene, origin, direction, prim, is_tri, hitflag,
+                    t_min: float, t_max: float = INF) -> Hit:
+    """The Hit of a recorded winner (primitive index ``prim`` within its
+    SoA, ``is_tri``, the raw ``hitflag``), rebuilt in O(R): no (R, N)
+    producer enters, so the backward pass is O(R) too.  Every field is bit
+    equal to ``intersect_scene``'s on the same rays, and the gradients
+    equal the standard engine's: its min routes each lane's cotangent to
+    the winner's entry, the same function of the same winner data."""
+    tr, sp = scene.triangles, scene.spheres
+    prim = prim.long()
+    best_t = torch.where(is_tri, prim, 0)
+    best_s = torch.where(is_tri, 0, prim)
+    tri_g = [vec.take(x, best_t) for x in (tr.v0, tr.e1, tr.e2)]
+    # miss=1.0: the recorded flags mask every miss and deselected branch.
+    t_tri = triangle_t_single(origin, direction, *tri_g, t_min, t_max,
+                              miss=1.0)
+    t_sph = sphere_t_single(origin, direction, vec.take(sp.center, best_s),
+                            vec.take(sp.radius, best_s), t_min, t_max,
+                            miss=1.0)
+    t = torch.where(hitflag, torch.where(is_tri, t_tri, t_sph), 1.0)
+    return _winner_hit(scene, origin, direction, best_t, best_s, is_tri, t,
+                       hitflag, tri_g=tri_g)
 
 
 def nearest_t(scene: Scene, origin, direction,

@@ -25,6 +25,16 @@ def div(x: torch.Tensor, c) -> torch.Tensor:
     return x / torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
+def take(table, idx):
+    """``table[idx]`` along the first axis (idx (R,) integer), by
+    ``index_select``: the same values, and a backward pass that adds the
+    lanes' cotangents into the table with atomics (``index_add_``).
+    Indexing's backward sorts the indices and walks each row's lanes in
+    turn, which on the card takes milliseconds a gather when 200k lanes
+    share a few rows (a material, a light triangle)."""
+    return torch.index_select(table, 0, idx)
+
+
 def dot(a, b):
     return _sum3(a * b).unsqueeze(-1)
 

@@ -1140,3 +1140,104 @@ def test_soft_visibility_on_card(cuda):
     for got, want in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                    atol=1e-6)
+
+
+# --- gradients, record and replay --------------------------------------------
+
+def _grad_leaves(scene):
+    alb = scene.materials.albedo.clone().requires_grad_(True)
+    v0 = scene.triangles.v0.clone().requires_grad_(True)
+    return (scene.replace(materials=scene.materials.replace(albedo=alb),
+                          triangles=scene.triangles.replace(v0=v0)),
+            [alb, v0])
+
+
+def _mc_grads(scene, cam, cfg, dev, render=mc.render, **kw):
+    s, leaves = _grad_leaves(scene.to(dev))
+    img = render(s, cam.to(dev), cfg, SEED, device=dev, **kw)
+    return img.detach().cpu(), [g.cpu() for g in torch.autograd.grad(
+        torch.mean(img ** 2), leaves)]
+
+
+def _assert_grads_close(got, want):
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and b.abs().max() > 0
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+def test_render_replay_on_card(cuda):
+    """The replay image equals render's on the card (bit equal: the same
+    operations in both programs), and the replay's gradients the standard
+    engine's."""
+    scene, cam = _scene("cornell_sphere", cuda), cornell.cornell_camera(cuda)
+    cfg = RenderConfig(width=32, height=32, spp=2, max_depth=4)
+    a, g_std = _mc_grads(scene, cam, cfg, cuda)
+    b, g_rep = _mc_grads(scene, cam, cfg, cuda, render=mc.render_replay)
+    np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4, atol=4e-6)
+    assert int((a != b).any(-1).sum()) == 0
+    _assert_grads_close(g_rep, g_std)
+
+
+def test_gradients_on_card_match_cpu(cuda):
+    """Cornell's albedo and v0 gradients on the card against the CPU's,
+    for both engines."""
+    scene, cam = cornell.cornell_scene(), cornell.cornell_camera()
+    cfg = RenderConfig(width=24, height=24, spp=2, max_depth=4)
+    for render in (mc.render, mc.render_replay):
+        img, got = _mc_grads(scene, cam, cfg, cuda, render=render)
+        want_img, want = _mc_grads(scene, cam, cfg, torch.device("cpu"),
+                                   render=render)
+        np.testing.assert_allclose(img.numpy(), want_img.numpy(), rtol=2e-3,
+                                   atol=2e-3)
+        _assert_grads_close(got, want)
+
+
+def test_packet_gradients_on_card_match_plain(cuda):
+    """Through csrc/packet.cu with ``differentiable=True``, the albedo and
+    vertex gradients equal those of the plain packet version on the CPU:
+    the kernel's t carries no gradient, so the rays must be detached on
+    both routes."""
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(1))
+    cam = cornell.cornell_camera()
+    cfg = RenderConfig(width=24, height=24, spp=1, max_depth=3)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        bundle = mesh.prepare(scene.to(dev), method="packet")
+        packet.LAUNCHES = 0
+        out[dev.type] = _mc_grads(
+            scene, cam, cfg, dev,
+            intersect_fn=mesh.make_intersect_fn(bundle, sort_rays=True,
+                                                differentiable=True),
+            nearest_t_fn=mesh.make_nearest_t_fn(bundle, sort_rays=True))
+        if dev.type == "cuda":
+            assert packet.LAUNCHES == 2 * cfg.max_depth
+    np.testing.assert_allclose(out["cuda"][0].numpy(), out["cpu"][0].numpy(),
+                               rtol=2e-3, atol=2e-3)
+    _assert_grads_close(out["cuda"][1], out["cpu"][1])
+
+
+def test_record_trace_through_packet_on_card(cuda, monkeypatch):
+    """record_trace through csrc/packet.cu equals, field by field, its
+    record through the plain packet version on the card, and its record on
+    the CPU (the plain version there)."""
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(2))
+    cam = cornell.cornell_camera()
+    cfg = RenderConfig(width=48, height=48, spp=2, max_depth=4)
+
+    def record(dev):
+        bundle = mesh.prepare(scene.to(dev), method="packet")
+        return mc.record_trace(
+            scene, cam, cfg, SEED, dev,
+            intersect_fn=mesh.make_intersect_fn(bundle, sort_rays=True),
+            nearest_t_fn=mesh.make_nearest_t_fn(bundle, sort_rays=True))
+
+    packet.LAUNCHES = 0
+    kernel = record(cuda)
+    assert packet.LAUNCHES == 2 * cfg.spp * cfg.max_depth
+    cpu = record(torch.device("cpu"))
+    monkeypatch.setattr(packet, "nearest", packet.nearest_plain)
+    plain = record(cuda)
+    for f in ("prim", "is_triangle", "hit", "visible"):
+        assert torch.equal(getattr(kernel, f), getattr(plain, f)), f
+        assert torch.equal(getattr(kernel, f).cpu(), getattr(cpu, f)), f
