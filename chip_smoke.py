@@ -2,8 +2,9 @@
 Monte Carlo Cornell path tracer, the Whitted stage, the BVH mesh stage
 (packet and fused shortlist intersectors), the fused mesh Monte Carlo
 stage (resident and shortlist-streaming sweeps), the RTIOW stages (offline
-prototype and NPPT), the Denoiser, and the gradients of the Monte Carlo
-path (standard and record / replay engines, inverse rendering) — and hold
+prototype and NPPT), the Denoiser, the gradients of the Monte Carlo
+path (standard and record / replay engines, inverse rendering), row-sharded
+rendering (in one process and over two ranks) and the CLI — and hold
 every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -226,12 +227,35 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               engine="replay", 20 steps (seconds a step, loss ratio), and
               tests/test_inverse.py's convergence checks at 24x24 on the
               card (albedo: loss down 10x, error < 0.08; emission: loss
-              down 10x, relative error < 0.15).
+              down 10x, relative error < 0.15);
+39. sharded   row sharding in this process, 2 slabs sharing the card:
+              render_sharded (Cornell 896x896, 4 spp, depth 16, RR 0.8)
+              bit equal to monte_carlo.render; wavefront_*_sharded (16
+              steps) and wavefront_steps_fused_mesh_sharded
+              (cornell_mesh_scene, 16 steps, csrc/fused_mesh.cu: its
+              launches counted) on every plane bit equal to the unsharded
+              runs, overflow 0; each timed beside the unsharded run;
+40. sharded_ranks  two ranks on the card, each a process
+              (parallel.worker; gloo, file:// rendezvous): the 896x896 rows
+              bit equal, grad_step_cornell's gradient (448x448, 4 spp,
+              depth 8) on every rank allclose to the unsharded one (rtol
+              1e-4, atol 1e-6: the gradstep gate of tools/bench_passes.py;
+              dryrun_multichip's 16-pixel-wide cell at rtol 1e-5, atol
+              1e-7), the plain and fused mesh steppers bit
+              equal, one collective a stepper call, dryrun_multichip over
+              the ranks; each rank's seconds and fused_mesh launches;
+41. cli       python -m cpu_based_ray_tracer_tpu_torch in this process:
+              every render stage at 64x64 (the mesh stage reports the
+              missing OBJ assets), fly, render --stage mc at 896x896 4 spp
+              bit equal to render_turbo_exact, checkpoint and resume on the
+              card (and a resume under another seed refused), artifacts
+              --tier test --check against goldens/test/.
 
-Each main path (5, 9, 11, 12, 15, 18, 21, 25, 29, 31, 34, 35, and each
-pass of 36, 37 and 38) runs with every launch counter set to 0 just
-before it and read just after; packet's line in the kernels line holds
-its launches by path.  Then
+Each main path (5, 9, 11, 12, 15, 18, 21, 25, 29, 31, 34, 35, the sharded
+fused mesh call of 39, each CLI render of 41, and each pass of 36, 37 and
+38) runs with every launch counter set to 0 just before it and read just
+after; the packet, fused_mc, fused_rtiow and fused_mesh lines of the
+kernels line hold their launches by path.  Then
 the kernels line, the nvidia-smi line, and the last line {"ok": true,
 "device": {...}}.  Exits non-zero, printing no result, where CUDA is not
 available.
@@ -3539,6 +3563,375 @@ def inverse_phase(dev, smi, size=448, n_steps=20) -> dict:
     return res
 
 
+# --- row sharding, the CLI --------------------------------------------------
+
+SHARDED_SLABS = 2
+# The 448^2 gradient cell's tolerance (tools/bench_passes.py:478-479, the
+# gradstep gate): its albedo gradient sums ~10^6 lane contributions in
+# float32, and the ranks sum them in another order (the atomic backward of
+# a gather on the card orders them anew on every run), so the 16x16 checks'
+# rtol 1e-5 (tests/test_sharding.py:50) is below its rounding.
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def sharded_phase(dev, full: RenderConfig, smi: str, n_steps=16) -> dict:
+    """The sharded renderers in one process, SHARDED_SLABS slabs sharing
+    the card: render_sharded (Cornell 896^2, 4 spp, depth 16, RR 0.8) bit
+    equal to monte_carlo.render; wavefront_init/steps_sharded (16 steps)
+    and wavefront_steps_fused_mesh_sharded (cornell_mesh_scene, 16 steps,
+    its caps by default from each slab's lanes) on every plane bit equal to
+    the unsharded runs, nrays equal, overflow 0, populations equal.  Each
+    timed beside its unsharded run; the sharded fused mesh call's launches
+    counted (the counters set to 0 just before it).  Returns the unsharded
+    results the ranks phase is held against, and those launches."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.parallel import shard
+    from cpu_based_ray_tracer_tpu_torch.parallel.mesh import make_mesh
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    mesh = make_mesh(SHARDED_SLABS, devices=dev)
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+
+    def run(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    res = {}
+    ref, res["render_unsharded_seconds"] = run(
+        lambda: mc.render(scene, cam, full, SEED_KEY0, device=dev))
+    img, res["render_sharded_seconds"] = run(
+        lambda: shard.render_sharded(scene, cam, full, SEED_KEY0, mesh))
+    res["render_bit_equal"] = torch.equal(img.view(torch.int32),
+                                          ref.view(torch.int32))
+
+    wf0 = mc.wavefront_init(scene, cam, full, SEED_KEY0, device=dev)
+    wf_ref, res["wavefront_unsharded_seconds"] = run(
+        lambda: mc.wavefront_steps(scene, cam, full, SEED_KEY0, wf0, n_steps))
+    wf, res["wavefront_sharded_seconds"] = run(
+        lambda: shard.wavefront_steps_sharded(
+            scene, cam, full, SEED_KEY0, shard.wavefront_init_sharded(
+                scene, cam, full, SEED_KEY0, mesh), n_steps, mesh))
+    res["wavefront_bit_equal"] = states_bit_equal(wf, wf_ref)
+
+    mscene = cornell.cornell_mesh_scene(device=dev)
+    mp = fm.pack_mesh_scene(mscene)
+    st0 = mc.wavefront_init(mscene, cam, full, SEED_KEY0, device=dev)
+    (fm_ref, of_ref, np_ref), res["fused_mesh_unsharded_seconds"] = run(
+        lambda: fm.wavefront_steps_fused_mesh(mp, cam, full, SEED_KEY0, st0,
+                                              n_steps, device=dev))
+    sst0 = shard.wavefront_init_sharded(mscene, cam, full, SEED_KEY0, mesh)
+    sync(dev)
+    reset_counts()
+    (fm_sh, of_sh, np_sh), res["fused_mesh_sharded_seconds"] = run(
+        lambda: shard.wavefront_steps_fused_mesh_sharded(
+            mp, cam, full, SEED_KEY0, sst0, n_steps, mesh))
+    launches = read_counts()
+    res.update(
+        fused_mesh_bit_equal=states_bit_equal(fm_sh, fm_ref),
+        overflow=[int(of_sh), int(of_ref)],
+        npred=[np_sh.tolist(), np_ref.tolist()],
+        fused_mesh_launches=launches["fused_mesh"])
+    emit(phase="sharded", nvidia_smi=smi, slabs=SHARDED_SLABS,
+         devices=[str(d) for d in mesh.devices], collectives="none (one "
+         "process)", config=f"{full.width}x{full.height} {full.spp}spp "
+         f"depth{full.max_depth} rr{full.rr_survival}; steppers {n_steps} "
+         f"steps; fused mesh on cornell_mesh_scene", **res)
+    steps_fm = n_steps * SHARDED_SLABS
+    if not (res["render_bit_equal"] and res["wavefront_bit_equal"]
+            and res["fused_mesh_bit_equal"] and res["overflow"] == [0, 0]
+            and res["npred"][0] == res["npred"][1]
+            and (dev.type != "cuda" or all(
+                launches["fused_mesh"][k] == steps_fm for k in MESH_TPU))):
+        raise RuntimeError(f"sharded: {res}")
+    return dict(img=ref.cpu(), wf=wf_ref, fm=(fm_ref, np_ref),
+                launches=launches["fused_mesh"])
+
+
+def grad_reference(dev, cfg, seed):
+    """grad_step_cornell's gradient on the card, unsharded: d mean(render(
+    albedo)^2) / d albedo."""
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    a = scene.materials.albedo.clone().requires_grad_(True)
+    s = scene.replace(materials=scene.materials.replace(albedo=a))
+    torch.mean(mc.render(s, cam, cfg, seed, device=dev) ** 2).backward()
+    return a.grad
+
+
+def grad_witnesses(dev, cfg, seed, chunk_rows=32):
+    """Two witnesses of where the ranks' gradient gap to grad_reference
+    comes from.  The gradient over SHARDED_SLABS slabs in this process: the
+    ranks' split of the sum, without their collectives.  A float64
+    reference: each run of ``chunk_rows`` rows' float32 gradient of its
+    share of mean(img^2), the runs summed in float64, so each float32 sum
+    holds a (H / chunk_rows)-th of the terms."""
+    from cpu_based_ray_tracer_tpu_torch.parallel import shard
+    from cpu_based_ray_tracer_tpu_torch.parallel.mesh import make_mesh
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+
+    def grad(loss):
+        a = scene.materials.albedo.clone().requires_grad_(True)
+        loss(scene.replace(materials=scene.materials.replace(
+            albedo=a))).backward()
+        return a.grad
+
+    mesh = make_mesh(SHARDED_SLABS, devices=dev)
+    g_slabs = grad(lambda s: torch.mean(
+        shard.render_sharded(s, cam, cfg, seed, mesh) ** 2))
+    n = cfg.height * cfg.width * 3
+    g64 = torch.zeros(scene.materials.albedo.shape, dtype=torch.float64,
+                      device=dev)
+    for r0 in range(0, cfg.height, chunk_rows):
+        g64 += grad(lambda s: torch.sum((shard.render_tiles(
+            s, cam, cfg, seed, r0, chunk_rows) / cfg.spp) ** 2) / n).double()
+    return g_slabs.cpu().numpy(), g64.cpu().numpy()
+
+
+def sharded_ranks_phase(dev, full: RenderConfig, smi: str, refs: dict,
+                        n_steps=16, world=2, timeout=600) -> dict:
+    """Two ranks on the one card, each its own process
+    (cpu_based_ray_tracer_tpu_torch.parallel.worker, gloo: nccl refuses two
+    ranks on one card): the 896^2 image rows bit equal to monte_carlo.render;
+    grad_step_cornell's cell (448^2, 4 spp, depth 8, mean(render(albedo)^2))
+    with every rank's gradient allclose (GRAD_TOL: rtol 1e-4, atol 1e-6) to
+    the unsharded gradient, beside the spread of two unsharded runs and
+    each one's gap to grad_witnesses' float64 reference; the
+    plain and fused mesh steppers (16 steps) bit
+    equal on every plane of each rank's lanes; dryrun_multichip over the
+    ranks; one collective a stepper call.  Each rank's seconds and
+    csrc/fused_mesh.cu launches."""
+    import tempfile
+
+    from cpu_based_ray_tracer_tpu_torch.parallel.shard import PLANES
+
+    base = dict(width=full.width, height=full.height, spp=full.spp,
+                max_depth=full.max_depth, rr_survival=full.rr_survival,
+                seed=SEED_KEY0)
+    gcfg = full.replace(width=448, height=448, max_depth=8)
+    spec = {"device": dev.type, "render": base,
+            "grad": dict(base, width=448, height=448, max_depth=8,
+                         loss="mean_sq"),
+            "wavefront": dict(base, n_steps=n_steps),
+            "fused_mesh": dict(base, n_steps=n_steps), "dryrun": True}
+    os.makedirs(OUT, exist_ok=True)
+    sync(dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m",
+             "cpu_based_ray_tracer_tpu_torch.parallel.worker", "--init-method",
+             f"file://{tmp}/rendezvous", "--world-size", str(world), "--rank",
+             str(r), "--backend", "gloo", "--out", tmp, "--spec",
+             json.dumps(spec)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"RANK_OK {r}" not in out:
+                raise RuntimeError(f"sharded_ranks: rank {r} failed:\n"
+                                   f"{out[-4000:]}")
+        reports = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        data = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                for r in range(world)]
+    g_ref = grad_reference(dev, gcfg, SEED_KEY0).cpu().numpy()
+    img = refs["img"].numpy()
+    rows = {int(k[3:]): v for d in data for k, v in d.items()
+            if k.startswith("row")}
+    res = {"rows": sorted(rows), "rows_bit_equal": all(
+        np.array_equal(v.view(np.int32),
+                       img[r0:r0 + v.shape[0]].view(np.int32))
+        for r0, v in rows.items()) and len(rows) == world}
+    g_rep = grad_reference(dev, gcfg, SEED_KEY0).cpu().numpy()
+    res["grad_max_abs_err"] = [float(np.abs(d["grad"] - g_ref).max())
+                               for d in data]
+    scale = np.maximum(np.abs(g_ref), 1e-30)
+    res["grad_max_rel_err"] = [float((np.abs(d["grad"] - g_ref) / scale).max())
+                               for d in data]
+    res["grad_unsharded_repeat_max_abs_err"] = float(
+        np.abs(g_rep - g_ref).max())
+    g_slabs, g64 = grad_witnesses(dev, gcfg, SEED_KEY0)
+
+    def gap(g, h):
+        return float(np.abs(g.astype(np.float64) - h).max())
+    res["grad_to_f64_max_abs_err"] = {
+        "unsharded": gap(g_ref, g64), "unsharded_repeat": gap(g_rep, g64),
+        "slabs_in_process": gap(g_slabs, g64),
+        "ranks": [gap(d["grad"], g64) for d in data]}
+    res["grad_ranks_to_slabs_in_process_max_abs_err"] = [
+        gap(d["grad"], g_slabs) for d in data]
+    res["grad_slabs_in_process_max_abs_err"] = gap(g_slabs, g_ref)
+    res["grad_tol"] = GRAD_TOL
+    res["grad_allclose"] = all(np.allclose(d["grad"], g_ref, **GRAD_TOL)
+                               for d in data)
+
+    def lanes_equal(prefix, st):
+        """The ranks' lanes, in rank order, bit equal to ``st`` on every
+        plane (floats as int32 words), and every rank's nrays."""
+        for f in PLANES:
+            want = getattr(st, f).cpu().numpy()
+            got = np.concatenate([d[f"{prefix}_{f}"] for d in data])
+            if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+                return False
+        return all(int(d[f"{prefix}_nrays"]) == int(st.nrays) for d in data)
+
+    fm_ref, np_ref = refs["fm"]
+    res["wavefront_bit_equal"] = lanes_equal("wf", refs["wf"])
+    res["fused_mesh_bit_equal"] = lanes_equal("fm", fm_ref) and all(
+        int(d["fm_overflow"]) == 0
+        and d["fm_npred"].tolist() == np_ref.tolist() for d in data)
+    res["collectives"] = [{k: v["collectives"] for k, v in rep.items()
+                           if isinstance(v, dict)} for rep in reports]
+    one = {"all_reduce": 1, "all_gather": 0}
+    res["one_collective_a_step_call"] = all(
+        c["wavefront"] == one and c["fused_mesh"] == one
+        for c in res["collectives"])
+    launches = [rep["fused_mesh"]["fused_mesh_launches"] for rep in reports]
+    emit(phase="sharded_ranks", nvidia_smi=smi, world=world,
+         backend=[rep["backend"] for rep in reports],
+         devices=[rep["device"] for rep in reports],
+         config=f"render {full.width}x{full.height} {full.spp}spp depth"
+         f"{full.max_depth}; grad {gcfg.width}x{gcfg.height} {gcfg.spp}spp "
+         f"depth{gcfg.max_depth} loss mean(render(albedo)^2); steppers "
+         f"{n_steps} steps", wall_seconds=wall,
+         seconds=[{k: v["seconds"] for k, v in rep.items()
+                   if isinstance(v, dict)} for rep in reports],
+         fused_mesh_launches=launches, dryrun_multichip=all(
+             "dryrun" in rep for rep in reports), **res)
+    if not (res["rows_bit_equal"] and res["grad_allclose"]
+            and res["wavefront_bit_equal"] and res["fused_mesh_bit_equal"]
+            and res["one_collective_a_step_call"]
+            and (dev.type != "cuda" or all(
+                ln[k] == n_steps for ln in launches for k in MESH_TPU))):
+        raise RuntimeError(f"sharded_ranks: {res}")
+    return {"launches": launches}
+
+
+def cli_phase(dev, full: RenderConfig, smi: str, small=64) -> dict:
+    """The port's CLI in this process (``python -m
+    cpu_based_ray_tracer_tpu_torch``): every render stage at small x small,
+    2 spp, depth 8 (the mesh stage needs the reference's OBJ assets:
+    without them it raises FileNotFoundError, as the JAX CLI's does),
+    each's launches; fly for 2
+    frames; render --stage mc at 896^2, 4 spp, depth 16 bit equal to
+    render_turbo_exact (the image and its PNG); checkpoint and resume on
+    the card (2 + 2 spp in chunks of 2, bit equal to the uninterrupted
+    chunks; a resume under another seed refused); artifacts --tier test
+    --check against goldens/test/ at tests/test_golden.py's tolerances."""
+    from cpu_based_ray_tracer_tpu_torch.__main__ import main, render_stage
+    from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
+    from cpu_based_ray_tracer_tpu_torch.ops import tonemap
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+    from cpu_based_ray_tracer_tpu_torch.utils import image as im
+
+    d = os.path.join(OUT, "cli")
+    os.makedirs(d, exist_ok=True)
+    on_cpu = ["--cpu"] if dev.type == "cpu" else []   # a dry run off the card
+
+    def cli(argv):
+        main(on_cpu + argv)
+
+    stages = {}
+    for stage in ("offline", "initial", "nppt", "whitted", "mesh", "mesh-mc",
+                  "mc", "denoiser"):
+        out = os.path.join(d, f"{stage}.png")
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            cli(["render", "--stage", stage, "--width", str(small),
+                 "--height", str(small), "--spp", "2", "--depth", "8",
+                 "--out", out])
+        except FileNotFoundError as e:
+            if stage != "mesh":
+                raise
+            stages[stage] = {"skipped": str(e)}
+            continue
+        sync(dev)
+        png = im.read_png(out)
+        stages[stage] = dict(seconds=time.perf_counter() - t0,
+                             launches=read_counts(),
+                             shape=list(png.shape), std=float(png.std()))
+        if png.shape != (small, small, 3) or not png.std() > 0:
+            raise RuntimeError(f"cli render {stage}: {stages[stage]}")
+    cli(["fly", "--width", str(small), "--height", str(small), "--frames",
+         "2", "--outdir", os.path.join(d, "fly")])
+
+    seed = SEED_KEY0     # --seed 0
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    want = (mc.render_turbo_exact if dev.type == "cuda" else mc.render_fast)(
+        scene, cam, full, seed, device=dev)
+    img, _ = render_stage("mc", full, seed, dev)
+    out = os.path.join(d, f"mc_{full.width}.png")
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli(["render", "--stage", "mc", "--width", str(full.width), "--height",
+         str(full.height), "--spp", str(full.spp), "--depth",
+         str(full.max_depth), "--rr", str(full.rr_survival), "--out", out])
+    mc_secs = time.perf_counter() - t0
+    mc_launches = read_counts()["fused_mc"]
+    res = dict(mc_bit_equal=torch.equal(img.view(torch.int32),
+                                        want.view(torch.int32)),
+               mc_png_equal=bool(np.array_equal(
+                   im.read_png(out),
+                   tonemap.quantize_u8(want, 1.0).cpu().numpy())),
+               mc_seconds=mc_secs, mc_fused_mc_launches=mc_launches)
+
+    ck = os.path.join(d, "state.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    ck_args = ["render", "--stage", "mc", "--width", "128", "--height",
+               "128", "--depth", "16", "--checkpoint", ck,
+               "--checkpoint-every", "2", "--out", os.path.join(d, "ck.png")]
+    cli(ck_args + ["--spp", "2"])
+    cli(ck_args + ["--spp", "4"])
+    with np.load(ck) as z:
+        acc, done = z["accum"], int(z["samples_done"])
+    ccfg = full.replace(width=128, height=128, spp=2)
+    a = torch.zeros((128, 128, 3), dtype=torch.float32, device=dev)
+    a, s = mc.render_wavefront(scene, cam, ccfg, seed, a, 0, device=dev)
+    a, s = mc.render_wavefront(scene, cam, ccfg, seed, a, s, device=dev)
+    res["resume_bit_equal"] = bool(done == 4 and np.array_equal(
+        acc.view(np.int32), a.cpu().numpy().view(np.int32)))
+    try:
+        cli(ck_args + ["--spp", "6", "--seed", "1"])
+        res["other_seed_refused"] = False
+    except SystemExit:
+        res["other_seed_refused"] = True
+
+    t0 = time.perf_counter()
+    try:
+        cli(["artifacts", "--tier", "test", "--check", "--outdir",
+             os.path.join(d, "goldens")])
+        res["artifacts_check"] = "0 failures"
+    except SystemExit as e:
+        res["artifacts_check"] = f"exit {e.code}"
+    res["artifacts_seconds"] = time.perf_counter() - t0
+    emit(phase="cli", nvidia_smi=smi, stages=stages,
+         config=f"stages {small}x{small} 2spp depth8; mc {full.width}x"
+         f"{full.height} {full.spp}spp depth{full.max_depth}", **res)
+    if not (res["mc_bit_equal"] and res["mc_png_equal"]
+            and (dev.type != "cuda" or mc_launches > 0)
+            and res["resume_bit_equal"] and res["other_seed_refused"]
+            and res["artifacts_check"] == "0 failures"):
+        raise RuntimeError(f"cli: {res}")
+    return {"stages": stages, "mc_launches": mc_launches}
+
+
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -3635,6 +4028,9 @@ def main():
     grads = grad_step_phases(dev, smi)
     inverse_phase(dev, smi)
     bunny = grads["grad_step_mesh_bunny"]
+    sh = sharded_phase(dev, full, smi)
+    shr = sharded_ranks_phase(dev, full, smi, sh)
+    cl = cli_phase(dev, full, smi)
 
     r = full.width * full.height
     mesh_kernels = [{
@@ -3646,6 +4042,12 @@ def main():
         "unit": f"ms per bounce step, {r} lanes, cornell_mesh_scene "
                 f"(one launch per step)",
         "launches": m_launches[k], "max_abs_err": m_err[k],
+        "launches_by_path": {
+            "render_turbo_mesh_exact": m_launches[k],
+            "sharded_in_process": sh["launches"][k],
+            "sharded_ranks": [ln[k] for ln in shr["launches"]],
+            "cli_mesh_mc":
+                cl["stages"]["mesh-mc"]["launches"]["fused_mesh"][k]},
         "ms": msp[k]["ms"], "plain_ms": msp[k]["plain_ms"],
         "bound_ms": msp[k]["bound_ms"], "bound_by": msp[k]["bound_by"],
         "bound_no_fma_ms": msp[k]["bound_no_fma_ms"],
@@ -3714,6 +4116,8 @@ def main():
         "tpu_kernel": "ops/fused.py::_kernel",
         "unit": f"ms per bounce step, {r} lanes, 256-step launches",
         "launches": launches, "max_abs_err": max_err, "max_err": max_err,
+        "launches_by_path": {"render_turbo_exact": launches,
+                             "cli_mc": cl["mc_launches"]},
         "ms": sp["kernel_ms"], "ms_per_step": sp["kernel_ms"],
         "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
         "bound_ms_per_step": sp["bound_ms"], "bound_by": sp["bound_by"],
@@ -3740,6 +4144,10 @@ def main():
                 "render-mode launch, the whole render)",
         "launches": sum(v["launches"] for v in r_main.values()),
         "launches_by_render": {k: v["launches"] for k, v in r_main.items()},
+        "launches_by_path": {
+            **{k: v["launches"] for k, v in r_main.items()},
+            **{f"cli_{k}": cl["stages"][k]["launches"]["fused_rtiow"]
+               for k in ("offline", "nppt")}},
         "max_abs_err": r_err,
         "ms": rsp["ms"], "plain_ms": rsp["plain_ms"],
         "bound_ms": rsp["bound_ms"], "bound_by": rsp["bound_by"],

@@ -27,9 +27,19 @@ Subpackages
               mesh stage, the RTIOW stages (``offline``, ``nppt``,
               ``initial``) and the Denoiser
 - ``scenes``: the Cornell box (and its mesh variant), the Whitted scene,
-              the procedural meshes and the BVH-stage scene, the RTIOW and
-              initial-framework scenes
-- ``utils``:  RNG, image and OBJ IO, kernel build and load
+              the procedural meshes, the BVH-stage scene and scenes from an
+              OBJ + MTL, the RTIOW and initial-framework scenes
+- ``parallel``: row-sharded rendering and stepping over a mesh of row
+              slabs, in one process or one slab a ``torch.distributed``
+              rank (``parallel.worker`` runs one rank of a check)
+- ``utils``:  RNG (and the JAX package's seed word), image and OBJ / MTL
+              IO, kernel build and load, checkpoint / resume, profiling,
+              the native BVH builder and OBJ loader, reference-image
+              statistics
+- ``tools``:  ``make_goldens`` (the golden tiers, and their check)
+
+``python -m cpu_based_ray_tracer_tpu_torch`` is the CLI (``__main__``);
+``graft_entry`` holds the compile-check entry and the sharded dry run.
 """
 
 __version__ = "0.1.0"

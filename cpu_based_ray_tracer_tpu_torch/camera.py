@@ -2,7 +2,9 @@
 
 - ``ThinLensCamera``: the RTIOW look-from/look-at camera with an aperture
   (the offline prototype's depth of field);
-- ``PerspectiveCamera``: the interactive GUI camera.
+- ``PerspectiveCamera``: the interactive GUI camera;
+- ``FlyCameraController``: the host-side WASD / mouse fly camera that moves
+  it between frames (numpy).
 
 Same floating-point operation order as the JAX package: the fused kernels'
 in-kernel camera rays (``ops.fused``, ``ops.fused_rtiow``) rely on it.
@@ -183,3 +185,53 @@ def view_proj_matrices(cam: PerspectiveCamera, width: int, height: int,
     proj[2, 3] = -(2.0 * far * near) / (far - near)
     proj[3, 2] = -1.0
     return view, proj
+
+
+@dataclasses.dataclass(frozen=True)
+class FlyCameraController:
+    """Host-side WASD / mouse fly-camera state machine mirroring the
+    reference's interactive camera (``initial framework/.../Camera.cpp:
+    23-87``): speed 5, pitch and yaw from mouse deltas.  Plain numpy in
+    float64, run between frames; ``camera`` gives the pose as a
+    ``PerspectiveCamera``."""
+
+    position: np.ndarray
+    forward: np.ndarray
+    up: np.ndarray
+    vfov_degrees: float = 45.0
+    speed: float = 5.0           # Camera.cpp:44
+    rotation_speed: float = 0.3  # mouse sensitivity
+
+    def moved(self, keys: set[str], mouse_delta=(0.0, 0.0), dt: float = 0.016
+              ) -> "FlyCameraController":
+        fwd = self.forward / np.linalg.norm(self.forward)
+        up = np.asarray(self.up, np.float64)
+        right = np.cross(fwd, up)
+        right /= np.linalg.norm(right)
+        pos = np.asarray(self.position, np.float64).copy()
+        step = self.speed * dt
+        for key, axis, sign in (("w", fwd, 1), ("s", fwd, -1),
+                                ("a", right, -1), ("d", right, 1),
+                                ("space", up, 1), ("shift", up, -1)):
+            if key in keys:
+                pos = pos + axis * step if sign > 0 else pos - axis * step
+        dx, dy = mouse_delta
+        if dx or dy:
+            yaw = -dx * self.rotation_speed
+            pitch = -dy * self.rotation_speed
+            fwd = _rotate(fwd, up, yaw)
+            right = np.cross(fwd, up)
+            right /= np.linalg.norm(right)
+            fwd = _rotate(fwd, right, pitch)
+        return dataclasses.replace(self, position=pos, forward=fwd)
+
+    def camera(self, device="cpu") -> PerspectiveCamera:
+        return make_perspective_camera(self.position, self.forward, self.up,
+                                       self.vfov_degrees, device=device)
+
+
+def _rotate(v: np.ndarray, axis: np.ndarray, angle_rad: float) -> np.ndarray:
+    """Rodrigues' rotation of ``v`` about ``axis`` by ``angle_rad``."""
+    axis = axis / np.linalg.norm(axis)
+    c, s = np.cos(angle_rad), np.sin(angle_rad)
+    return (v * c + np.cross(axis, v) * s + axis * np.dot(axis, v) * (1 - c))

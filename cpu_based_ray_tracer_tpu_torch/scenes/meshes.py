@@ -136,3 +136,22 @@ def bvh_stage_camera(device="cpu") -> cam_mod.PerspectiveCamera:
     """Camera at (-1, 5, 10) facing -z, vfov 35."""
     return cam_mod.make_perspective_camera((-1, 5, 10), (0, 0, -1),
                                            vfov_degrees=35.0, device=device)
+
+
+def mesh_scene_from_obj(path, scale: float = 1.0,
+                        translate=(0.0, 0.0, 0.0), device="cpu") -> Scene:
+    """A scene straight from an OBJ and its .mtl: each group's Kd as the
+    diffuse albedo and its Ke as emission, as the vendored loader's
+    LoadMaterials allows (the reference itself overrides mesh materials in
+    code; this constructor honours the files instead).  Black sky."""
+    tris, _uv, tri_mtl, mtls = objio.load_obj_with_materials(
+        path, scale=scale, translate=translate)
+    mb = MaterialBuilder()
+    ids = [mb.add(DIFFUSE_GLOSSY, albedo=m["kd"], emission=m["ke"],
+                  ior=max(m["ni"], 1.0), kd=0.8, ks=0.2,
+                  spec_exp=max(m["ns"], 1.0)) for m in mtls]
+    mats = np.asarray([ids[j] for j in tri_mtl], np.int32)
+    return make_scene(triangles=make_triangles(tris, mats, device=device),
+                      materials=mb.build(device),
+                      sky_bottom=(0.0, 0.0, 0.0), sky_top=(0.0, 0.0, 0.0),
+                      device=device)

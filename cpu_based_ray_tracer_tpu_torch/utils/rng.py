@@ -4,8 +4,11 @@ Random draws are a pure function of (pixel index, sample index,
 bounce * N_STREAMS + stream, seed word), bit-identical to the JAX package.
 
 The JAX package derives the seed word from a ``jax.random`` key
-(``seed_from_key``); this package cannot compute that, so every entry point
-takes the u32 word itself as a plain ``int``.
+(``seed_from_key(render_key(k))``); every entry point of this package takes
+the u32 word itself as a plain ``int``, and ``seed_word(k)`` computes the
+word JAX derives from the integer seed ``k`` (its default threefry2x32
+key and ``random.bits``), so a ``--seed k`` of either package's CLI draws
+the same samples.
 
 The hash runs in int64 holding u32 values: CPU builds of PyTorch do not
 implement ``+`` and ``>>`` for ``torch.uint32``.  An int64 product of two
@@ -59,6 +62,34 @@ def pcg4d(a, b, c, d):
     c = (c + a * b) & _MASK
     d = (d + b * c) & _MASK
     return a, b, c, d
+
+
+def _threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple[int, int]:
+    """The Threefry-2x32 block cipher, 20 rounds (Salmon et al. 2011), as
+    ``jax.random``'s default PRNG applies it."""
+    def rotl(x, r):
+        return ((x << r) | (x >> (32 - r))) & _MASK
+
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = (x0 + ks[0]) & _MASK, (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in rot[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def seed_word(seed: int) -> int:
+    """The u32 word ``seed_from_key(render_key(seed))`` of the JAX package:
+    ``jax.random.key(seed)`` is the threefry key (seed >> 32, seed & M) and
+    one u32 of ``jax.random.bits`` is the xor of the cipher's two output
+    words at counter (0, 0)."""
+    seed = int(seed)
+    y0, y1 = _threefry2x32((seed >> 32) & _MASK, seed & _MASK, 0, 0)
+    return y0 ^ y1
 
 
 def _to_unit_float(x: torch.Tensor) -> torch.Tensor:
