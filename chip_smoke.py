@@ -565,7 +565,7 @@ def main_phase(dev, full: RenderConfig) -> int:
     img = mc.render_turbo_exact(scene, cam, full, SEED_KEY0, device=dev)
     sync(dev)
     secs = time.perf_counter() - t0
-    launches = fused.LAUNCHES
+    launches = fused.LAUNCHES["fused_mc"]
     png = os.path.join(OUT, f"mc_cornell_{full.width}_{full.spp}spp.png")
     im.write_png(png, tonemap.quantize_u8(img, gamma=2.0).cpu().numpy())
     finite = bool(torch.isfinite(img).all())
@@ -704,28 +704,21 @@ def speed_phase(dev, full: RenderConfig, max_sm_mhz: float, smi: str,
 # --- the Whitted and mesh stages --------------------------------------------
 
 def reset_counts():
-    from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused,
-                                                    fused_mesh, fused_rtiow,
-                                                    fused_whitted, packet)
+    # the six kernel modules register their launch counters when imported
+    from cpu_based_ray_tracer_tpu_torch.ops import (  # noqa: F401
+        coherent, fused, fused_mesh, fused_rtiow, fused_whitted, packet)
+    from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
-    fused.LAUNCHES = fused_whitted.LAUNCHES = packet.LAUNCHES = 0
-    fused_rtiow.LAUNCHES = 0
-    for counts in (fused_mesh.LAUNCHES, coherent.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    profiling.reset_counters()
 
 
 def read_counts() -> dict:
-    from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused,
-                                                    fused_mesh, fused_rtiow,
-                                                    fused_whitted, packet)
+    """The launches since ``reset_counts`` by kernel module: fused_mc,
+    fused_whitted, fused_rtiow and packet as numbers, fused_mesh and
+    coherent by entry point."""
+    from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
-    return {"fused_mc": fused.LAUNCHES,
-            "fused_whitted": fused_whitted.LAUNCHES,
-            "fused_rtiow": fused_rtiow.LAUNCHES,
-            "packet": packet.LAUNCHES,
-            "fused_mesh": dict(fused_mesh.LAUNCHES),
-            "coherent": dict(coherent.LAUNCHES)}
+    return profiling.read_counters()
 
 
 def image_gate(got, want) -> dict:
@@ -2615,12 +2608,13 @@ def rtiow_golden_phase(dev, mean_tol=1.5, p99_tol=8):
         "nppt": (rtiow.nppt_scene(dev), rtiow.nppt_camera(dev),
                  RenderConfig(width=128, height=128, spp=16, max_depth=50,
                               gamma=1.0), SEED_KEY1)}
-    launches = fr.LAUNCHES
+    launches = fr.LAUNCHES["fused_rtiow"]
     res = {name: u8_gate(fr.render_fused(sc, cam, cfg, seed, device=dev),
                          name, cfg.gamma, mean_tol, p99_tol)
            for name, (sc, cam, cfg, seed) in cases.items()}
-    emit(phase="rtiow_golden", launches=fr.LAUNCHES - launches, **res)
-    if dev.type == "cuda" and fr.LAUNCHES == launches:
+    emit(phase="rtiow_golden",
+         launches=fr.LAUNCHES["fused_rtiow"] - launches, **res)
+    if dev.type == "cuda" and fr.LAUNCHES["fused_rtiow"] == launches:
         raise RuntimeError("the RTIOW goldens launched no fused_rtiow kernel")
 
 
@@ -2889,7 +2883,7 @@ def denoiser_golden_phase(dev, mean_tol=2.0, p99_tol=16, n_frames=4):
     scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
     cfg = RenderConfig(width=128, height=128, max_depth=16, rr_survival=0.8)
     params = dn.DenoiserParams(jbf_half_size=16)
-    launches = fused.LAUNCHES
+    launches = fused.LAUNCHES["fused_mc"]
     imgs = {"denoiser_noisy_1spp": dn.render_gbuffer_fused(
         scene, cam, cfg, SEED_KEY3, n_frames - 1, True, device=dev).color}
     for name, p in (("denoiser_denoised", params),
@@ -2900,7 +2894,8 @@ def denoiser_golden_phase(dev, mean_tol=2.0, p99_tol=16, n_frames=4):
                                         device=dev)[-1]
     res = {name: u8_gate(img, name, 1.0, mean_tol, p99_tol)
            for name, img in imgs.items()}
-    emit(phase="denoiser_golden", launches=fused.LAUNCHES - launches, **res)
+    emit(phase="denoiser_golden",
+         launches=fused.LAUNCHES["fused_mc"] - launches, **res)
 
 
 def denoiser_main_phase(dev, cfg, n_frames=12) -> int:

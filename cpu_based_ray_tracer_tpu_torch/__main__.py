@@ -11,6 +11,7 @@ Subcommands
 render     one image of any stage:      --stage mc --spp 256 --out img.png
            (stages: offline initial nppt whitted mesh mesh-mc mc denoiser)
            resumable MC accumulation:   --checkpoint state.npz (Ctrl-C safe)
+           profiled:                    --trace-dir DIR (a Chrome trace)
 sweep      denoiser parameter matrix -> grid of PNGs + manifest
 fly        scripted WASD/mouse camera path through Cornell, denoised 1-SPP
            frames with temporal reprojection
@@ -32,6 +33,7 @@ counterpart here.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -126,19 +128,12 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def cmd_render(args):
-    from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+def _render_image(args, cfg, seed: int, log):
+    """(linear image, display gamma) of ``render``'s stage, or of its
+    checkpointed MC accumulation."""
     from cpu_based_ray_tracer_tpu_torch.utils import checkpoint as ckpt
-    from cpu_based_ray_tracer_tpu_torch.utils import profiling, rng
 
     dev = args.device
-    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
-                       max_depth=args.depth, rr_survival=args.rr)
-    seed = rng.seed_word(args.seed)
-    log = profiling.RunLog(args.runlog)
-    log.emit("render_start", stage=args.stage, config=dataclasses.asdict(cfg),
-             seed=args.seed, backend=dev.type)
-
     if args.checkpoint and args.stage == "mc":
         # Long-run progressive MC with interrupt/resume: accumulate in
         # chunks, checkpoint (accum, samples_done, seed) after each chunk.
@@ -176,14 +171,30 @@ def cmd_render(args):
         # steps of checkpoint-every, so `done` may exceed cfg.spp (--spp 50
         # --checkpoint-every 32 accumulates 64), and a resumed state may
         # already be past the target.
-        img, gamma = acc / float(max(done, 1)), 1.0
-    else:
-        t0 = time.time()
-        img, gamma = render_stage(args.stage, cfg, seed, dev)
-        _sync(dev)
-        print(f"rendered {args.stage} in {time.time() - t0:.1f}s")
-        log.emit("render_done", stage=args.stage, seconds=time.time() - t0)
+        return acc / float(max(done, 1)), 1.0
+    t0 = time.time()
+    img, gamma = render_stage(args.stage, cfg, seed, dev)
+    _sync(dev)
+    print(f"rendered {args.stage} in {time.time() - t0:.1f}s")
+    log.emit("render_done", stage=args.stage, seconds=time.time() - t0)
+    return img, gamma
 
+
+def cmd_render(args):
+    from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
+    from cpu_based_ray_tracer_tpu_torch.utils import profiling, rng
+
+    dev = args.device
+    cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
+                       max_depth=args.depth, rr_survival=args.rr)
+    seed = rng.seed_word(args.seed)
+    log = profiling.RunLog(args.runlog)
+    log.emit("render_start", stage=args.stage, config=dataclasses.asdict(cfg),
+             seed=args.seed, backend=dev.type)
+
+    with (profiling.device_trace(args.trace_dir) if args.trace_dir
+          else contextlib.nullcontext()):
+        img, gamma = _render_image(args, cfg, seed, log)
     _write(args.out, _u8(img, gamma))
     log.close()
 
@@ -308,6 +319,10 @@ def main(argv=None):
     r.add_argument("--runlog", default=None,
                    help="append structured JSON-lines run records here "
                         "(default: print them)")
+    r.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the render "
+                        "(the program's spans and the card's kernels) "
+                        "into this directory")
     r.set_defaults(fn=cmd_render)
 
     s = sub.add_parser("sweep", help="denoiser parameter-matrix sweep")

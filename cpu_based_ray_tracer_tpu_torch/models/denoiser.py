@@ -25,6 +25,7 @@ from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo
 from cpu_based_ray_tracer_tpu_torch.ops import denoise, fused, intersect
 from cpu_based_ray_tracer_tpu_torch.scene import Scene
+from cpu_based_ray_tracer_tpu_torch.utils import profiling
 from cpu_based_ray_tracer_tpu_torch.utils.kernels import resolve_device
 
 
@@ -99,11 +100,14 @@ def render_gbuffer_fused(scene: Scene, camera: cam_mod.PerspectiveCamera,
     (``ops.fused.single_sample_gbuffer``): the same estimator and
     G-buffer planes; on the card one ``csrc/fused_mc.cu`` launch."""
     dev = resolve_device(device)
-    camera = camera.to(dev)
-    color, pos, normal, pid, contrib = fused.single_sample_gbuffer(
-        fused.pack_scene(scene), camera, cfg, seed, frame_index, device=dev)
-    return _gbuffer(camera, cfg, color, pos, normal, contrib, pid,
-                    immediate_clamping)
+    with profiling.span("denoiser.gbuffer"):
+        camera = camera.to(dev)
+        with profiling.span("mc.pack"):
+            fs = fused.pack_scene(scene)
+        color, pos, normal, pid, contrib = fused.single_sample_gbuffer(
+            fs, camera, cfg, seed, frame_index, device=dev)
+        return _gbuffer(camera, cfg, color, pos, normal, contrib, pid,
+                        immediate_clamping)
 
 
 def denoise_frame(g: denoise.GBuffer, prev: denoise.GBuffer | None,
@@ -111,19 +115,21 @@ def denoise_frame(g: denoise.GBuffer, prev: denoise.GBuffer | None,
     """(filtered color, the G-buffer to carry as history).  The history
     holds the JBF-filtered color, as the reference filters in place before
     it saves the previous frame's G-buffer."""
-    color = g.color
-    if params.use_jbf:
-        spatial = (denoise.joint_bilateral_atrous
-                   if params.spatial == "atrous" else denoise.joint_bilateral)
-        color = spatial(g, params.jbf_half_size,
-                        clamp=params.immediate_clamping)
-    g = g.replace(color=color)
-    if params.use_temporal and prev is not None:
-        color = denoise.temporal(g, prev, params.temporal_half_size,
-                                 params.tolerance,
-                                 params.current_frame_weighting)
+    with profiling.span("denoiser.filter"):
+        color = g.color
+        if params.use_jbf:
+            spatial = (denoise.joint_bilateral_atrous
+                       if params.spatial == "atrous"
+                       else denoise.joint_bilateral)
+            color = spatial(g, params.jbf_half_size,
+                            clamp=params.immediate_clamping)
         g = g.replace(color=color)
-    return color, g
+        if params.use_temporal and prev is not None:
+            color = denoise.temporal(g, prev, params.temporal_half_size,
+                                     params.tolerance,
+                                     params.current_frame_weighting)
+            g = g.replace(color=color)
+        return color, g
 
 
 def render_frame(scene: Scene, camera, cfg: RenderConfig, seed: int,

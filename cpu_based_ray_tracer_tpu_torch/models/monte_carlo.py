@@ -48,7 +48,7 @@ from cpu_based_ray_tracer_tpu_torch import camera as cam_mod
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.ops import fused, intersect, sampling, vec
 from cpu_based_ray_tracer_tpu_torch.scene import Scene
-from cpu_based_ray_tracer_tpu_torch.utils import rng
+from cpu_based_ray_tracer_tpu_torch.utils import profiling, rng
 from cpu_based_ray_tracer_tpu_torch.utils.kernels import resolve_device
 
 
@@ -331,7 +331,7 @@ def record_trace(scene: Scene, camera, cfg: RenderConfig, seed: int,
     replays every step; a geometry loop records again when it moves."""
     _check_replay(cfg)
     dev = resolve_device(device)
-    with torch.no_grad():
+    with profiling.span("mc.record_trace"), torch.no_grad():
         scene, camera = scene.to(dev), camera.to(dev)
         recs = []
         for s in range(cfg.spp):
@@ -353,20 +353,23 @@ def render_from_trace(scene: Scene, camera, cfg: RenderConfig, seed: int,
     counter-based RNG makes it exact."""
     _check_replay(cfg)
     dev = resolve_device(device)
-    scene, camera = scene.to(dev), camera.to(dev)
     h, w = cfg.height, cfg.width
 
     def one_sample(s, rec, scene, camera):
-        o, d, pixel = _primary_rays(camera, cfg, seed, s)
-        return trace(scene, o, d, cfg, seed=seed, pixel=pixel, sample=s,
-                     record=rec).reshape(h, w, 3)
+        # runs in the forward, and again in the backward's recomputation
+        with profiling.span("mc.replay.sample"):
+            o, d, pixel = _primary_rays(camera, cfg, seed, s)
+            return trace(scene, o, d, cfg, seed=seed, pixel=pixel, sample=s,
+                         record=rec).reshape(h, w, 3)
 
-    acc = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-    for s in range(cfg.spp):
-        acc = acc + checkpoint.checkpoint(
-            one_sample, s, recs[s].to(dev), scene, camera,
-            use_reentrant=False, preserve_rng_state=False)
-    return acc / torch.tensor(float(cfg.spp), device=dev)
+    with profiling.span("mc.replay.forward"):
+        scene, camera = scene.to(dev), camera.to(dev)
+        acc = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+        for s in range(cfg.spp):
+            acc = acc + checkpoint.checkpoint(
+                one_sample, s, recs[s].to(dev), scene, camera,
+                use_reentrant=False, preserve_rng_state=False)
+        return acc / torch.tensor(float(cfg.spp), device=dev)
 
 
 def count_rays(scene: Scene, camera, cfg: RenderConfig, seed: int
@@ -447,11 +450,12 @@ def render_fast(scene: Scene, camera, cfg: RenderConfig, seed: int,
     """Mean linear radiance, (H, W, 3), by the equal-spp wavefront engine,
     on ``device`` (default: the card)."""
     dev = resolve_device(device)
-    acc, _ = render_wavefront(
-        scene, camera, cfg, seed,
-        torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
-                    device=dev), 0, device=dev)
-    return acc / torch.tensor(float(cfg.spp), device=dev)
+    with profiling.span("mc.render"):
+        acc, _ = render_wavefront(
+            scene, camera, cfg, seed,
+            torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                        device=dev), 0, device=dev)
+        return acc / torch.tensor(float(cfg.spp), device=dev)
 
 
 # --- Persistent wavefront stepper ------------------------------------------
@@ -571,17 +575,23 @@ def render_turbo_exact(scene: Scene, camera, cfg: RenderConfig, seed: int,
     samples and then idles — the reference's fixed-spp estimator.  Runs on
     ``device`` (default: the card)."""
     dev = resolve_device(device)
-    scene = scene.to(dev)
-    fs = fused.pack_scene(scene)
-    state = wavefront_init(scene, camera, cfg, seed, device=dev)
-    # Chunk doubling: each poll of n_done is a device round trip.
-    chunk = max(32, cfg.max_depth)
-    for _ in range(cfg.spp * cfg.max_depth):
-        state = fused.wavefront_steps_fused(fs, camera, cfg, seed, state,
-                                            chunk, stop_after=cfg.spp,
-                                            device=dev)
-        if int(torch.min(state.n_done)) >= cfg.spp:
-            break
-        chunk = min(2 * chunk, 4096)
-    spp = torch.tensor(float(cfg.spp), dtype=torch.float32, device=dev)
-    return (state.acc / spp).reshape(cfg.height, cfg.width, 3)
+    with profiling.span("mc.render"):
+        with profiling.span("mc.pack"):
+            scene = scene.to(dev)
+            fs = fused.pack_scene(scene)
+        with profiling.span("mc.init"):
+            state = wavefront_init(scene, camera, cfg, seed, device=dev)
+        # Chunk doubling: each poll of n_done is a device round trip.
+        chunk = max(32, cfg.max_depth)
+        for _ in range(cfg.spp * cfg.max_depth):
+            with profiling.span("mc.launch"):
+                state = fused.wavefront_steps_fused(
+                    fs, camera, cfg, seed, state, chunk, stop_after=cfg.spp,
+                    device=dev)
+            with profiling.span("mc.poll"):
+                least = int(torch.min(state.n_done))
+            if least >= cfg.spp:
+                break
+            chunk = min(2 * chunk, 4096)
+        spp = torch.tensor(float(cfg.spp), dtype=torch.float32, device=dev)
+        return (state.acc / spp).reshape(cfg.height, cfg.width, 3)

@@ -51,6 +51,7 @@ from cpu_based_ray_tracer_tpu_torch.ops.fused_mesh import (
     MESH_NF, SPLIT_MAX, SWEEP_WAVES, build_smem_clusters, crosses_box_plain,
     split_count, split_sweep_plain)
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
+from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
 SUB = 32                 # tile rows
 TILE_W = 128             # tile columns
@@ -61,8 +62,8 @@ LEVEL_ROWS = 1 + _WORD // MASK_GROUP   # a word's box, then its groups'
 GROUP_ROWS = 8           # rows of a cluster a sub-box covers (csrc/coherent.cu)
 MAX_CLUSTER_SIZE = 256   # rows the sweep kernel's block stages (SWEEP_BLOCK)
 
-# Launches of csrc/coherent.cu since the last reset (callers set them to 0).
-LAUNCHES = {"mask": 0, "sweep": 0}
+# Launches of csrc/coherent.cu since the last reset.
+LAUNCHES = profiling.Counter("coherent", ("mask", "sweep"))
 _SLOTS: dict = {}          # (device, cs) -> the sweep's resident blocks
 
 
@@ -315,7 +316,7 @@ def _mask_kernel(aabb, rays, t_min: float, cnt=None, planes: bool = True,
     if rc != 0:
         raise RuntimeError(f"coherent mask kernel launch failed: "
                            f"cudaError {rc}")
-    LAUNCHES["mask"] += 1
+    LAUNCHES.add("mask")
     return (masks, words, ids, cnts) if lists else (masks, words)
 
 
@@ -460,7 +461,7 @@ def _sweep_kernel(tri, aabb, rays, ids, cnts, t_min: float,
     if rc != 0:
         raise RuntimeError(f"coherent sweep kernel launch failed: "
                            f"cudaError {rc}")
-    LAUNCHES["sweep"] += 1
+    LAUNCHES.add("sweep")
     return out
 
 

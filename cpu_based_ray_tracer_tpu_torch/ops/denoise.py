@@ -19,6 +19,7 @@ import dataclasses
 import torch
 
 from cpu_based_ray_tracer_tpu_torch.ops import vec
+from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
 # Heuristic sigmas of the reference denoiser.
 SIGMA_POSITION = 32.0
@@ -150,12 +151,14 @@ def joint_bilateral_atrous(g: GBuffer, half_size: int, clamp: bool = True,
                 w_sum = w_sum + weight
         return c_sum / torch.clamp(w_sum, min=1e-20)[..., None]
 
-    out = g.color
-    for level in range(n_iters):
-        out = one_level(out, level)
-    if clamp:
-        out = torch.clamp(out, 0.0, 1.0)
-    return torch.where(g.contributor[..., None], out, g.color)
+    with profiling.span("denoise.atrous"):
+        out = g.color
+        for level in range(n_iters):
+            with profiling.span("denoise.atrous.level"):
+                out = one_level(out, level)
+        if clamp:
+            out = torch.clamp(out, 0.0, 1.0)
+        return torch.where(g.contributor[..., None], out, g.color)
 
 
 def _box_sum(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -198,29 +201,32 @@ def temporal(cur: GBuffer, prev: GBuffer, half_size: int, tolerance: float,
     in bounds and the primitive id matches, clamp it to mean +- tolerance *
     RMS-center-deviation over the current (2k+1)^2 window, blend
     (1 - a) * history + a * current."""
-    h, w, _ = cur.color.shape
-    py, px, in_bounds = reproject(cur.world_pos, prev.view, prev.proj, h, w)
-    # Truncate toward zero, then clip (the float clamp first only keeps the
-    # int32 conversion in range; it changes no clipped result).
-    iy = torch.clamp(torch.clamp(py, -1.0, float(h)).to(torch.int32), 0,
-                     h - 1)
-    ix = torch.clamp(torch.clamp(px, -1.0, float(w)).to(torch.int32), 0,
-                     w - 1)
-    flat = (iy * w + ix).reshape(-1).long()
-    prev_color = prev.color.reshape(-1, 3)[flat].reshape(h, w, 3)
-    prev_id = prev.prim_id.reshape(-1)[flat].reshape(h, w)
-    valid = (cur.prim_id != -1) & in_bounds & (cur.prim_id == prev_id)
+    with profiling.span("denoise.temporal"):
+        h, w, _ = cur.color.shape
+        py, px, in_bounds = reproject(cur.world_pos, prev.view, prev.proj,
+                                      h, w)
+        # Truncate toward zero, then clip (the float clamp first only keeps
+        # the int32 conversion in range; it changes no clipped result).
+        iy = torch.clamp(torch.clamp(py, -1.0, float(h)).to(torch.int32), 0,
+                         h - 1)
+        ix = torch.clamp(torch.clamp(px, -1.0, float(w)).to(torch.int32), 0,
+                         w - 1)
+        flat = (iy * w + ix).reshape(-1).long()
+        prev_color = prev.color.reshape(-1, 3)[flat].reshape(h, w, 3)
+        prev_id = prev.prim_id.reshape(-1)[flat].reshape(h, w)
+        valid = (cur.prim_id != -1) & in_bounds & (cur.prim_id == prev_id)
 
-    ones = torch.ones((h, w, 1), dtype=cur.color.dtype,
-                      device=cur.color.device)
-    n = _box_sum(ones, half_size)
-    mean = _box_sum(cur.color, half_size) / n
-    mean_sq = _box_sum(cur.color * cur.color, half_size) / n
-    dev = torch.sqrt(torch.clamp(
-        mean_sq - 2.0 * cur.color * mean + cur.color * cur.color, min=0.0))
-    clamped_prev = torch.minimum(torch.maximum(prev_color,
-                                               mean - tolerance * dev),
-                                 mean + tolerance * dev)
-    alpha = torch.where(valid, current_frame_weighting, 1.0)[..., None]
-    history = torch.where(valid[..., None], clamped_prev, 0.0)
-    return (1.0 - alpha) * history + alpha * cur.color
+        ones = torch.ones((h, w, 1), dtype=cur.color.dtype,
+                          device=cur.color.device)
+        n = _box_sum(ones, half_size)
+        mean = _box_sum(cur.color, half_size) / n
+        mean_sq = _box_sum(cur.color * cur.color, half_size) / n
+        dev = torch.sqrt(torch.clamp(
+            mean_sq - 2.0 * cur.color * mean + cur.color * cur.color,
+            min=0.0))
+        clamped_prev = torch.minimum(torch.maximum(prev_color,
+                                                   mean - tolerance * dev),
+                                     mean + tolerance * dev)
+        alpha = torch.where(valid, current_frame_weighting, 1.0)[..., None]
+        history = torch.where(valid[..., None], clamped_prev, 0.0)
+        return (1.0 - alpha) * history + alpha * cur.color

@@ -41,14 +41,15 @@ from cpu_based_ray_tracer_tpu_torch import camera as cam_mod
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.scene import Scene
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
+from cpu_based_ray_tracer_tpu_torch.utils import profiling
 from cpu_based_ray_tracer_tpu_torch.utils import rng as rng_mod
 
 _DET_EPS = 1e-12
 NO_HIT = float(np.finfo(np.float32).max)
 TRI_W, SPH_W, LIGHT_W = 20, 16, 16
 
-# Launches of csrc/fused_mc.cu since the last reset (callers set it to 0).
-LAUNCHES = 0
+# Launches of csrc/fused_mc.cu since the last reset.
+LAUNCHES = profiling.Counter("fused_mc")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -591,7 +592,6 @@ def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
     """Launch csrc/fused_mc.cu on CUDA tensors; updates sf/si (and, in
     ``single_path`` mode, the (8, R) G-buffer ``gb``) in place, as
     ``_steps_plain``."""
-    global LAUNCHES
     planes = ((sf, torch.float32), (si, torch.int32))
     if p.single_path:
         planes += ((gb, torch.float32),)
@@ -630,7 +630,7 @@ def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
             torch.cuda.current_stream(sf.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_mc kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    LAUNCHES.add()
     return sf, si
 
 

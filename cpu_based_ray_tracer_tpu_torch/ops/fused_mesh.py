@@ -75,6 +75,7 @@ from cpu_based_ray_tracer_tpu_torch.ops.fused import (
     _wrap_i32, lanes)
 from cpu_based_ray_tracer_tpu_torch.scene import Scene
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
+from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
 MESH_NF = 16            # floats per cluster triangle row: v0 e1 e2 n mid idx pad*2
 LANES_PER_TILE = 4096   # the caps are whole multiples of this many lanes
@@ -87,10 +88,11 @@ _TILE_CHUNK = 16        # tiles per vectorized step of list_sweep_plain
 # default to the shortlist-streaming mode.
 SMEM_RESIDENT_BUDGET = 736 * 1024
 
-# Launches of csrc/fused_mesh.cu since the last reset (callers set them to
-# 0), by entry point; "nearest_sl" and "occl_sl" are the shortlist sweeps.
-LAUNCHES = {"k1": 0, "group": 0, "nearest": 0, "k1b": 0, "group_occl": 0,
-            "occl": 0, "k2": 0, "nearest_sl": 0, "occl_sl": 0}
+# Launches of csrc/fused_mesh.cu since the last reset, by entry point;
+# "nearest_sl" and "occl_sl" are the shortlist sweeps.
+LAUNCHES = profiling.Counter(
+    "fused_mesh", ("k1", "group", "nearest", "k1b", "group_occl", "occl",
+                   "k2", "nearest_sl", "occl_sl"))
 # Bits of the key by which the resident sweeps' rays are grouped: cluster c
 # sets bit c % GROUP_BITS (csrc/fused_mesh.cu GROUP_BITS).
 GROUP_BITS = 12
@@ -893,7 +895,7 @@ def _launch(name: str, key: str, *args):
     rc = _fn(name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES[key] += 1
+    LAUNCHES.add(key)
 
 
 def _stream(x):
@@ -1217,7 +1219,8 @@ def _run(kernel: bool, mp: MeshPack, camera, cfg: RenderConfig, seed: int,
     dev = state.s.device
     r = state.s.shape[0]
     p = params(cfg, r, cap_main, cap_shadow, pixel_offset, stop_after)
-    tb = _tables(mp.to(dev), _camera_words(camera.to(dev)))
+    with profiling.span("fused_mesh.tables"):
+        tb = _tables(mp.to(dev), _camera_words(camera.to(dev)))
     sf, si = state_planes(state)
     buf = step_buffers(r, p, int(n_steps), dev)
     run_steps(ops, tb, p, int(seed) & 0xFFFFFFFF, sf, si, int(n_steps), buf)
@@ -1289,36 +1292,44 @@ def _drive(scene: Scene, camera, cfg: RenderConfig, seed: int, *,
     from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
 
     dev = kernels.resolve_device(device)
-    scene = scene.to(dev)
-    mp = pack_mesh_scene(scene, gate_mask=gate_mask,
-                         cluster_size=cluster_size)
-    state = mc.wavefront_init(scene, camera, cfg, seed, device=dev)
-    rp = _ceil_to(state.s.shape[0], LANES_PER_TILE)
-    cap_main = cap_shadow = max(LANES_PER_TILE, rp // 8)
-    chunk = max(32, cfg.max_depth)
-    TRACE.clear()
-    for _ in range(target * cfg.max_depth):
-        nxt, overflow, npred = wavefront_steps_fused_mesh(
-            mp, camera, cfg, seed, state, chunk, cap_main=cap_main,
-            cap_shadow=cap_shadow, stop_after=stop_after, device=dev)
-        # the one read of the device per chunk
-        over, least, n_main, n_shadow = torch.stack(
-            [overflow.to(torch.int64), nxt.n_done.min().to(torch.int64),
-             npred[0].to(torch.int64), npred[1].to(torch.int64)]).tolist()
-        TRACE.append(dict(steps=chunk, cap_main=cap_main,
-                          cap_shadow=cap_shadow, overflow=over,
-                          npred=[n_main, n_shadow]))
-        if over > 0:
-            # rerun the chunk with doubled caps (state untouched on purpose)
-            cap_main = min(2 * cap_main, rp)
-            cap_shadow = min(2 * cap_shadow, rp)
-            continue
-        state = nxt
-        if least >= target:
-            break
-        if stop_after:
-            chunk = min(2 * chunk, 4096)
-    return state
+    with profiling.span("fused_mesh.render"):
+        scene = scene.to(dev)
+        with profiling.span("fused_mesh.pack"):
+            mp = pack_mesh_scene(scene, gate_mask=gate_mask,
+                                 cluster_size=cluster_size)
+        with profiling.span("fused_mesh.init"):
+            state = mc.wavefront_init(scene, camera, cfg, seed, device=dev)
+        rp = _ceil_to(state.s.shape[0], LANES_PER_TILE)
+        cap_main = cap_shadow = max(LANES_PER_TILE, rp // 8)
+        chunk = max(32, cfg.max_depth)
+        TRACE.clear()
+        for _ in range(target * cfg.max_depth):
+            with profiling.span("fused_mesh.chunk"):
+                nxt, overflow, npred = wavefront_steps_fused_mesh(
+                    mp, camera, cfg, seed, state, chunk, cap_main=cap_main,
+                    cap_shadow=cap_shadow, stop_after=stop_after, device=dev)
+            # the one read of the device per chunk
+            with profiling.span("fused_mesh.poll"):
+                over, least, n_main, n_shadow = torch.stack(
+                    [overflow.to(torch.int64),
+                     nxt.n_done.min().to(torch.int64),
+                     npred[0].to(torch.int64),
+                     npred[1].to(torch.int64)]).tolist()
+            TRACE.append(dict(steps=chunk, cap_main=cap_main,
+                              cap_shadow=cap_shadow, overflow=over,
+                              npred=[n_main, n_shadow]))
+            if over > 0:
+                # rerun the chunk with doubled caps (state untouched on
+                # purpose)
+                cap_main = min(2 * cap_main, rp)
+                cap_shadow = min(2 * cap_shadow, rp)
+                continue
+            state = nxt
+            if least >= target:
+                break
+            if stop_after:
+                chunk = min(2 * chunk, 4096)
+        return state
 
 
 def render_turbo_mesh_exact(scene: Scene, camera, cfg: RenderConfig,

@@ -49,12 +49,12 @@ from cpu_based_ray_tracer_tpu_torch.scene import (DIELECTRIC,
                                                   DIFFUSE_IN_HEMISPHERE,
                                                   DIFFUSE_IN_SPHERE, LAMBERT,
                                                   METAL, Scene)
-from cpu_based_ray_tracer_tpu_torch.utils import kernels
+from cpu_based_ray_tracer_tpu_torch.utils import kernels, profiling
 from cpu_based_ray_tracer_tpu_torch.utils import rng as rng_mod
 
 # Launches of csrc/fused_rtiow.cu (step and render modes) since the last
-# reset (callers set it to 0).
-LAUNCHES = 0
+# reset.
+LAUNCHES = profiling.Counter("fused_rtiow")
 # Work items (pixel, sample chunk) per resident thread that the render
 # mode asks for (render_chunks).
 RENDER_ITEMS_PER_THREAD = 16
@@ -589,10 +589,9 @@ def _scene_words(pk: RtiowPack, cam24, dev) -> torch.Tensor:
 
 
 def _launched(name: str, rc: int):
-    global LAUNCHES
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    LAUNCHES.add()
 
 
 def _steps_kernel(pk: RtiowPack, cam24, seed: int, sf, si, p: _Params):

@@ -37,13 +37,13 @@ from cpu_based_ray_tracer_tpu_torch.scene import (DIFFUSE_GLOSSY, REFLECTIVE,
 from cpu_based_ray_tracer_tpu_torch.scenes.whitted_scene import (
     CHESS_A, CHESS_B, CHESS_FREQUENCY)
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
+from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
 _DET_EPS = 1e-12
 NO_HIT = float(np.finfo(np.float32).max)
 
-# Launches of csrc/fused_whitted.cu since the last reset (callers set it
-# to 0).
-LAUNCHES = 0
+# Launches of csrc/fused_whitted.cu since the last reset.
+LAUNCHES = profiling.Counter("fused_whitted")
 
 # Batcher odd-even merge sorting networks (descending by weight).
 _NET8 = [(0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
@@ -425,7 +425,6 @@ def _lib():
 def _tree_kernel(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
                  t_min: float, eps: float):
     """Launch csrc/fused_whitted.cu on CUDA tensors -> (4, R)."""
-    global LAUNCHES
     if not (dirs.is_cuda and dirs.dtype == torch.float32
             and dirs.is_contiguous() and dirs.dim() == 2
             and dirs.shape[0] == 3):
@@ -449,7 +448,7 @@ def _tree_kernel(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
         t_min, eps, torch.cuda.current_stream(dirs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_whitted kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    LAUNCHES.add()
     return out
 
 

@@ -40,6 +40,7 @@ import torch
 from cpu_based_ray_tracer_tpu_torch.ops import bvh as bvh_ops
 from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
+from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
 _DET_EPS = 1e-12
 NO_HIT = float(np.finfo(np.float32).max)
@@ -51,8 +52,8 @@ BLOCK = 256
 # Rays per vectorized step of the plain version.
 _PLAIN_CHUNK = 65536
 
-# Launches of csrc/packet.cu since the last reset (callers set it to 0).
-LAUNCHES = 0
+# Launches of csrc/packet.cu since the last reset.
+LAUNCHES = profiling.Counter("packet")
 # (device index, cluster size) -> the kernel's resident block slots on it.
 _SLOTS: dict = {}
 
@@ -246,7 +247,6 @@ def slices(r: int, n_clusters: int, cs: int) -> int:
 
 def _nearest_kernel(clusters: Clusters, origin, direction, t_min: float):
     """Launch csrc/packet.cu on CUDA tensors -> (t (R,), index (R,) i32)."""
-    global LAUNCHES
     for x in (origin, direction):
         if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 2
                 and x.shape[1] == 3):
@@ -283,7 +283,7 @@ def _nearest_kernel(clusters: Clusters, origin, direction, t_min: float):
         idx.data_ptr(), stream.cuda_stream)
     if rc != 0:
         raise RuntimeError(f"packet kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    LAUNCHES.add()
     return t, idx
 
 

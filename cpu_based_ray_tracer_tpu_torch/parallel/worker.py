@@ -99,15 +99,15 @@ def run(spec: dict, out_dir: str) -> dict:
     def timed(name, fn):
         _sync(dev)
         dist.barrier()
-        for k in fused_mesh.LAUNCHES:
-            fused_mesh.LAUNCHES[k] = 0
+        fused_mesh.LAUNCHES.reset()
         with Collectives() as c:
             t0 = time.perf_counter()
             out = fn()
             _sync(dev)
             report[name] = {"seconds": time.perf_counter() - t0,
                             "collectives": c.counts,
-                            "fused_mesh_launches": dict(fused_mesh.LAUNCHES)}
+                            "fused_mesh_launches":
+                                fused_mesh.LAUNCHES.snapshot()}
         return out
 
     if "render" in spec:

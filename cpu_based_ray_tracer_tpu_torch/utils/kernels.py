@@ -23,6 +23,8 @@ import threading
 
 import torch
 
+from cpu_based_ray_tracer_tpu_torch.utils import profiling
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
@@ -72,25 +74,27 @@ def build(names) -> None:
     """Compile the named sources that are not built yet, one ``nvcc`` per
     source, all started together.  Raises with the compiler's output if one
     fails."""
+    targets = {name: _target(name) for name in names}
+    todo = [n for n, (_, out) in targets.items() if not os.path.isfile(out)]
+    if not todo:
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
-    for name in names:
-        src, out = _target(name)
-        if os.path.isfile(out):
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"   # renamed into place when built
-        procs[name] = (out, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (out, tmp, p) in procs.items():
-        log, _ = p.communicate()
-        BUILD_LOG[name] = log
-        if p.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-        else:
-            os.replace(tmp, out)
+    procs, failed = {}, []
+    with profiling.span("kernels.build"):
+        for name in todo:
+            src, out = targets[name]
+            tmp = f"{out}.{os.getpid()}.tmp"   # renamed into place when built
+            procs[name] = (out, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, (out, tmp, p) in procs.items():
+            log, _ = p.communicate()
+            BUILD_LOG[name] = log
+            if p.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
 

@@ -1,10 +1,16 @@
 """Profiling / observability (port of
 ``cpu_based_ray_tracer_tpu.utils.profiling``).
 
-Wall-clock timers that wait for the card when given a CUDA device, rays/s
-accounting, structured JSON-lines run logs, and ``device_trace``, a region
-traced by ``torch.profiler`` (host and, where CUDA is present, the card's
-kernels) into a Chrome trace under ``log_dir``.
+- ``span``: a named range of the program's host work, recorded into the
+  trace of a running ``torch.profiler`` (the Kineto trace that holds the
+  card's kernels, on the same clock), and nothing at all when no profiler
+  runs.  Names are ``<module>.<phase>``.
+- ``Counter``: named integer counts (the kernels' launches), registered by
+  name so ``reset_counters`` / ``read_counters`` reach every one.
+- ``device_trace``: a region traced by ``torch.profiler`` (host, spans and,
+  where CUDA is present, the card's kernels) into a Chrome trace under
+  ``log_dir`` (the CLI's ``render --trace-dir``).
+- ``RunLog``: structured JSON-lines run logs.
 """
 
 from __future__ import annotations
@@ -13,58 +19,61 @@ import contextlib
 import json
 import os
 import time
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
-
-def _sync(x) -> None:
-    """Wait for the card behind ``x`` (a device, a tensor, or a nest of
-    tensors); a no-op on the CPU."""
-    if isinstance(x, (str, torch.device)):
-        dev = torch.device(x)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-    elif isinstance(x, torch.Tensor):
-        _sync(x.device)
-    elif isinstance(x, (tuple, list)):
-        for y in x:
-            _sync(y)
-    elif isinstance(x, dict):
-        for y in x.values():
-            _sync(y)
+_OFF = contextlib.nullcontext()
 
 
-class Timer:
-    """ns-resolution wall timer; ``elapsed_ms`` first waits for the work
-    queued on the card of ``device`` (or of the tensors in ``sync``)."""
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` range while a profiler
+    runs in this thread; otherwise one shared no-op context (no allocation,
+    no ``record_function``: the check costs well under a microsecond)."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
-    def __init__(self, device=None):
-        self.device = device
-        self.reset()
+
+COUNTERS: dict[str, "Counter"] = {}
+
+
+class Counter:
+    """Named integer counts, registered in ``COUNTERS`` under ``name``.
+    ``keys`` names the counts; without them the counter holds one count
+    under its own name."""
+
+    def __init__(self, name: str, keys=()):
+        self.name = name
+        self._counts = dict.fromkeys(keys or (name,), 0)
+        COUNTERS[name] = self
+
+    def add(self, key: Optional[str] = None) -> None:
+        self._counts[self.name if key is None else key] += 1
+
+    def __getitem__(self, key: str) -> int:
+        return self._counts[key]
 
     def reset(self) -> None:
-        if self.device is not None:
-            _sync(self.device)
-        self._t0 = time.perf_counter_ns()
+        self._counts = dict.fromkeys(self._counts, 0)
 
-    def elapsed_ms(self, sync: Any = None) -> float:
-        if sync is not None:
-            _sync(sync)
-        if self.device is not None:
-            _sync(self.device)
-        return (time.perf_counter_ns() - self._t0) / 1e6
+    def snapshot(self) -> dict:
+        return dict(self._counts)
 
 
-@contextlib.contextmanager
-def scoped_timer(name: str, log=None, device=None):
-    """Print timer ("[TIMER] name - ms") around a region."""
-    t = Timer(device)
-    try:
-        yield t
-    finally:
-        ms = t.elapsed_ms()
-        (log or print)(f"[TIMER] {name} - {ms:.3f}ms")
+def reset_counters() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def read_counters() -> dict:
+    """Every registered counter's counts by its name; a counter of one
+    count reads as that number."""
+    out = {}
+    for name, c in COUNTERS.items():
+        counts = c.snapshot()
+        out[name] = counts[name] if list(counts) == [name] else counts
+    return out
 
 
 @contextlib.contextmanager
@@ -82,10 +91,6 @@ def device_trace(log_dir: str):
         yield prof
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-def rays_per_second(n_rays: int, seconds: float) -> float:
-    return n_rays / max(seconds, 1e-12)
 
 
 class RunLog:

@@ -56,11 +56,11 @@ def test_kernel_matches_plain(cuda, name, stop_after):
     st = mc.wavefront_init(scene, cam, cfg, SEED, device=cuda)
     want = fused.wavefront_steps_fused_plain(fs, cam, cfg, SEED, st, 12,
                                              stop_after=stop_after)
-    launches = fused.LAUNCHES
+    launches = fused.LAUNCHES["fused_mc"]
     got = fused.wavefront_steps_fused(fs, cam, cfg, SEED, st, 12,
                                       stop_after=stop_after)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES == launches + 1
+    assert fused.LAUNCHES["fused_mc"] == launches + 1
     for f in ("s", "b", "n_done", "nrays"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     for f in ("o", "d", "tp", "cur", "acc"):
@@ -71,9 +71,9 @@ def test_kernel_matches_plain(cuda, name, stop_after):
 def test_render_turbo_exact_on_card(cuda):
     cfg = RenderConfig(width=64, height=48, spp=2, max_depth=5)
     scene, cam = cornell.cornell_scene(), cornell.cornell_camera()
-    fused.LAUNCHES = 0
+    fused.LAUNCHES.reset()
     img = mc.render_turbo_exact(scene, cam, cfg, SEED)
-    assert img.is_cuda and fused.LAUNCHES > 0
+    assert img.is_cuda and fused.LAUNCHES["fused_mc"] > 0
     plain = mc.render_turbo_exact(scene, cam, cfg, SEED, device="cpu")
     np.testing.assert_allclose(img.cpu().numpy(), plain.numpy(), rtol=2e-3,
                                atol=2e-3)
@@ -87,10 +87,10 @@ def test_whitted_kernel_matches_plain(cuda, queue):
     cfg = RenderConfig(width=96, height=80)
     want, want_t = fused_whitted.render_fused_plain(scene, cam, cfg,
                                                     queue=queue, device=cuda)
-    launches = fused_whitted.LAUNCHES
+    launches = fused_whitted.LAUNCHES["fused_whitted"]
     got, t = fused_whitted.render_fused(scene, cam, cfg, queue=queue)
     torch.cuda.synchronize()
-    assert fused_whitted.LAUNCHES == launches + 1
+    assert fused_whitted.LAUNCHES["fused_whitted"] == launches + 1
     diff = (got - want).abs().cpu().numpy()
     assert float(np.percentile(diff, 99)) < 1e-4
     assert (diff.max(-1) > 1e-3).mean() < 0.005
@@ -178,10 +178,10 @@ def test_packet_kernel_matches_plain(cuda, case):
         tris = np.stack([v0, v0 + e1, v0 + e2], 1)
     cl = packet.build_clusters(tris, cs, device=cuda)
     want_t, want_i = packet.nearest_plain(cl, o, d, 1e-3)
-    launches = packet.LAUNCHES
+    launches = packet.LAUNCHES["packet"]
     got_t, got_i = packet.nearest(cl, o, d, 1e-3)
     torch.cuda.synchronize()
-    assert packet.LAUNCHES == launches + 1
+    assert packet.LAUNCHES["packet"] == launches + 1
     assert torch.equal(got_i, want_i)
     assert torch.equal(got_t < packet.NO_HIT, want_t < packet.NO_HIT)
     hit = want_t < packet.NO_HIT
@@ -226,11 +226,11 @@ def test_packet_kernel_slices_match_plain(cuda, r, n_clusters):
     if r == 16384 and n_clusters > 1:
         assert k == min(16, n_clusters)
     want_t, want_i = packet.nearest_plain(cl, o, d, 1e-3)
-    launches = packet.LAUNCHES
+    launches = packet.LAUNCHES["packet"]
     for n in (1, 2):
         got_t, got_i = packet.nearest(cl, o, d, 1e-3)
         torch.cuda.synchronize()
-        assert packet.LAUNCHES == launches + n
+        assert packet.LAUNCHES["packet"] == launches + n
         assert torch.equal(got_i, want_i)
         assert torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))
         if k > 1:
@@ -409,13 +409,12 @@ def test_render_turbo_mesh_exact_on_card(cuda):
     scene = cornell.cornell_mesh_scene(meshes.icosphere(2))
     cam = cornell.cornell_camera()
     cfg = RenderConfig(width=64, height=64, spp=2, max_depth=5)
-    for k in fused_mesh.LAUNCHES:
-        fused_mesh.LAUNCHES[k] = 0
-    packet.LAUNCHES = 0
+    fused_mesh.LAUNCHES.reset()
+    packet.LAUNCHES.reset()
     img = fused_mesh.render_turbo_mesh_exact(scene, cam, cfg, SEED,
                                              cluster_size=64)
     steps = sum(t["steps"] for t in fused_mesh.TRACE)
-    assert img.is_cuda and packet.LAUNCHES == 0
+    assert img.is_cuda and packet.LAUNCHES["packet"] == 0
     counts = fused_mesh.LAUNCHES
     assert all(counts[k] == steps for k in fused_mesh.OP_NAMES)
     assert counts["group"] == steps        # the resident sweep's rays
@@ -430,9 +429,9 @@ def test_mesh_render_on_card(cuda):
     scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
     cfg = RenderConfig(width=64, height=48)
     bundle = mesh.prepare(scene)
-    packet.LAUNCHES = 0
+    packet.LAUNCHES.reset()
     img = mesh.render(bundle, cam, cfg)
-    assert img.is_cuda and packet.LAUNCHES > 0
+    assert img.is_cuda and packet.LAUNCHES["packet"] > 0
     plain = mesh.render(bundle, cam, cfg, device="cpu").numpy()
     # rtol 1e-5, atol 1e-6 on all but knife-edge pixels (< 0.5%).
     bad = (np.abs(img.cpu().numpy() - plain) > 1e-6 + 1e-5 * np.abs(plain))
@@ -758,10 +757,10 @@ def test_mesh_render_fused_on_card(cuda):
     scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
     cfg = RenderConfig(width=64, height=48)
     bundle = mesh.prepare(scene, method="fused")
-    packet.LAUNCHES = 0
+    packet.LAUNCHES.reset()
     masks, sweeps = coherent.LAUNCHES["mask"], coherent.LAUNCHES["sweep"]
     img = mesh.render(bundle, cam, cfg)
-    assert img.is_cuda and packet.LAUNCHES == 0
+    assert img.is_cuda and packet.LAUNCHES["packet"] == 0
     assert coherent.LAUNCHES["mask"] > masks
     assert coherent.LAUNCHES["sweep"] > sweeps
     plain = mesh.render(bundle, cam, cfg, device="cpu").numpy()
@@ -794,11 +793,11 @@ def test_rtiow_kernel_matches_plain(cuda, case):
         getattr(rtiow, scene)(), cam(), cfg, SEED, cuda)
     p = p._replace(n_steps=24)
     want_f, want_i = fused_rtiow._steps_plain(pk, cam24, SEED, sf, si, p)
-    launches = fused_rtiow.LAUNCHES
+    launches = fused_rtiow.LAUNCHES["fused_rtiow"]
     got_f, got_i = fused_rtiow.rtiow_steps(pk, cam24, SEED, sf.clone(),
                                            si.clone(), p)
     torch.cuda.synchronize()
-    assert fused_rtiow.LAUNCHES == launches + 1
+    assert fused_rtiow.LAUNCHES["fused_rtiow"] == launches + 1
     assert torch.equal(got_i, want_i)
     torch.testing.assert_close(got_f, want_f, rtol=2e-3, atol=2e-3)
     assert int(got_i[2].max()) > 0
@@ -807,9 +806,9 @@ def test_rtiow_kernel_matches_plain(cuda, case):
 def test_rtiow_render_fused_on_card(cuda):
     scene, cam = rtiow.nppt_scene(), rtiow.nppt_camera()
     cfg = RenderConfig(width=64, height=48, spp=3, max_depth=8)
-    fused_rtiow.LAUNCHES = 0
+    fused_rtiow.LAUNCHES.reset()
     img = fused_rtiow.render_fused(scene, cam, cfg, SEED)
-    assert img.is_cuda and fused_rtiow.LAUNCHES > 0
+    assert img.is_cuda and fused_rtiow.LAUNCHES["fused_rtiow"] > 0
     plain = fused_rtiow.render_fused(scene, cam, cfg, SEED, device="cpu")
     np.testing.assert_allclose(img.cpu().numpy(), plain.numpy(), rtol=2e-3,
                                atol=2e-3)
@@ -830,11 +829,11 @@ def test_rtiow_render_matches_lockstep_kernel(cuda, case, chunks):
         getattr(rtiow, scene)(), cam(), cfg, SEED, cuda)
     want_f, want_i = fused_rtiow.render_lockstep(pk, cam24, SEED, sf.clone(),
                                                  si.clone(), p)
-    launches = fused_rtiow.LAUNCHES
+    launches = fused_rtiow.LAUNCHES["fused_rtiow"]
     got_f, got_i = fused_rtiow._render_kernel(pk, cam24, SEED, sf, si, p,
                                               chunks=chunks)
     torch.cuda.synchronize()
-    assert fused_rtiow.LAUNCHES == launches + 1
+    assert fused_rtiow.LAUNCHES["fused_rtiow"] == launches + 1
     assert bool((want_i[2] == cfg.spp).all())
     assert torch.equal(got_i, want_i) and torch.equal(got_f, want_f)
 
@@ -846,10 +845,10 @@ def test_single_path_kernel_matches_plain(cuda):
     cfg = RenderConfig(width=96, height=64, max_depth=8, rr_survival=0.8)
     fs = fused.pack_scene(scene)
     want = fused._gbuffer(fused._steps_plain, fs, cam, cfg, SEED, 3, cuda)
-    launches = fused.LAUNCHES
+    launches = fused.LAUNCHES["fused_mc"]
     got = fused.single_sample_gbuffer(fs, cam, cfg, SEED, 3)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES == launches + 1
+    assert fused.LAUNCHES["fused_mc"] == launches + 1
     for i, tol in ((0, 2e-3), (1, 1e-4), (2, 1e-4)):
         torch.testing.assert_close(got[i], want[i], rtol=tol, atol=tol)
     for i in (3, 4):
@@ -916,11 +915,11 @@ def test_retiring_kernel_matches_lockstep_plain(cuda, stop_after, n_steps):
     for _ in range(2):
         want = fused._steps_plain(fs, cam16, SEED, *[x.clone() for x in want],
                                   q)
-        launches = fused.LAUNCHES
+        launches = fused.LAUNCHES["fused_mc"]
         got = fused._steps_kernel(fs, cam16, SEED, *[x.clone() for x in got],
                                   q)
         torch.cuda.synchronize()
-        assert fused.LAUNCHES == launches + 1
+        assert fused.LAUNCHES["fused_mc"] == launches + 1
         assert _bits_equal(got, want)
 
 
@@ -1204,14 +1203,14 @@ def test_packet_gradients_on_card_match_plain(cuda):
     out = {}
     for dev in (cuda, torch.device("cpu")):
         bundle = mesh.prepare(scene.to(dev), method="packet")
-        packet.LAUNCHES = 0
+        packet.LAUNCHES.reset()
         out[dev.type] = _mc_grads(
             scene, cam, cfg, dev,
             intersect_fn=mesh.make_intersect_fn(bundle, sort_rays=True,
                                                 differentiable=True),
             nearest_t_fn=mesh.make_nearest_t_fn(bundle, sort_rays=True))
         if dev.type == "cuda":
-            assert packet.LAUNCHES == 2 * cfg.max_depth
+            assert packet.LAUNCHES["packet"] == 2 * cfg.max_depth
     np.testing.assert_allclose(out["cuda"][0].numpy(), out["cpu"][0].numpy(),
                                rtol=2e-3, atol=2e-3)
     _assert_grads_close(out["cuda"][1], out["cpu"][1])
@@ -1232,9 +1231,9 @@ def test_record_trace_through_packet_on_card(cuda, monkeypatch):
             intersect_fn=mesh.make_intersect_fn(bundle, sort_rays=True),
             nearest_t_fn=mesh.make_nearest_t_fn(bundle, sort_rays=True))
 
-    packet.LAUNCHES = 0
+    packet.LAUNCHES.reset()
     kernel = record(cuda)
-    assert packet.LAUNCHES == 2 * cfg.spp * cfg.max_depth
+    assert packet.LAUNCHES["packet"] == 2 * cfg.spp * cfg.max_depth
     cpu = record(torch.device("cpu"))
     monkeypatch.setattr(packet, "nearest", packet.nearest_plain)
     plain = record(cuda)

@@ -25,11 +25,11 @@ def test_single_sample_gbuffer_plain_matches_jax_kernel():
         jcornell.cornell_camera(), JConfig(**kw), jrng.render_key(5), 3,
         interpret=True)
     scene = ref.port_scene("cornell")
-    launches = fused.LAUNCHES
+    launches = fused.LAUNCHES["fused_mc"]
     got = fused.single_sample_gbuffer(fused.pack_scene(scene),
                                       ref.port_camera(), RenderConfig(**kw),
                                       ref.seed_word(5), 3, device="cpu")
-    assert fused.LAUNCHES == launches
+    assert fused.LAUNCHES["fused_mc"] == launches
     want = [np.asarray(x) for x in want]
     got = [x.numpy() for x in got]
     for i, tol in ((0, 2e-3), (1, 1e-4), (2, 1e-4)):

@@ -83,10 +83,10 @@ def test_fused_plain_matches_jax_wavefront(case):
     plain = fused.wavefront_steps_fused_plain(fs, cam, cfg, seed, st, n_steps)
     ref.assert_states_match(want, ref.state_numpy(plain))
     # On CPU tensors the wrapper runs exactly the plain version.
-    launches = fused.LAUNCHES
+    launches = fused.LAUNCHES["fused_mc"]
     wrapped = fused.wavefront_steps_fused(fs, cam, cfg, seed, st, n_steps,
                                           device="cpu")
-    assert fused.LAUNCHES == launches
+    assert fused.LAUNCHES["fused_mc"] == launches
     for a, b in zip(ref.state_numpy(plain).values(),
                     ref.state_numpy(wrapped).values()):
         np.testing.assert_array_equal(a, b)

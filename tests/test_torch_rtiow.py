@@ -249,10 +249,10 @@ def test_plain_stepper_matches_jax_kernel(case):
                                      RenderConfig(**kw), ref.seed_word(k),
                                      torch.device("cpu"))
     np.testing.assert_allclose(sf.numpy(), sf0, rtol=1e-6, atol=1e-6)
-    launches = fr.LAUNCHES
+    launches = fr.LAUNCHES["fused_rtiow"]
     sf2, si2 = fr.rtiow_steps(pk, cam24, ref.seed_word(k), sf, si,
                               p._replace(n_steps=n_steps))
-    assert fr.LAUNCHES == launches
+    assert fr.LAUNCHES["fused_rtiow"] == launches
     for i, name in enumerate(("s", "b", "n_done")):
         np.testing.assert_array_equal(si2[i].numpy(), want_i[i],
                                       err_msg=name)

@@ -112,15 +112,6 @@ def test_runlog(tmp_path):
     assert rec["n"] == 3 and rec["arr"] == [0, 1]
 
 
-def test_scoped_timer_output(capsys):
-    with profiling.scoped_timer("unit", device="cpu") as t:
-        pass
-    out = capsys.readouterr().out
-    assert "[TIMER] unit" in out
-    assert t.elapsed_ms(torch.zeros(2)) >= 0.0
-    assert profiling.rays_per_second(10, 2.0) == 5.0
-
-
 def test_device_trace_writes_a_trace(tmp_path):
     with profiling.device_trace(str(tmp_path / "trace")):
         torch.ones(64, 64) @ torch.ones(64, 64)

@@ -240,10 +240,10 @@ def test_render_fused_plain_matches_jax(queue):
     if queue == 4:
         assert float(trunc) == 0.0
     # On CPU tensors the wrapper runs exactly the plain version.
-    launches = fw.LAUNCHES
+    launches = fw.LAUNCHES["fused_whitted"]
     img, t2 = fw.render_fused(scene, cam, RenderConfig(**cfg), queue=queue,
                               device="cpu")
-    assert fw.LAUNCHES == launches
+    assert fw.LAUNCHES["fused_whitted"] == launches
     assert torch.equal(img, got) and torch.equal(t2, trunc)
 
 
