@@ -1,12 +1,14 @@
 """Bounding-volume hierarchy (port of ``cpu_based_ray_tracer_tpu.ops.bvh``):
-host-side builder and per-lane traversal.
+host-side builder, leaf order on any device, and per-lane traversal.
 
 Median split on the longest axis of the centroid AABB over per-triangle
 AABBs, flattened to preorder + skip links: visiting node i on an AABB hit
 continues at i + 1, on a miss at ``node_skip[i]``.  Triangles are reordered
 so each leaf is a contiguous ``order[first:first + count]`` slice.  The
 build is pure numpy, byte-equal to the JAX package's; the packet and fused
-intersectors' clusters are its leaves.
+intersectors' clusters are its leaves.  ``leaf_order`` gives the same
+``order`` alone, built level by level with tensor ops on the triangles'
+device (the fused mesh engine's clusters, ``ops.fused_mesh``).
 
 ``traverse`` walks the flattened tree per lane (the ``sparse`` mesh method,
 a correctness oracle): the JAX package's ``while_loop`` over ``vmap``-ed
@@ -87,6 +89,68 @@ def build_bvh(tri_vertices: np.ndarray, leaf_size: int = 4) -> FlatBVH:
         order=np.asarray(order, np.int32),
         max_leaf=leaf_size,
     )
+
+
+def split_levels(n: int, leaf_size: int) -> list:
+    """The segments that ``build_bvh`` splits, level by level: a list of
+    (starts, lengths) int64 arrays.  The split is always at ``len // 2``,
+    so the tree's shape depends on ``n`` and ``leaf_size`` alone."""
+    starts, lens = np.zeros(1, np.int64), np.array([n], np.int64)
+    levels = []
+    while True:
+        split = lens > leaf_size
+        starts, lens = starts[split], lens[split]
+        if not len(lens):
+            return levels
+        levels.append((starts, lens))
+        half = lens // 2
+        starts = np.stack([starts, starts + half], 1).reshape(-1)
+        lens = np.stack([half, lens - half], 1).reshape(-1)
+
+
+def leaf_order(tri_vertices, leaf_size: int = 4, on_level=None
+               ) -> torch.Tensor:
+    """``build_bvh(tri_vertices, leaf_size).order`` (int64) built level by
+    level on the triangles' device (numpy input: the CPU), with no read of
+    the device.  Each level takes its splitting segments as rows padded
+    to the longest: the float64 centroid bounds per row, the first axis
+    of greatest extent (``np.argmax``), and one stable sort of each row's
+    keys on that axis (``np.argsort(kind="stable")``: equal keys, -0.0
+    and 0.0 among them, keep their order).  The leaves, left to right,
+    are ``build_bvh``'s preorder.  ``on_level`` is called once a level."""
+    tris = torch.as_tensor(tri_vertices).to(torch.float64).reshape(-1, 3, 3)
+    n, dev = tris.shape[0], tris.device
+    centroid = 0.5 * (tris.amin(1) + tris.amax(1))
+    # Slot n, in perm and in the centroids, takes the rows' padding.
+    centroid = torch.cat([centroid, centroid.new_zeros((1, 3))])
+    perm = torch.arange(n + 1, device=dev)
+    levels = split_levels(n, leaf_size)
+    if levels:
+        table = torch.as_tensor(np.concatenate(
+            [np.concatenate(lv) for lv in levels])).to(dev)
+    inf = float("inf")
+    at = 0
+    for starts, lens in levels:
+        k, w = len(lens), int(lens.max())
+        start, length = table[at:at + k, None], table[at + k:at + 2 * k, None]
+        at += 2 * k
+        j = torch.arange(w, device=dev)
+        valid = j < length
+        pos = torch.where(valid, start + j, n)
+        elem = perm[pos]
+        c = centroid[elem]                                      # (k, w, 3)
+        lo = torch.where(valid[..., None], c, inf).amin(1)
+        hi = torch.where(valid[..., None], c, -inf).amax(1)
+        ext = hi - lo
+        axis = (ext[:, 1] > ext[:, 0]).long()
+        axis = torch.where(ext[:, 2] > ext.gather(1, axis[:, None])[:, 0],
+                           2, axis)
+        key = c.gather(2, axis[:, None, None].expand(k, w, 1))[..., 0]
+        _, srt = torch.sort(torch.where(valid, key, inf), dim=1, stable=True)
+        perm[pos] = elem.gather(1, srt)
+        if on_level is not None:
+            on_level()
+    return perm[:n]
 
 
 def slab_test(o, inv_d, bmin, bmax, t_best):

@@ -43,7 +43,6 @@ import dataclasses
 import functools
 from typing import Optional
 
-import numpy as np
 import torch
 
 from cpu_based_ray_tracer_tpu_torch.ops import intersect
@@ -102,14 +101,13 @@ def pack_coherent(scene, cluster_size: int = 128) -> CoherentPack:
         raise ValueError(f"cluster_size must be a multiple of {GROUP_ROWS} "
                          f"up to {MAX_CLUSTER_SIZE}, not {cluster_size}")
     tr = scene.triangles
-    v0, e1, e2 = (x.cpu().numpy().astype(np.float64)
-                  for x in (tr.v0, tr.e1, tr.e2))
-    verts = np.stack([v0, v0 + e1, v0 + e2], 1)
-    smc = build_smem_clusters(verts, tr.normal.cpu().numpy().astype(np.float32),
-                              tr.material.cpu().numpy().astype(np.float32),
+    v0, e1, e2 = (x.detach().to(torch.float64) for x in (tr.v0, tr.e1, tr.e2))
+    smc = build_smem_clusters(torch.stack([v0, v0 + e1, v0 + e2], 1),
+                              tr.normal.detach().to(torch.float32),
+                              tr.material.to(torch.float32),
                               cluster_size=cluster_size)
     return CoherentPack(tri=smc.tri, aabb=smc.aabb, cs=smc.cs,
-                        n_tri=int(tr.count)).to(scene.device)
+                        n_tri=int(tr.count))
 
 
 # --- ray planes and tiles -----------------------------------------------------

@@ -93,6 +93,11 @@ SMEM_RESIDENT_BUDGET = 736 * 1024
 LAUNCHES = profiling.Counter(
     "fused_mesh", ("k1", "group", "nearest", "k1b", "group_occl", "occl",
                    "k2", "nearest_sl", "occl_sl"))
+# pack_mesh_scene's device builds ("packs"), the level passes of their
+# BVH leaf orders (``bvh.leaf_order``, also counted for the other callers of
+# ``build_smem_clusters``) and their reads of the device ("host_reads"); a
+# pack reads the device a fixed number of times, whatever the mesh's size.
+PACK = profiling.Counter("fused_mesh_pack", ("packs", "levels", "host_reads"))
 # Bits of the key by which the resident sweeps' rays are grouped: cluster c
 # sets bit c % GROUP_BITS (csrc/fused_mesh.cu GROUP_BITS).
 GROUP_BITS = 12
@@ -111,7 +116,7 @@ def split_count(n: int, target: int, k_max: int) -> int:
     return max(1, min(-(-int(target) // nb), k_max))
 
 
-# --- host side ---------------------------------------------------------------
+# --- the pack ----------------------------------------------------------------
 
 class SmemClusters(NamedTuple):
     """Cluster-major triangle table (the JAX package's name: there it is
@@ -124,8 +129,7 @@ class SmemClusters(NamedTuple):
     boxes: tuple            # ((c_start, c_end), ...) cluster ranges
 
 
-def build_smem_clusters(verts: np.ndarray, normals: np.ndarray,
-                        mids: np.ndarray, cluster_size: int = 128
+def build_smem_clusters(verts, normals, mids, cluster_size: int = 128
                         ) -> SmemClusters:
     """Spatially ordered FULL clusters: the triangles in median-split BVH
     preorder (leaves of at most ``max(8, cs // 8)``), the preorder stream
@@ -133,47 +137,46 @@ def build_smem_clusters(verts: np.ndarray, normals: np.ndarray,
     with all-zero triangles (det == 0, never hit; index -1).  AABBs are
     rounded outward to float32.  Up to 64 spatial boxes of contiguous
     clusters serve as the predicate AABBs of meshes with more than 64
-    clusters.  Byte-equal to the JAX package's build."""
-    tris = np.asarray(verts, np.float64).reshape(-1, 3, 3)
-    n = len(tris)
-    cs = cluster_size
-    flat = bvh_ops.build_bvh(tris, leaf_size=max(8, cs // 8))
-    leaves = np.flatnonzero(flat.leaf_count > 0)
-    preorder = np.concatenate(
-        [flat.order[flat.leaf_first[lf]:flat.leaf_first[lf]
-                    + flat.leaf_count[lf]] for lf in leaves])
-    assert len(preorder) == n
-
+    clusters.  Built on the device of ``verts`` (numpy: the CPU) with no
+    read of it; byte-equal to the JAX package's build."""
+    tris = torch.as_tensor(verts).to(torch.float64).reshape(-1, 3, 3)
+    dev, f32 = tris.device, torch.float32
+    n, cs = tris.shape[0], cluster_size
     c = -(-n // cs)
-    v0 = tris[:, 0]
-    e1 = tris[:, 1] - tris[:, 0]
-    e2 = tris[:, 2] - tris[:, 0]
-    rows = np.zeros((c, cs, MESH_NF), np.float32)
-    aabb = np.zeros((c, 8), np.float32)
-    for ci in range(c):
-        idx = preorder[ci * cs:(ci + 1) * cs]
-        k = len(idx)
-        rows[ci, :k, 0:3] = v0[idx]
-        rows[ci, :k, 3:6] = e1[idx]
-        rows[ci, :k, 6:9] = e2[idx]
-        rows[ci, :k, 9:12] = normals[idx]
-        rows[ci, :k, 12] = mids[idx]
-        rows[ci, :k, 13] = idx          # original triangle index (f32)
-        rows[ci, k:, 13] = -1.0
-        lo = tris[idx].reshape(-1, 3).min(0)
-        hi = tris[idx].reshape(-1, 3).max(0)
-        aabb[ci, 0:3] = np.nextafter(lo.astype(np.float32), -np.inf)
-        aabb[ci, 3:6] = np.nextafter(hi.astype(np.float32), np.inf)
-
     n_box = int(min(64, c))
     edges = np.linspace(0, c, n_box + 1).astype(int)
     boxes = tuple((int(edges[b]), int(edges[b + 1])) for b in range(n_box))
-    box_aabb = np.zeros((n_box, 8), np.float32)
-    for b, (s0, s1) in enumerate(boxes):
-        box_aabb[b, 0:3] = aabb[s0:s1, 0:3].min(0)
-        box_aabb[b, 3:6] = aabb[s0:s1, 3:6].max(0)
-    return SmemClusters(tri=torch.as_tensor(rows), aabb=torch.as_tensor(aabb),
-                        cs=cs, box_aabb=torch.as_tensor(box_aabb),
+    # A box's clusters as one row, padded by repeating its last one (the
+    # widths of the boxes differ by at most one).
+    width = int(np.diff(edges).max()) if n_box else 0
+    box_rows = torch.as_tensor(np.minimum(
+        edges[:-1, None] + np.arange(width), edges[1:, None] - 1)).to(dev)
+    order = bvh_ops.leaf_order(tris, leaf_size=max(8, cs // 8),
+                               on_level=lambda: PACK.add("levels"))
+
+    # One row a triangle in input order, and a last one for the padding.
+    table = torch.zeros((n + 1, MESH_NF), dtype=f32, device=dev)
+    table[:n, 0:3] = tris[:, 0]
+    table[:n, 3:6] = tris[:, 1] - tris[:, 0]
+    table[:n, 6:9] = tris[:, 2] - tris[:, 0]
+    table[:n, 9:12] = torch.as_tensor(normals).to(dev)
+    table[:n, 12] = torch.as_tensor(mids).to(dev)
+    table[:n, 13] = torch.arange(n, device=dev)   # original index (f32)
+    table[n, 13] = -1.0
+    idx = torch.full((c * cs,), n, dtype=torch.int64, device=dev)
+    idx[:n] = order
+    rows = table[idx].view(c, cs, MESH_NF)
+
+    inf = torch.full((1, 3), float("inf"), dtype=torch.float64, device=dev)
+    lo = torch.cat([tris.amin(1), inf])[idx].view(c, cs, 3).amin(1)
+    hi = torch.cat([tris.amax(1), -inf])[idx].view(c, cs, 3).amax(1)
+    aabb = torch.zeros((c, 8), dtype=f32, device=dev)
+    aabb[:, 0:3] = torch.nextafter(lo.to(f32), -inf.to(f32))
+    aabb[:, 3:6] = torch.nextafter(hi.to(f32), inf.to(f32))
+    box_aabb = torch.zeros((n_box, 8), dtype=f32, device=dev)
+    box_aabb[:, 0:3] = aabb[box_rows, 0:3].amin(1)
+    box_aabb[:, 3:6] = aabb[box_rows, 3:6].amax(1)
+    return SmemClusters(tri=rows, aabb=aabb, cs=cs, box_aabb=box_aabb,
                         boxes=boxes)
 
 
@@ -226,6 +229,18 @@ class MeshPack:
         return dataclasses.replace(self, **kw)
 
 
+def _read(x: torch.Tensor) -> np.ndarray:
+    """One counted read of the device by the host."""
+    PACK.add("host_reads")
+    return x.detach().cpu().numpy()
+
+
+def _select(mask: torch.Tensor) -> torch.Tensor:
+    """The indices of ``mask``'s True entries, then of its False ones, each
+    in index order (a stable sort: no read of the device)."""
+    return torch.sort((~mask).to(torch.uint8), stable=True)[1]
+
+
 def pack_mesh_scene(scene: Scene, gate_mask: Optional[np.ndarray] = None,
                     cluster_size: int = 128) -> MeshPack:
     """Split the scene into unrolled smalls and the clustered (gated) mesh.
@@ -237,99 +252,106 @@ def pack_mesh_scene(scene: Scene, gate_mask: Optional[np.ndarray] = None,
     light table.  A room tessellated into small triangles gates almost
     everything; the predicate then fires for about every lane and the caps
     overflow, which ``render_turbo_mesh(_exact)`` absorb by doubling
-    them."""
-    np_ = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    them.
+
+    Built on the scene's device, the BVH and the clusters included
+    (``build_smem_clusters``), with three reads of the device at most:
+    the scene's bounds (default gate only), the gate, emissive and live
+    masks, and the light rows with the gated bounds."""
+    PACK.add("packs")
+    f32, f64 = torch.float32, torch.float64
     tr, sp, mats = scene.triangles, scene.spheres, scene.materials
-    v0 = np_(tr.v0).astype(np.float64)
-    e1 = np_(tr.e1).astype(np.float64)
-    e2 = np_(tr.e2).astype(np.float64)
-    nrm = np_(tr.normal).astype(np.float32)
-    tmat = np_(tr.material)
-    emissive = np_(mats.emissive)[tmat]
+    dev = scene.device
+    v0, e1, e2 = (x.detach().to(f64) for x in (tr.v0, tr.e1, tr.e2))
+    nrm = tr.normal.detach().to(f32)
+    tmat = tr.material.long()
+    m_emi = mats.emission.detach().to(f32)
+    m_emissive = mats.emissive
+    emissive = m_emissive[tmat]
+    verts = torch.stack([v0, v0 + e1, v0 + e2], 1)          # (N, 3, 3)
+    inf = float("inf")
 
-    verts = np.stack([v0, v0 + e1, v0 + e2], 1)          # (N, 3, 3)
     if gate_mask is None:
-        lo_all = verts.reshape(-1, 3).min(0)
-        hi_all = verts.reshape(-1, 3).max(0)
-        scene_diag = float(np.linalg.norm(hi_all - lo_all))
-        tri_diag = np.linalg.norm(verts.max(1) - verts.min(1), axis=-1)
-        gate_mask = (tri_diag < 0.15 * scene_diag) & ~emissive
-    gate_mask = np.asarray(gate_mask, bool)
-    if emissive[gate_mask].any():
+        pts = verts.reshape(-1, 3)
+        lo_hi = _read(torch.stack([pts.amin(0), pts.amax(0)]))
+        scene_diag = float(np.linalg.norm(lo_hi[1] - lo_hi[0]))
+        d = verts.amax(1) - verts.amin(1)
+        # np.linalg.norm's order of the three terms
+        tri_diag = torch.sqrt((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+                              + d[:, 2] * d[:, 2])
+        gate = (tri_diag < 0.15 * scene_diag) & ~emissive
+    else:
+        gate = torch.as_tensor(np.asarray(gate_mask, bool)).to(dev)
+    live = sp.radius != 0.0               # drop never-hit placeholders
+    n = gate.shape[0]
+    masks = _read(torch.cat([gate, emissive, live]))
+    gate_mask, emi_h, live_h = masks[:n], masks[n:2 * n], masks[2 * n:]
+    if emi_h[gate_mask].any():
         raise ValueError("gated (clustered) triangles must be non-emissive")
-    gidx = np.flatnonzero(gate_mask)
-    sidx = np.flatnonzero(~gate_mask)
+    ng, s, n_emi = (int(x.sum()) for x in (gate_mask, live_h, emi_h))
+    ns = n - ng
 
-    ns = len(sidx)
-    stri = np.zeros((max(ns, 1), 16), np.float32)
-    stri[:ns, 0:3] = v0[sidx]
-    stri[:ns, 3:6] = e1[sidx]
-    stri[:ns, 6:9] = e2[sidx]
+    # Light table + sky: ops.fused.pack_scene's rows; its masked cumsum
+    # over every triangle adds exact zeros between the emissive areas, so
+    # the host's cumsum of those areas alone is its CDF to the bit.
+    lidx = _select(emissive)[:max(n_emi, 1)]
+    lrows = torch.cat([x[lidx].to(f32) for x in (v0, e1, e2, nrm)]
+                      + [m_emi[tmat[lidx]]], 1)              # (Le, 15)
+    g = gate[:, None, None]
+    glo = torch.where(g, verts, inf).reshape(-1, 3).amin(0).to(f32)
+    ghi = torch.where(g, verts, -inf).reshape(-1, 3).amax(0).to(f32)
+    bounds = torch.cat([torch.nextafter(glo, torch.full_like(glo, -inf)),
+                        torch.nextafter(ghi, torch.full_like(ghi, inf))])
+    host = _read(torch.cat([lrows.reshape(-1), bounds]))
+    lrows_h, bounds_h = host[:-6].reshape(-1, 15), host[-6:]
+    le = lrows_h.shape[0]
+    light = np.zeros((le, 16), np.float32)
+    light[:, 0:15] = lrows_h
+    light_total = np.float32(0.0)
+    if n_emi:
+        area = 0.5 * np.linalg.norm(
+            np.cross(lrows_h[:, 3:6], lrows_h[:, 6:9]), axis=-1
+        ).astype(np.float32)
+        light[:, 15] = np.cumsum(area, dtype=np.float32)
+        light_total = light[-1, 15]
+    sky = torch.zeros((8,), dtype=f32, device=dev)
+    sky[0:3] = scene.sky_bottom.detach()
+    sky[3:6] = scene.sky_top.detach()
+    sky[6] = float(light_total)
+
+    if ng == 0:
+        raise ValueError("no gated triangles: use ops.fused for small "
+                         "scenes (every primitive unrolled)")
+    order = _select(gate)
+    gidx, sidx = order[:ng], order[ng:]
+    stri = torch.zeros((max(ns, 1), 16), dtype=f32, device=dev)
+    stri[:ns, 0:9] = torch.cat([v0, e1, e2], 1)[sidx]
     stri[:ns, 9:12] = nrm[sidx]
     stri[:ns, 12] = tmat[sidx]
 
-    c, r, smat = np_(sp.center), np_(sp.radius), np_(sp.material)
-    live = r != 0.0                       # drop never-hit placeholders
-    c, r, smat = c[live], r[live], smat[live]
-    s = c.shape[0]
-    ssph = np.zeros((max(s, 1), 8), np.float32)
-    ssph[:s, 0:3] = c
-    ssph[:s, 3] = r
-    ssph[:s, 4] = smat
+    sph = _select(live)[:s]
+    ssph = torch.zeros((max(s, 1), 8), dtype=f32, device=dev)
+    ssph[:s, 0:3] = sp.center.detach()[sph]
+    ssph[:s, 3] = sp.radius.detach()[sph]
+    ssph[:s, 4] = sp.material[sph]
 
-    m_alb, m_emi = np_(mats.albedo), np_(mats.emission)
-    k = m_alb.shape[0]
-    mat = np.zeros((k, 8), np.float32)
-    mat[:, 0:3] = m_alb
+    k = mats.albedo.shape[0]
+    mat = torch.zeros((k, 8), dtype=f32, device=dev)
+    mat[:, 0:3] = mats.albedo.detach()
     mat[:, 3:6] = m_emi
-    mat[:, 6] = np_(mats.emissive).astype(np.float32)
+    mat[:, 6] = m_emissive
 
-    # Light table + sky: ops.fused.pack_scene's construction (full-scene
-    # masked cumsum, so the CDF is the plain engine's to the bit).
-    area = 0.5 * np.linalg.norm(
-        np.cross(e1.astype(np.float32), e2.astype(np.float32)), axis=-1
-    ).astype(np.float32)
-    emf = emissive.astype(np.float32)
-    lidx = np.flatnonzero(emf > 0.5)
-    if len(lidx) == 0:
-        lidx = np.array([0])
-        light_total = np.float32(0.0)
-        cdf = np.zeros((1,), np.float32)
-    else:
-        masked = np.where(emf > 0.5, area, np.float32(0.0)).astype(np.float32)
-        cdf_full = np.cumsum(masked, dtype=np.float32)
-        cdf = cdf_full[lidx].astype(np.float32)
-        light_total = cdf_full[-1]
-    le = len(lidx)
-    light = np.zeros((le, 16), np.float32)
-    light[:, 0:3] = v0[lidx]
-    light[:, 3:6] = e1[lidx]
-    light[:, 6:9] = e2[lidx]
-    light[:, 9:12] = nrm[lidx]
-    light[:, 12:15] = m_emi[tmat[lidx]]
-    light[:, 15] = cdf
-    sky = np.zeros((8,), np.float32)
-    sky[0:3] = np_(scene.sky_bottom)
-    sky[3:6] = np_(scene.sky_top)
-    sky[6] = light_total
-
-    if len(gidx) == 0:
-        raise ValueError("no gated triangles: use ops.fused for small "
-                         "scenes (every primitive unrolled)")
-    smc = build_smem_clusters(verts[gidx], nrm[gidx],
-                              tmat[gidx].astype(np.float32),
+    smc = build_smem_clusters(verts[gidx], nrm[gidx], tmat[gidx].to(f32),
                               cluster_size=cluster_size)
-    gpts = verts[gidx].reshape(-1, 3)
-    glo = np.nextafter(gpts.min(0).astype(np.float32), -np.inf)
-    ghi = np.nextafter(gpts.max(0).astype(np.float32), np.inf)
-    t = torch.as_tensor
     return MeshPack(
-        stri=t(stri), ssph=t(ssph), mat=t(mat), light=t(light), sky=t(sky),
+        stri=stri, ssph=ssph, mat=mat,
+        light=torch.as_tensor(light).to(dev), sky=sky,
         smc_tri=smc.tri, smc_aabb=smc.aabb, smc_box_aabb=smc.box_aabb,
         boxes=smc.boxes, cs=smc.cs,
-        gate_lo=tuple(map(float, glo)), gate_hi=tuple(map(float, ghi)),
+        gate_lo=tuple(map(float, bounds_h[:3])),
+        gate_hi=tuple(map(float, bounds_h[3:])),
         n_stri=ns, n_sph=s, n_light=le, n_mat=k,
-        gate_mask=gate_mask).to(scene.device)
+        gate_mask=gate_mask)
 
 
 def _slab_crosses(o, d, lo, hi, t_lo, t_hi):

@@ -16,9 +16,10 @@ from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import mesh
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
 from cpu_based_ray_tracer_tpu_torch.models import denoiser
-from cpu_based_ray_tracer_tpu_torch.ops import (coherent, fused, fused_mesh,
-                                                fused_rtiow, fused_whitted,
-                                                intersect, packet)
+from cpu_based_ray_tracer_tpu_torch.ops import (bvh, coherent, fused,
+                                                fused_mesh, fused_rtiow,
+                                                fused_whitted, intersect,
+                                                packet)
 from cpu_based_ray_tracer_tpu_torch.scene import (REFLECTIVE_REFRACTIVE,
                                                   MaterialBuilder,
                                                   PointLights, make_scene,
@@ -403,6 +404,47 @@ def test_fused_mesh_stepper_matches_plain_ragged_slab(cuda, stop_after):
     for f in ("o", "d", "tp", "cur", "acc"):
         torch.testing.assert_close(getattr(got, f), getattr(want, f),
                                    rtol=2e-3, atol=2e-3)
+
+
+def test_pack_mesh_scene_on_card_equals_the_cpu_pack(cuda):
+    """The pack of the benchmark's 163,862-triangle scene built on the card
+    equals the CPU's build byte for byte, the ints and tuples equal."""
+    soup = np.concatenate([meshes.icosphere(6), meshes.transform(
+        meshes.icosphere(6), 0.6, (1.2, 0.9, 0.3))])
+    scene = cornell.cornell_mesh_scene(soup, height=1.8)
+    want = fused_mesh.pack_mesh_scene(scene)
+    fused_mesh.PACK.reset()
+    got = fused_mesh.pack_mesh_scene(scene.to(cuda))
+    assert fused_mesh.PACK["host_reads"] == 3 and want.n_clusters == 1280
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(a, torch.Tensor):
+            assert a.device.type == "cuda", f.name
+            a, b = a.cpu().numpy(), b.numpy()
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f.name
+        elif isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("case", ["signed_zeros", "duplicates"])
+def test_leaf_order_on_card_keeps_ties(cuda, case):
+    """The card's sorts keep equal keys, -0.0 against 0.0 among them, in
+    their order, as ``build_bvh``'s stable argsort does."""
+    rng = np.random.default_rng(11)
+    if case == "signed_zeros":
+        # rows past 4,096 keys take the card's other sort
+        tris = np.zeros((20000, 3, 3))
+        tris[..., 2] = np.repeat(rng.integers(0, 3, (20000, 1)), 3, 1)
+        tris[..., 0:2] = np.where(rng.random((20000, 1, 2)) < 0.5, -0.0, 0.0)
+        tris[:4, :, 0] = [[-5.0], [5.0], [-5.0], [5.0]]
+    else:
+        tris = rng.uniform(-1.0, 1.0, (40, 3, 3))[rng.integers(0, 40, 5000)]
+    for leaf in (4, 16):
+        got = bvh.leaf_order(torch.as_tensor(tris, device=cuda), leaf)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      bvh.build_bvh(tris, leaf).order)
 
 
 def test_render_turbo_mesh_exact_on_card(cuda):

@@ -80,16 +80,17 @@ def _jax_pack_arrays(jmp) -> dict:
             for k, v in jmp._asdict().items()}
 
 
-# --- host-side packs, byte for byte ------------------------------------------
+# --- the packs, byte for byte ------------------------------------------------
 
 @pytest.mark.parametrize("case", ["default_gate", "explicit_gate",
-                                  "icosphere3"])
+                                  "icosphere3", "icosphere5"])
 def test_pack_mesh_scene_byte_equal(case):
     """Every array of the pack byte-equal to JAX's, the ints and tuples
-    equal; the light and sky rows equal the port's ``pack_scene``."""
+    equal; the light and sky rows equal the port's ``pack_scene``.
+    icosphere5: 160 clusters, so the 64 spatial boxes are the predicate's."""
     sub, kw = {"default_gate": (1, dict(cluster_size=64)),
                "explicit_gate": (1, dict(cluster_size=64, gate=True)),
-               "icosphere3": (3, {})}[case]
+               "icosphere3": (3, {}), "icosphere5": (5, {})}[case]
     scene, jscene = _scenes(sub)
     gate = _gate(scene) if kw.pop("gate", False) else None
     got = fm.pack_mesh_scene(scene, gate_mask=gate, **kw)
@@ -106,6 +107,9 @@ def test_pack_mesh_scene_byte_equal(case):
     assert got.gate_mask.sum() == scene.triangles.count - N_SMALLS
     if case == "icosphere3":
         assert got.n_clusters == 10 and got.cs == 128
+    if case == "icosphere5":
+        assert got.n_clusters == 160 and len(got.boxes) == 64
+        assert got.pred_aabb is got.smc_box_aabb
     fs = fused.pack_scene(scene)
     assert torch.equal(got.light, fs.light) and torch.equal(got.sky, fs.sky)
     # the JAX pack carried across gives the same pack
@@ -128,6 +132,31 @@ def test_build_smem_clusters_byte_equal():
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
     assert got.boxes == want.boxes and got.cs == want.cs
     assert (got.tri[-1, :, 13] == -1.0).any()           # padded tail
+
+
+@functools.lru_cache(maxsize=None)
+def _scene_164k():
+    """The benchmark's 163,862-triangle scene: two icospheres(6)."""
+    soup = np.concatenate([meshes.icosphere(6), meshes.transform(
+        meshes.icosphere(6), 0.6, (1.2, 0.9, 0.3))])
+    return cornell.cornell_mesh_scene(soup, height=1.8)
+
+
+@pytest.mark.parametrize("gate", [False, True])
+def test_pack_counter_reads_the_device_a_fixed_number_of_times(gate):
+    """One pack, one level pass a level of its BVH, and as many reads of
+    the device at 1,302 triangles as at 163,862."""
+    reads = []
+    for scene in (_scenes(3)[0], _scene_164k()):
+        fm.PACK.reset()
+        mp = fm.pack_mesh_scene(scene, gate_mask=_gate(scene) if gate
+                                else None)
+        n, leaf = int(mp.gate_mask.sum()), max(8, mp.cs // 8)
+        levels = next(lv for lv in range(64) if -(-n // 2 ** lv) <= leaf)
+        got = fm.PACK.snapshot()
+        assert got["packs"] == 1 and got["levels"] == levels
+        reads.append(got["host_reads"])
+    assert reads == ([2, 2] if gate else [3, 3])
 
 
 # --- compaction against the JAX helpers (Pallas interpreter) -----------------

@@ -73,6 +73,50 @@ def test_build_bvh_byte_equal(leaf):
     assert got.n_nodes == want.n_nodes and got.max_leaf == want.max_leaf
 
 
+def _leaf_order_mesh(case: str, leaf: int) -> np.ndarray:
+    soup = np.concatenate([meshes.icosphere(3), meshes.torus(1.6, 0.6, 24,
+                                                             10)])
+    sizes = {"one": 1, "leaf": leaf, "leaf_plus_1": leaf + 1, "n1000": 1000,
+             "icosphere3_torus": len(soup)}
+    if case in sizes:
+        return soup[:sizes[case]]
+    rng = np.random.default_rng(7)
+    if case == "duplicates_flat":
+        # 12 distinct triangles, each many times over; every z equal
+        base = rng.uniform(-1.0, 1.0, (12, 3, 3))
+        base[..., 2] = 0.5
+        return base[rng.integers(0, 12, 600)]
+    # "signed_zeros": centroids at -0.0 and 0.0 on x and y, split around
+    # a few triangles far out on each axis
+    tris = np.repeat(rng.integers(0, 3, (300, 1, 3)).astype(np.float64), 3, 1)
+    tris[..., 0:2] = np.where(rng.random((300, 1, 2)) < 0.5, -0.0, 0.0)
+    tris[:4, :, 0] = [[-5.0], [5.0], [-5.0], [5.0]]
+    tris[4:8, :, 1] = [[-3.0], [3.0], [-3.0], [3.0]]
+    return tris
+
+
+@pytest.mark.parametrize("case", ["one", "leaf", "leaf_plus_1", "n1000",
+                                  "icosphere3_torus", "duplicates_flat",
+                                  "signed_zeros"])
+@pytest.mark.parametrize("leaf", [4, 8, 16])
+def test_leaf_order_equals_build_bvh_order(case, leaf):
+    """The level-by-level build gives the recursion's leaf order: the same
+    split axes (the first of the greatest extents) and the same stable
+    ties, -0.0 against 0.0 included."""
+    tris = _leaf_order_mesh(case, leaf)
+    if case == "signed_zeros":
+        z = tris.min(1)[tris.min(1) == 0.0]
+        assert np.signbit(z).any() and (~np.signbit(z)).any()
+    got = bvh.leaf_order(tris, leaf)
+    assert got.dtype == torch.int64 and got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(),
+                                  bvh.build_bvh(tris, leaf).order)
+    levels = []
+    bvh.leaf_order(torch.as_tensor(tris), leaf,
+                   on_level=lambda: levels.append(1))
+    assert len(levels) == len(bvh.split_levels(len(tris), leaf))
+
+
 @pytest.mark.parametrize("cs", [32, 128])
 def test_build_clusters_byte_equal(cs):
     tris = np.concatenate([meshes.icosphere(3),

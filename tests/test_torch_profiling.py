@@ -208,6 +208,19 @@ def test_the_kernel_modules_register_their_launch_counters():
     assert fused_mesh.LAUNCHES is profiling.COUNTERS["fused_mesh"]
 
 
+def test_a_mesh_render_packs_once():
+    """``fused_mesh_pack``: one pack a render, one level pass a level of its
+    BVH (80 gated triangles in leaves of 8: 4 levels), three reads."""
+    assert fused_mesh.PACK is profiling.COUNTERS["fused_mesh_pack"]
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(1))
+    cfg = RenderConfig(width=16, height=16, spp=1, max_depth=3)
+    fused_mesh.PACK.reset()
+    fused_mesh.render_turbo_mesh_exact(scene, cornell.cornell_camera(), cfg,
+                                       SEED, cluster_size=64, device=CPU)
+    assert profiling.read_counters()["fused_mesh_pack"] == {
+        "packs": 1, "levels": 4, "host_reads": 3}
+
+
 def test_cli_render_trace_dir_holds_the_spans(tmp_path):
     out, traces = str(tmp_path / "mc.png"), tmp_path / "trace"
     main(["--cpu", "render", "--stage", "mc", "--width", "16", "--height",
