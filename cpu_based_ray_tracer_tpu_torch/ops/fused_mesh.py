@@ -103,7 +103,8 @@ PACK = profiling.Counter("fused_mesh_pack", ("packs", "levels", "host_reads"))
 GROUP_BITS = 12
 
 # One record per chunk of the last render_turbo_mesh(_exact) call: the
-# steps, the caps, the overflow and the predicate populations.
+# steps, the caps, the overflow, the predicate populations and the sweep
+# mode (``resident``: the grouped resident sweeps, else the shortlists).
 TRACE: list = []
 
 
@@ -834,7 +835,8 @@ def _grouped_sweep_plain(tb, p, rays, ray_id, cnt, out, *, occl: bool):
     """A resident sweep over the rays grouped by ``group_plain`` (the
     kernels' order), as ``_sweep_plain``; the triangle tests are returned
     in pack order."""
-    g_rays, g_id, keys = group_plain(tb, p, rays, ray_id, cnt, occl=occl)
+    with profiling.span("fused_mesh.group"):
+        g_rays, g_id, keys = group_plain(tb, p, rays, ray_id, cnt, occl=occl)
     tests = _sweep_plain(tb, p, g_rays, g_id, cnt, out, occl=occl)
     order = torch.sort(keys, stable=True).indices
     return torch.empty_like(tests).index_copy_(0, order, tests)
@@ -1038,7 +1040,8 @@ def _group_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, *,
 def _grouped_sweep_kernel(tb, p, rays, ray_id, cnt, out, *, occl: bool):
     """Group the packed rays, then launch the resident sweep over them, on
     CUDA tensors; as ``_grouped_sweep_plain``."""
-    g_rays, g_id, _ = _group_kernel(tb, p, rays, ray_id, cnt, occl=occl)
+    with profiling.span("fused_mesh.group"):
+        g_rays, g_id, _ = _group_kernel(tb, p, rays, ray_id, cnt, occl=occl)
     _sweep_kernel(tb, p, g_rays, g_id, cnt, out, occl=occl)
 
 
@@ -1228,6 +1231,8 @@ def state_planes(state):
 def _run(kernel: bool, mp: MeshPack, camera, cfg: RenderConfig, seed: int,
          state, n_steps: int, cap_main, cap_shadow, pixel_offset: int,
          resident, stop_after: int):
+    """``wavefront_steps_fused_mesh``'s work, returning its triple and the
+    sweep mode taken (``resident=None`` resolved by ``fits_resident``)."""
     from cpu_based_ray_tracer_tpu_torch.models.monte_carlo import (
         WavefrontState)
 
@@ -1258,7 +1263,7 @@ def _run(kernel: bool, mp: MeshPack, camera, cfg: RenderConfig, seed: int,
                       + si[3].to(torch.int64).sum())
     new = WavefrontState(s=si[0], b=si[1], o=v3(0), d=v3(1), tp=v3(2),
                          cur=v3(3), acc=v3(4), n_done=si[2], nrays=nrays)
-    return new, overflow, npred
+    return new, overflow, npred, resident
 
 
 def wavefront_steps_fused_mesh(mp: MeshPack, camera, cfg: RenderConfig,
@@ -1290,7 +1295,7 @@ def wavefront_steps_fused_mesh(mp: MeshPack, camera, cfg: RenderConfig,
     if state.s.device.type != dev.type:
         raise ValueError(f"state lies on {state.s.device}, not on {dev}")
     return _run(state.s.is_cuda, mp, camera, cfg, seed, state, n_steps,
-                cap_main, cap_shadow, pixel_offset, resident, stop_after)
+                cap_main, cap_shadow, pixel_offset, resident, stop_after)[:3]
 
 
 def wavefront_steps_fused_mesh_plain(mp: MeshPack, camera, cfg: RenderConfig,
@@ -1303,7 +1308,7 @@ def wavefront_steps_fused_mesh_plain(mp: MeshPack, camera, cfg: RenderConfig,
     """The plain PyTorch version of ``wavefront_steps_fused_mesh`` on any
     device (the kernels' arithmetic, vectorized over lanes)."""
     return _run(False, mp, camera, cfg, seed, state, n_steps, cap_main,
-                cap_shadow, pixel_offset, resident, stop_after)
+                cap_shadow, pixel_offset, resident, stop_after)[:3]
 
 
 # --- renderers ---------------------------------------------------------------
@@ -1327,9 +1332,9 @@ def _drive(scene: Scene, camera, cfg: RenderConfig, seed: int, *,
         TRACE.clear()
         for _ in range(target * cfg.max_depth):
             with profiling.span("fused_mesh.chunk"):
-                nxt, overflow, npred = wavefront_steps_fused_mesh(
-                    mp, camera, cfg, seed, state, chunk, cap_main=cap_main,
-                    cap_shadow=cap_shadow, stop_after=stop_after, device=dev)
+                nxt, overflow, npred, resident = _run(
+                    state.s.is_cuda, mp, camera, cfg, seed, state, chunk,
+                    cap_main, cap_shadow, 0, None, stop_after)
             # the one read of the device per chunk
             with profiling.span("fused_mesh.poll"):
                 over, least, n_main, n_shadow = torch.stack(
@@ -1339,7 +1344,7 @@ def _drive(scene: Scene, camera, cfg: RenderConfig, seed: int, *,
                      npred[1].to(torch.int64)]).tolist()
             TRACE.append(dict(steps=chunk, cap_main=cap_main,
                               cap_shadow=cap_shadow, overflow=over,
-                              npred=[n_main, n_shadow]))
+                              npred=[n_main, n_shadow], resident=resident))
             if over > 0:
                 # rerun the chunk with doubled caps (state untouched on
                 # purpose)

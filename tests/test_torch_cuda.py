@@ -467,6 +467,30 @@ def test_render_turbo_mesh_exact_on_card(cuda):
                                atol=2e-3)
 
 
+def test_cornell_mesh_resident_render_on_card(cuda, monkeypatch):
+    """The ``cornell_mesh`` benchmark scene (an icosphere(4) at the bunny's
+    scale, 5,142 triangles, 40 clusters of 128) on the grouped resident
+    sweeps: a grouping, a nearest and an occlusion sweep a step, no
+    shortlist sweep; the image bit equal to the shortlist route's."""
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(4, radius=1.0),
+                                       height=1.8, device=cuda)
+    cam = cornell.cornell_camera(cuda)
+    cfg = RenderConfig(width=128, height=128, spp=2, max_depth=16)
+    fused_mesh.LAUNCHES.reset()
+    img = fused_mesh.render_turbo_mesh_exact(scene, cam, cfg, SEED)
+    steps = sum(t["steps"] for t in fused_mesh.TRACE)
+    assert steps > 0 and all(t["resident"] for t in fused_mesh.TRACE)
+    counts = fused_mesh.LAUNCHES
+    for key in ("group", "nearest", "group_occl", "occl"):
+        assert counts[key] == steps, key
+    assert counts["nearest_sl"] == counts["occl_sl"] == 0
+    monkeypatch.setattr(fused_mesh, "fits_resident", lambda n, cs: False)
+    shortlist = fused_mesh.render_turbo_mesh_exact(scene, cam, cfg, SEED)
+    assert not any(t["resident"] for t in fused_mesh.TRACE)
+    assert counts["occl_sl"] > 0
+    assert torch.equal(img, shortlist)
+
+
 def test_mesh_render_on_card(cuda):
     scene, cam = meshes.bvh_stage_scene(), meshes.bvh_stage_camera()
     cfg = RenderConfig(width=64, height=48)

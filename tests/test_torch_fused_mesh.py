@@ -577,8 +577,8 @@ def test_box_cull_keeps_every_hit(tilt, occl):
     assert int(crossed.sum()) < 1.2 * rays.shape[1]
 
 
-@pytest.mark.parametrize("n_clusters,cs", [(2, 64), (92, 128), (93, 128),
-                                           (1280, 128)])
+@pytest.mark.parametrize("n_clusters,cs", [(2, 64), (40, 128), (92, 128),
+                                           (93, 128), (1280, 128)])
 def test_resident_auto_rule_matches_jax(n_clusters, cs):
     """``resident=None`` takes the JAX package's rule: resident exactly
     when the table fits its SMEM budget (92 clusters of 128 is 736 KB)."""

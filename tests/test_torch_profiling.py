@@ -117,6 +117,8 @@ def test_render_turbo_mesh_exact_spans():
     assert len(named(spans, "fused_mesh.poll")) == len(chunks)
     assert len(named(spans, "fused_mesh.tables")) == len(chunks)
     assert all_inside(spans, "fused_mesh.tables", "fused_mesh.chunk")
+    assert named(spans, "fused_mesh.group")       # the resident grouping
+    assert all_inside(spans, "fused_mesh.group", "fused_mesh.chunk")
     assert all_inside(spans, "fused_mesh.chunk", "fused_mesh.render")
     assert all_inside(spans, "fused_mesh.poll", "fused_mesh.render")
 
