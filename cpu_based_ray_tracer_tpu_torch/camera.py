@@ -20,12 +20,12 @@ import numpy as np
 import torch
 
 from cpu_based_ray_tracer_tpu_torch.ops import vec
+from cpu_based_ray_tracer_tpu_torch.scene import to_device
 
 
 class _Fields:
     def to(self, device):
-        return type(self)(*(getattr(self, f.name).to(device)
-                            for f in dataclasses.fields(self)))
+        return to_device(self, device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,7 +33,9 @@ sample, the BRDF), as the JAX package's scan engine.  ``render_replay``
 gives the same image and the same gradients with an O(R x depth) graph:
 ``record_trace`` runs the index pass once without gradients (a
 ``BounceRecord`` a bounce), and ``render_from_trace`` replays the
-estimator from it, each sample rematerialized in the backward pass.
+estimator from it, each sample rematerialized in the backward pass; on
+the card the replay and its backward run as two CUDA graphs
+(``utils.graphs``), one launch each.
 """
 
 from __future__ import annotations
@@ -47,14 +49,16 @@ from torch.utils import checkpoint
 from cpu_based_ray_tracer_tpu_torch import camera as cam_mod
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.ops import fused, intersect, sampling, vec
-from cpu_based_ray_tracer_tpu_torch.scene import Scene
-from cpu_based_ray_tracer_tpu_torch.utils import profiling, rng
+from cpu_based_ray_tracer_tpu_torch.scene import (Scene, flatten, to_device,
+                                                  unflatten)
+from cpu_based_ray_tracer_tpu_torch.utils import (consts, graphs, profiling,
+                                                  rng)
 from cpu_based_ray_tracer_tpu_torch.utils.kernels import resolve_device
 
 
 def _brdf_diffuse(albedo, cos_in):
     """Lambertian BRDF albedo/pi, zero below the horizon."""
-    pi = torch.tensor(math.pi, dtype=albedo.dtype, device=albedo.device)
+    pi = consts.scalar(math.pi, albedo.dtype, albedo.device)
     return torch.where(cos_in[..., None] >= 0.0, albedo / pi, 0.0)
 
 
@@ -72,8 +76,7 @@ class BounceRecord:
     visible: torch.Tensor      # bool hard shadow-test result
 
     def to(self, device) -> "BounceRecord":
-        return BounceRecord(*(getattr(self, f.name).to(device)
-                              for f in dataclasses.fields(self)))
+        return to_device(self, device)
 
     def __getitem__(self, i) -> "BounceRecord":
         return BounceRecord(*(getattr(self, f.name)[i]
@@ -122,8 +125,9 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
     m = hit.material.long()
     emit, albedo = vec.take(mats.emission, m), vec.take(mats.albedo, m)
     hit_emissive = hit.hit & mats.emissive[m]
-    is_primary = torch.as_tensor(bounce == 0,
-                                 device=alive.device).expand(alive.shape)
+    is_primary = ((bounce == 0).expand(alive.shape)
+                  if isinstance(bounce, torch.Tensor) else
+                  alive.new_full(alive.shape, bounce == 0))
     sky = torch.where(is_primary[:, None], scene.sky(vec.normalize(d)), 0.0)
     radiance = torch.where((alive & ~hit.hit)[:, None], throughput * sky, 0.0)
     radiance = radiance + torch.where(
@@ -171,9 +175,8 @@ def _bounce_step(scene: Scene, cfg: RenderConfig, *, seed, pixel, sample,
     survive = us[2] < cfg.rr_survival
     wi = vec.hemisphere_surface_from(n, us[0], us[1])
     cos_i = vec.dot(wi, n)[:, 0]
-    pdf = torch.tensor(1.0 / (2.0 * math.pi), dtype=torch.float32,
-                       device=wi.device)
-    rr = torch.tensor(cfg.rr_survival, dtype=torch.float32, device=wi.device)
+    pdf = consts.scalar(1.0 / (2.0 * math.pi), torch.float32, wi.device)
+    rr = consts.scalar(cfg.rr_survival, torch.float32, wi.device)
     weight = _brdf_diffuse(albedo, cos_i) * cos_i[:, None] / pdf / rr
     continues = alive & survive
     throughput = torch.where(continues[:, None], throughput * weight,
@@ -344,16 +347,49 @@ def record_trace(scene: Scene, camera, cfg: RenderConfig, seed: int,
         return BounceRecord.stack(recs)
 
 
+REPLAY_GRAPH = profiling.Counter("mc_replay_graph",
+                                 ("captures", "replays", "eager"))
+_REPLAY_GRAPHS = graphs.GraphCache(REPLAY_GRAPH)
+
+
 def render_from_trace(scene: Scene, camera, cfg: RenderConfig, seed: int,
                       recs: BounceRecord, device=None) -> torch.Tensor:
     """The differentiable replay of ``render_replay`` from a recorded
     trace, mean linear radiance (H, W, 3) on ``device`` (default: the
     card).  Each sample is rematerialized in the backward pass
     (``torch.utils.checkpoint``): its recompute is O(R) a bounce, and the
-    counter-based RNG makes it exact."""
+    counter-based RNG makes it exact.
+
+    On the card, ``_replay`` and its backward run as two CUDA graphs
+    (``utils.graphs``) for a configuration, seed, and shapes and
+    requires-grad pattern of the scene's, the camera's and the record's
+    tensors that repeat: eagerly at their first call, captured at the
+    second, replayed in every later one, with the same image.  On the CPU
+    ``_replay`` runs as it is.  Counter ``mc_replay_graph``:
+    ``captures``, ``replays``, ``eager`` calls."""
     _check_replay(cfg)
     dev = resolve_device(device)
+    with profiling.span("mc.replay.forward"):
+        args = (scene.to(dev), camera.to(dev), recs.to(dev))
+        if dev.type != "cuda":
+            REPLAY_GRAPH.add("eager")
+            return _replay(cfg, seed, *args)
+        seed = int(seed)
+
+        def replay(*tensors):
+            it = iter(tensors)
+            return _replay(cfg, seed, *(unflatten(a, it) for a in args))
+
+        return _REPLAY_GRAPHS((cfg, seed, *map(type, args)), replay,
+                              [t for a in args for t in flatten(a)])
+
+
+def _replay(cfg: RenderConfig, seed, scene: Scene, camera,
+            recs: BounceRecord) -> torch.Tensor:
+    """The body of ``render_from_trace``, everything on one device: the
+    ``cfg.spp`` checkpointed samples' mean."""
     h, w = cfg.height, cfg.width
+    dev = scene.device
 
     def one_sample(s, rec, scene, camera):
         # runs in the forward, and again in the backward's recomputation
@@ -362,14 +398,12 @@ def render_from_trace(scene: Scene, camera, cfg: RenderConfig, seed: int,
             return trace(scene, o, d, cfg, seed=seed, pixel=pixel, sample=s,
                          record=rec).reshape(h, w, 3)
 
-    with profiling.span("mc.replay.forward"):
-        scene, camera = scene.to(dev), camera.to(dev)
-        acc = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-        for s in range(cfg.spp):
-            acc = acc + checkpoint.checkpoint(
-                one_sample, s, recs[s].to(dev), scene, camera,
-                use_reentrant=False, preserve_rng_state=False)
-        return acc / torch.tensor(float(cfg.spp), device=dev)
+    acc = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    for s in range(cfg.spp):
+        acc = acc + checkpoint.checkpoint(
+            one_sample, s, recs[s], scene, camera,
+            use_reentrant=False, preserve_rng_state=False)
+    return acc / consts.scalar(float(cfg.spp), torch.float32, dev)
 
 
 def count_rays(scene: Scene, camera, cfg: RenderConfig, seed: int

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from cpu_based_ray_tracer_tpu_torch.utils import consts
+
 
 def _sum3(p: torch.Tensor) -> torch.Tensor:
     return p[..., 0] + p[..., 1] + p[..., 2]
@@ -21,8 +23,9 @@ def div(x: torch.Tensor, c) -> torch.Tensor:
     """x / c for a Python number c, divided as a 0-dim tensor: CUDA builds
     of PyTorch turn a division by a Python scalar into a multiplication by
     its reciprocal, which rounds differently from the IEEE division of the
-    JAX package and of the kernels."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    JAX package and of the kernels.  The divisor is built once
+    (``utils.consts``)."""
+    return x / consts.scalar(c, x.dtype, x.device)
 
 
 def take(table, idx):

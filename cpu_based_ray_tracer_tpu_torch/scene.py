@@ -32,19 +32,32 @@ TEX_CHESSBOARD = 1
 F32 = torch.float32
 
 
-def _to(obj, device):
+def flatten(obj) -> list:
+    """The tensors of a (nested) dataclass of tensors, in field order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [t for f in dataclasses.fields(obj)
+            for t in flatten(getattr(obj, f.name))]
+
+
+def unflatten(obj, tensors):
+    """``obj`` with its tensors, in ``flatten`` order, taken from the
+    iterator ``tensors``."""
+    if isinstance(obj, torch.Tensor):
+        return next(tensors)
+    return dataclasses.replace(obj, **{
+        f.name: unflatten(getattr(obj, f.name), tensors)
+        for f in dataclasses.fields(obj)})
+
+
+def to_device(obj, device):
     """``obj`` with every tensor field (recursively) moved to ``device``."""
-    kw = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        kw[f.name] = (v.to(device) if isinstance(v, torch.Tensor)
-                      else _to(v, device))
-    return dataclasses.replace(obj, **kw)
+    return unflatten(obj, (t.to(device) for t in flatten(obj)))
 
 
 class _Tensors:
     def to(self, device):
-        return _to(self, device)
+        return to_device(self, device)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)

@@ -32,35 +32,47 @@ N_STREAMS = 8
 _MASK = 0xFFFFFFFF
 
 
-def as_u32(x, device=None) -> torch.Tensor:
-    """Any int / int tensor -> int64 tensor holding its u32 bit pattern."""
+def as_u32(x, device=None):
+    """An int tensor -> int64 tensor holding its u32 bit pattern; an int ->
+    the Python int of its u32 pattern (the hash's arithmetic is exact on
+    it, and it takes no copy to the device)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device if device is not None else x.device,
                     dtype=torch.int64) & _MASK
-    return torch.as_tensor(x, dtype=torch.int64, device=device) & _MASK
+    return int(x) & _MASK
+
+
+def _mul(x, y):
+    """The product of two u32 values, int64 tensors or Python ints: an
+    int64 product wraps past 2**63, keeping its low 32 bits, and one of two
+    ints is cut to those bits, so that it fits the int64 of a tensor op."""
+    if isinstance(x, int) and isinstance(y, int):
+        return (x * y) & _MASK
+    return x * y
 
 
 def pcg4d(a, b, c, d):
     """pcg4d hash: 4 x u32 in -> 4 x u32 out (Jarzynski-Olano eq. 19).
 
-    Inputs and outputs are int64 tensors holding u32 values (``as_u32``)."""
+    Inputs and outputs are int64 tensors or Python ints holding u32 values
+    (``as_u32``); an output is a tensor where a tensor entered it."""
     mul, inc = 1664525, 1013904223
     a = (a * mul + inc) & _MASK
     b = (b * mul + inc) & _MASK
     c = (c * mul + inc) & _MASK
     d = (d * mul + inc) & _MASK
-    a = (a + b * d) & _MASK
-    b = (b + c * a) & _MASK
-    c = (c + a * b) & _MASK
-    d = (d + b * c) & _MASK
+    a = (a + _mul(b, d)) & _MASK
+    b = (b + _mul(c, a)) & _MASK
+    c = (c + _mul(a, b)) & _MASK
+    d = (d + _mul(b, c)) & _MASK
     a = a ^ (a >> 16)
     b = b ^ (b >> 16)
     c = c ^ (c >> 16)
     d = d ^ (d >> 16)
-    a = (a + b * d) & _MASK
-    b = (b + c * a) & _MASK
-    c = (c + a * b) & _MASK
-    d = (d + b * c) & _MASK
+    a = (a + _mul(b, d)) & _MASK
+    b = (b + _mul(c, a)) & _MASK
+    c = (c + _mul(a, b)) & _MASK
+    d = (d + _mul(b, c)) & _MASK
     return a, b, c, d
 
 

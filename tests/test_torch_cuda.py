@@ -6,6 +6,7 @@ machine with a card and no JAX, without the repository's conftest:
 ``python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py``."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ from cpu_based_ray_tracer_tpu_torch.scene import (REFLECTIVE_REFRACTIVE,
                                                   make_triangles)
 from cpu_based_ray_tracer_tpu_torch.scenes import (cornell, meshes, rtiow,
                                                    whitted_scene)
-from cpu_based_ray_tracer_tpu_torch.utils import kernels
+from cpu_based_ray_tracer_tpu_torch.utils import consts, kernels
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -1306,3 +1307,197 @@ def test_record_trace_through_packet_on_card(cuda, monkeypatch):
     for f in ("prim", "is_triangle", "hit", "visible"):
         assert torch.equal(getattr(kernel, f), getattr(plain, f)), f
         assert torch.equal(getattr(kernel, f).cpu(), getattr(cpu, f)), f
+
+
+# --- the replay's CUDA graphs (models/monte_carlo.render_from_trace) ---------
+
+def _replay_routes(scene_of, param, cam, cfg, recs, target, dev):
+    """(image, gradient of the MSE to ``target`` w.r.t. ``param``) of the
+    graphed replay and of the eager body ``mc._replay``, at one point."""
+    out = []
+    for graphed in (True, False):
+        p = param.detach().clone().requires_grad_(True)
+        sc = scene_of(p)
+        img = (mc.render_from_trace(sc, cam, cfg, SEED, recs, dev) if graphed
+               else mc._replay(cfg, SEED, sc, cam, recs))
+        (g,) = torch.autograd.grad(torch.mean((img - target) ** 2), p)
+        out.append((img.detach(), g))
+    return out
+
+
+def _assert_same_replay(out):
+    """The images bit equal; the gradients within 1e-6 relative (the
+    gathers' backward adds with atomics, in no fixed order)."""
+    (img, g), (want_img, want_g) = out
+    assert torch.equal(img, want_img)
+    assert torch.isfinite(g).all() and want_g.abs().max() > 0
+    torch.testing.assert_close(g, want_g, rtol=1e-6,
+                               atol=1e-6 * float(want_g.abs().max()))
+
+
+def _replay_case(dev, width=40, height=32, spp=2, max_depth=4):
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    cfg = RenderConfig(width=width, height=height, spp=spp,
+                       max_depth=max_depth)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    target = torch.rand((height, width, 3), generator=gen, device=dev) * 0.6
+    mc._REPLAY_GRAPHS.clear()
+    mc.REPLAY_GRAPH.reset()
+    return scene, cam, cfg, mc.record_trace(scene, cam, cfg, SEED, dev), target
+
+
+def test_replay_graph_matches_the_eager_body(cuda):
+    """Four Adam steps on the albedo logits, as the gradient cell takes
+    them: at every step the graphed replay's image is bit equal to
+    ``_replay``'s and its gradient within 1e-6; the first call eager, the
+    second captures, then one replay a call; the images handed out are
+    left as they were by the later replays, which write other values."""
+    scene, cam, cfg, recs, target = _replay_case(cuda)
+    mats = scene.materials
+
+    def with_logits(lg):
+        return scene.replace(materials=mats.replace(albedo=torch.where(
+            ~mats.emissive[:, None], torch.sigmoid(lg), mats.albedo)))
+
+    logits = torch.zeros_like(mats.albedo, requires_grad=True)
+    opt = torch.optim.Adam([logits], lr=0.1)
+    images = []
+    for step in range(4):
+        out = _replay_routes(with_logits, logits, cam, cfg, recs, target,
+                             cuda)
+        _assert_same_replay(out)
+        assert mc.REPLAY_GRAPH.snapshot() == {
+            "captures": min(step, 1), "replays": step, "eager": 1}
+        images.append((out[0][0], out[0][0].clone()))
+        opt.zero_grad()
+        logits.grad = out[0][1]
+        opt.step()
+    for img, copy in images:
+        assert torch.equal(img, copy)
+    assert not torch.equal(images[1][0], images[3][0])
+
+
+def test_replay_graph_keys_records_and_pending_backwards(cuda):
+    """The emission's pattern (``recover_emission``'s) captures graphs of
+    its own at its second call and matches ``_replay``; a record other
+    than the captured one, of the same shapes (the camera moved), replays
+    through them and matches; a call made while its key's last replay
+    waits for its backward runs eagerly, and both backwards come out
+    right; a second backward of a replay raises; calls without gradients
+    capture a forward alone, bit equal."""
+    scene, cam, cfg, recs, target = _replay_case(cuda)
+    mats = scene.materials
+
+    def with_raw(raw):
+        return scene.replace(materials=mats.replace(emission=torch.where(
+            mats.emissive[:, None], torch.exp(raw), mats.emission)))
+
+    raw = torch.full_like(mats.emission, 2.0)
+    _assert_same_replay(_replay_routes(with_raw, raw, cam, cfg, recs, target,
+                                       cuda))
+    cam2 = dataclasses.replace(cam, position=cam.position + torch.tensor(
+        [0.05, -0.03, 0.02], device=cuda))
+    recs2 = mc.record_trace(scene, cam2, cfg, SEED, cuda)
+    assert not torch.equal(recs2.prim, recs.prim)
+    _assert_same_replay(_replay_routes(with_raw, raw + 0.5, cam2, cfg, recs2,
+                                       target, cuda))
+    _assert_same_replay(_replay_routes(with_raw, raw + 0.25, cam, cfg, recs,
+                                       target, cuda))
+    assert mc.REPLAY_GRAPH.snapshot() == {"captures": 1, "replays": 2,
+                                          "eager": 1}
+
+    def loss(img):
+        return torch.mean((img - target) ** 2)
+
+    ps = [(raw + k).requires_grad_(True) for k in (0.25, 0.75)]
+    imgs = [mc.render_from_trace(with_raw(p), cam, cfg, SEED, recs, cuda)
+            for p in ps]
+    assert mc.REPLAY_GRAPH["eager"] == 2
+    got = [torch.autograd.grad(loss(imgs[k]), ps[k])[0] for k in (1, 0)]
+    for k, g in zip((1, 0), got):
+        want = _replay_routes(with_raw, ps[k], cam, cfg, recs, target,
+                              cuda)[1]
+        _assert_same_replay([(imgs[k].detach(), g), want])
+    p = raw.clone().requires_grad_(True)
+    lo = loss(mc.render_from_trace(with_raw(p), cam, cfg, SEED, recs, cuda))
+    torch.autograd.grad(lo, p, retain_graph=True)
+    with pytest.raises(RuntimeError, match="runs once"):
+        torch.autograd.grad(lo, p)
+    with torch.no_grad():
+        for _ in range(3):
+            img = mc.render_from_trace(scene, cam, cfg, SEED, recs, cuda)
+            assert torch.equal(img, mc._replay(cfg, SEED, scene, cam, recs))
+    assert mc.REPLAY_GRAPH["captures"] == 2
+
+
+def test_replay_graph_on_a_mesh_record(cuda):
+    """``test_replay_mesh_record_pass``'s set-up on the card: the record
+    through csrc/packet.cu, the replay graphed at its second call, its
+    image bit equal to the packet render's and to ``_replay``'s, its
+    albedo gradient to ``_replay``'s."""
+    scene = cornell.cornell_mesh_scene(meshes.icosphere(1)).to(cuda)
+    cam = cornell.cornell_camera(cuda)
+    bundle = mesh.prepare(scene, method="packet")
+    isect = mesh.make_intersect_fn(bundle, sort_rays=True)
+    near = mesh.make_nearest_t_fn(bundle, sort_rays=True)
+    cfg = RenderConfig(width=16, height=16, spp=1, max_depth=4)
+    recs = mc.record_trace(scene, cam, cfg, SEED, cuda, intersect_fn=isect,
+                           nearest_t_fn=near)
+    mc._REPLAY_GRAPHS.clear()
+    mc.REPLAY_GRAPH.reset()
+    target = torch.zeros((cfg.height, cfg.width, 3), device=cuda)
+
+    def with_albedo(a):
+        return scene.replace(materials=scene.materials.replace(albedo=a))
+
+    for _ in range(2):
+        out = _replay_routes(with_albedo, scene.materials.albedo, cam, cfg,
+                             recs, target, cuda)
+        _assert_same_replay(out)
+    assert mc.REPLAY_GRAPH.snapshot() == {"captures": 1, "replays": 1,
+                                          "eager": 1}
+    want = mc.render(scene, cam, cfg, SEED, device=cuda, intersect_fn=isect,
+                     nearest_t_fn=near)
+    assert torch.equal(out[0][0], want)
+
+
+def test_replay_graph_holds_its_constants_and_spares_one_shot_calls(cuda):
+    """A capture holds the shared constants it reads: with the cache
+    emptied and the freed memory written over, its replays stay bit equal
+    to ``_replay``.  A forward whose backward never ran may precede the
+    capture.  ``render_replay`` with a new seed a call (one-shot calls)
+    runs eagerly every time and captures nothing; the shared constants do
+    not grow with the seeds."""
+    scene, cam, cfg, recs, target = _replay_case(cuda)
+    albedo = scene.materials.albedo.clone().requires_grad_(True)
+    sc = scene.replace(materials=scene.materials.replace(albedo=albedo))
+    mc.render_from_trace(sc, cam, cfg, SEED, recs, cuda)   # no backward
+    _assert_same_replay(_replay_routes(
+        lambda a: scene.replace(materials=scene.materials.replace(albedo=a)),
+        albedo, cam, cfg, recs, target, cuda))
+    (cap,) = mc._REPLAY_GRAPHS._captures.values()
+    assert {float(t) for t in cap.consts.values()} >= {
+        float(torch.tensor(math.pi)), float(cfg.spp)}
+    consts._CACHE.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = [torch.full((1,), float("nan"), device=cuda)
+            for _ in range(4096)]
+    for k in range(2):
+        _assert_same_replay(_replay_routes(
+            lambda a: scene.replace(materials=scene.materials.replace(
+                albedo=a)),
+            albedo + 0.1 * k, cam, cfg, recs, target, cuda))
+    del junk
+    assert mc.REPLAY_GRAPH["captures"] == 1
+    mc._REPLAY_GRAPHS.clear()
+    mc.REPLAY_GRAPH.reset()
+    sizes = []
+    for k in range(4):
+        img = mc.render_replay(sc, cam, cfg, SEED + 977 * k, cuda)
+        torch.autograd.grad(torch.mean(img ** 2), albedo)
+        sizes.append(len(consts._CACHE))
+    assert mc.REPLAY_GRAPH.snapshot() == {"captures": 0, "replays": 0,
+                                          "eager": 4}
+    assert sizes == sizes[:1] * 4

@@ -29,6 +29,7 @@ last bits (XLA's CPU code contracts multiply-adds), not the intersector.
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +46,7 @@ from cpu_based_ray_tracer_tpu_torch.models import mesh
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
 from cpu_based_ray_tracer_tpu_torch.ops import intersect
 from cpu_based_ray_tracer_tpu_torch.scenes import cornell, meshes
+from cpu_based_ray_tracer_tpu_torch.utils import consts
 
 import torch_ref as ref
 from torch_ref import one_torch_thread  # noqa: F401
@@ -295,6 +297,88 @@ def test_replay_guards():
         with pytest.raises(ValueError, match="first_hit"):
             mc.trace(scene, o, d, cfg, seed=seed, pixel=pixel, sample=0,
                      first_hit=first, **kw)
+
+
+def test_replay_on_the_cpu_runs_eagerly():
+    """The CPU route is ``_replay`` itself: counted ``eager``, nothing
+    captured, the image and gradients of the body called directly."""
+    scene, cam, cfg, seed = _port()
+    recs = mc.record_trace(scene, cam, cfg, seed, "cpu")
+    out, counts = [], []
+    for fn in (lambda s: mc.render_from_trace(s, cam, cfg, seed, recs, "cpu"),
+               lambda s: mc._replay(cfg, seed, s, cam, recs)):
+        s, leaves = _leaves(scene)
+        mc.REPLAY_GRAPH.reset()
+        img = fn(s)
+        out.append((img.detach(), torch.autograd.grad(torch.mean(img ** 2),
+                                                      leaves)))
+        counts.append(mc.REPLAY_GRAPH.snapshot())
+    assert counts == [{"captures": 0, "replays": 0, "eager": 1},
+                      {"captures": 0, "replays": 0, "eager": 0}]
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)
+
+
+def test_new_seeds_add_no_shared_constants():
+    """A new seed word a call (the final-render traffic draws one an image)
+    adds no shared constant: the hash's integer counters are Python ints,
+    and only the configuration's float divisors are cached
+    (``utils.consts``)."""
+    scene, cam, cfg, seed = _port()
+    engines = (lambda s: mc.render_replay(scene, cam, cfg, s, "cpu"),
+               lambda s: mc.render(scene, cam, cfg, s, device="cpu"),
+               lambda s: mc.render_turbo_exact(scene, cam, cfg, s,
+                                               device="cpu"))
+    for render in engines:
+        render(seed)
+    n = len(consts._CACHE)
+    for k in range(1, 5):
+        s = (seed + k * 0x9E3779B9) & 0xFFFFFFFF
+        for render in engines:
+            render(s)
+    assert len(consts._CACHE) == n
+
+
+class _Ops(TorchDispatchMode):
+    """Every ATen operation dispatched, with its keyword arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls.append((str(func), args, kwargs or {}))
+        return func(*args, **(kwargs or {}))
+
+
+def test_replay_step_reads_and_copies_nothing_of_the_host():
+    """What a CUDA graph cannot capture, seen on the CPU: a replay step
+    (forward, recomputation, backward) after the first makes no tensor
+    from host data (``lift_fresh``: ``torch.tensor(c)``), reads no value
+    back (``_local_scalar_dense``: ``.item()``, ``int(t)``), sizes no
+    output by its data (``nonzero``, ``masked_select``) and moves no
+    tensor between devices."""
+    scene, cam, cfg, seed = _port()
+    recs = mc.record_trace(scene, cam, cfg, seed, "cpu")
+
+    def step():
+        s, leaves = _leaves(scene)
+        img = mc.render_from_trace(s, cam, cfg, seed, recs, "cpu")
+        torch.autograd.grad(torch.mean(img ** 2), leaves)
+
+    step()                       # builds the shared constants
+    ops = _Ops()
+    with ops:
+        step()
+    names = [c[0] for c in ops.calls]
+    assert len(names) > 1000 and "aten.index_select.default" in names
+    refused = ("aten.lift_fresh", "aten._local_scalar_dense", "aten.nonzero",
+               "aten.masked_select", "aten.is_nonzero", "aten.item")
+    assert not [n for n in names if n.startswith(refused)]
+    for name, args, kw in ops.calls:
+        if name.startswith("aten._to_copy") and "device" in kw:
+            assert kw["device"] == args[0].device, name
 
 
 def test_light_sample_matches_jax():

@@ -1,9 +1,12 @@
 """The port's utilities against the JAX package's: checkpoint / resume (a
 JAX-saved render state resumes in the port), pytrees, the run log and
 timers, ``device_trace``, the fly camera, the seed word, the native BVH
-builder and OBJ loader, ``refcompare``; and an import of every module of
+builder and OBJ loader, ``refcompare``; the shared scalar constants
+(``utils.consts``) against fresh tensors; and an import of every module of
 the port with JAX blocked."""
 
+import collections
+import contextlib
 import json
 import os
 import shutil
@@ -26,10 +29,11 @@ from cpu_based_ray_tracer_tpu.utils import rng as jrng
 from cpu_based_ray_tracer_tpu_torch import camera as cam_mod
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
-from cpu_based_ray_tracer_tpu_torch.ops import bvh
+from cpu_based_ray_tracer_tpu_torch.ops import bvh, vec
 from cpu_based_ray_tracer_tpu_torch.scenes import cornell
-from cpu_based_ray_tracer_tpu_torch.utils import (checkpoint, native, objio,
-                                                  profiling, refcompare, rng)
+from cpu_based_ray_tracer_tpu_torch.utils import (checkpoint, consts, graphs,
+                                                  native, objio, profiling,
+                                                  refcompare, rng)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -220,3 +224,150 @@ print(len(names), "modules")
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.split()[0])
     assert n >= 45
+
+
+# --- shared scalar constants (utils.consts) ----------------------------------
+
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cached_divisor_divides_as_a_fresh_tensor(dtype):
+    """``vec.div`` by a shared constant gives the bits of the division by
+    a fresh ``torch.tensor(c)``, NaN payloads and signed zeros included."""
+    x = torch.cat([torch.linspace(-3.0, 3.0, 255, dtype=dtype),
+                   torch.tensor([0.0, -0.0, float("inf"), 1e-30, 7e37],
+                                dtype=dtype)])
+    for c in (3, 448, 0.1, 1.0 / 3.0, 2.0 * 3.141592653589793, 0.8, 0.0,
+              -0.0, 2.0 ** -149, 1e30, float("inf"), float("nan")):
+        for _ in range(2):   # built, then found again
+            got = vec.div(x, c)
+            want = x / torch.tensor(c, dtype=dtype)
+            assert torch.equal(got.view(_BITS[dtype]),
+                               want.view(_BITS[dtype])), c
+
+
+def test_cached_counters_hash_as_fresh_tensors():
+    """``rng.as_u32`` of an int is the Python int of the fresh tensor's
+    u32 pattern (values at and past 2**31 and 2**32, negative ones), and
+    ``uniforms4`` with int counters draws what it draws with fresh
+    tensors (int products past 2**63 included); ``pcg4d`` of four ints
+    gives the ints of its tensor hash."""
+    pixel = torch.arange(97, dtype=torch.int64) * 40503 + 11
+
+    def fresh(x):
+        return torch.as_tensor(x, dtype=torch.int64) & 0xFFFFFFFF
+
+    for x in (0, 1, 7, 2**31 - 1, 2**31, 2**31 + 3, 4070199207, 2**32 - 1,
+              2**32, 2**32 + 5, -1, -(2**31)):
+        got = rng.as_u32(x)
+        assert type(got) is int and got == int(fresh(x)), x
+        ints = rng.pcg4d(rng.as_u32(x), 5, rng.as_u32(-x), 4070199207)
+        want = rng.pcg4d(fresh(x), fresh(5), fresh(-x), fresh(4070199207))
+        assert [type(i) for i in ints] == [int] * 4
+        assert list(ints) == [int(w) for w in want], x
+        for sample, bounce in ((0, 0), (x, 3), (5, x), (x, x)):
+            got = rng.uniforms4(x, pixel, sample, bounce, rng.LIGHT)
+            ctr = (fresh(bounce) * rng.N_STREAMS + rng.LIGHT) & 0xFFFFFFFF
+            want = rng.pcg4d(pixel & 0xFFFFFFFF, fresh(sample), ctr, fresh(x))
+            for g, w in zip(got, want):
+                assert torch.equal(g, rng._to_unit_float(w.expand(
+                    pixel.shape))), (x, sample, bounce)
+
+
+def test_shared_constants_are_guarded(monkeypatch):
+    """One tensor a (value, dtype, device): -0.0 and 0.0 apart, a NaN found
+    again; made in inference mode it is still a normal tensor autograd can
+    save; written in place or made to require grad it is refused."""
+    monkeypatch.setattr(consts, "_CACHE", collections.OrderedDict())
+    c = consts.scalar(0.8125, torch.float64)
+    assert consts.scalar(0.8125, torch.float64, "cpu") is c
+    assert consts.scalar(0.8125, torch.float32) is not c
+    z = consts.scalar(0.0, torch.float32)
+    nz = consts.scalar(-0.0, torch.float32)
+    assert z is not nz and torch.signbit(nz) and not torch.signbit(z)
+    nan = consts.scalar(float("nan"), torch.float32)
+    assert consts.scalar(float("nan"), torch.float32) is nan
+    with torch.inference_mode():
+        k = consts.scalar(3.0, torch.float32)
+    assert not k.is_inference()
+    x = torch.ones(3, requires_grad=True)
+    (x / k).sum().backward()
+    assert torch.equal(x.grad, torch.full((3,), 1.0) / k)
+    c.add_(1.0)
+    with pytest.raises(RuntimeError, match="written in place"):
+        consts.scalar(0.8125, torch.float64)
+    z.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="require grad"):
+        consts.scalar(0.0, torch.float32)
+
+
+def test_shared_constants_are_bounded_and_recorded(monkeypatch):
+    """The cache keeps the ``KEEP`` most recently used constants, and
+    ``recording()`` holds every constant handed out in its block, those
+    the cache has since dropped included."""
+    monkeypatch.setattr(consts, "_CACHE", collections.OrderedDict())
+    monkeypatch.setattr(consts, "KEEP", 4)
+    first = consts.scalar(1.0, torch.float32)
+    with consts.recording() as seen:
+        got = [consts.scalar(float(v), torch.float32) for v in range(2, 9)]
+        assert consts.scalar(8.0, torch.float32) is got[-1]
+        with consts.recording() as inner:
+            consts.scalar(3.5, torch.float32)
+    assert len(consts._CACHE) == 4 and first not in consts._CACHE.values()
+    assert sorted(float(t) for t in seen.values()) == [
+        2.0, 3.0, 3.5, 4.0, 5.0, 6.0, 7.0, 8.0]
+    assert [float(t) for t in inner.values()] == [3.5]
+    assert consts._RECORDING == []
+    again = consts.scalar(2.0, torch.float32)     # dropped: built anew
+    assert again is not got[0] and torch.equal(again, got[0])
+
+
+def test_graph_cache_captures_a_key_at_its_second_call(monkeypatch):
+    """``GraphCache``'s policy, with its CUDA parts stood in for: a key's
+    first call runs eagerly, its second captures and replays, later ones
+    replay; a key whose replay waits for its backward runs eagerly; keys
+    that never repeat (a fresh seed a call) never capture, and the cache
+    remembers at most ``SEEN`` of them and ``KEEP`` captures."""
+    made = []
+
+    class Capture:
+        def __init__(self, fn, inputs, requires_grad):
+            self.waiting = set()
+            made.append(self)
+
+    monkeypatch.setattr(graphs, "_Capture", Capture)
+    monkeypatch.setattr(graphs._Replay, "apply",
+                        staticmethod(lambda cap, *xs: ("replay", cap)))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(profiling, "COUNTERS", dict(profiling.COUNTERS))
+    counter = profiling.Counter("test_graph_cache",
+                                ("captures", "replays", "eager"))
+    cache = graphs.GraphCache(counter)
+    x = torch.zeros(3)
+
+    def fn(t):
+        return "eager"
+
+    assert cache("a", fn, [x]) == "eager"
+    assert counter.snapshot() == {"captures": 0, "replays": 0, "eager": 1}
+    assert cache("a", fn, [x]) == ("replay", made[0])
+    assert cache("a", fn, [torch.ones(3)]) == ("replay", made[0])
+    assert counter.snapshot() == {"captures": 1, "replays": 2, "eager": 1}
+    assert cache("a", fn, [torch.zeros(4)]) == "eager"      # another shape
+    made[0].waiting.add(object())
+    assert cache("a", fn, [x]) == "eager"
+    counter.reset()
+    for seed in range(3 * graphs.SEEN):
+        assert cache(("b", seed), fn, [x]) == "eager"
+    assert counter.snapshot() == {"captures": 0, "replays": 0,
+                                  "eager": 3 * graphs.SEEN}
+    assert len(cache._seen) == graphs.SEEN and len(made) == 1
+    for k in range(graphs.KEEP + 2):
+        cache(("c", k), fn, [x])
+        cache(("c", k), fn, [x])
+    assert len(cache._captures) == graphs.KEEP
+    assert len(made) == 1 + graphs.KEEP + 2
+    cache.clear()
+    assert not cache._seen and not cache._captures
