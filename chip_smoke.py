@@ -276,6 +276,8 @@ import time
 import numpy as np
 import torch
 
+from portbench.work.bounds import PEAK_BYTES, PEAK_F32_FLOPS, mc_ops
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -285,17 +287,15 @@ SEED_KEY0 = 4070199207   # render_key(0): bench.py's key, the main path
 SEED_KEY2 = 2752176745   # render_key(2): tools/make_goldens.mc_cornell
 SEED_KEY15 = 1709130268  # render_key(15): tests/test_grad.py's beta limit
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
-# cores (counting an FMA as two operations) and HBM bandwidth; every
-# bound_ms is taken at these.  Beside it each kernel prints bound_no_fma_ms,
+# H100 SXM peaks (NVIDIA data sheet, 700 W; portbench/work/bounds.py, with
+# mc_ops): float32 outside the tensor cores (counting an FMA as two
+# operations) and HBM bandwidth; every bound_ms is taken at these.  Beside it each kernel prints bound_no_fma_ms,
 # its operations at one a lane a clock (132 SMs of 128 FP32 lanes at the
 # 1,980 MHz boost clock, 33.45e12 a second): the port builds every kernel
 # with -fmad=false, so no counted add or multiply fuses into an FMA, and
 # that is the least time this build can take.  No kernel calls fmaf: the
 # FFMAs in fused_mc's SASS come from the IEEE division, square root and
 # sine/cosine sequences, which the counts charge as one operation each.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 N_SM, F32_LANES_PER_SM, BOOST_HZ = 132, 128, 1.98e9
 PEAK_F32_NO_FMA = N_SM * F32_LANES_PER_SM * BOOST_HZ
 
@@ -333,22 +333,6 @@ def nvidia_smi(fields: str) -> str:
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60
     ).stdout.strip().splitlines()[0]
-
-
-def mc_ops(n_tri: int, n_sph: int, lane_steps: int, shadow_rays: int) -> int:
-    """f32 add/sub/mul/div/sqrt/rsqrt/cos/sin that a run of
-    csrc/fused_mc.cu needs, counted from its source: the main intersect (47
-    per triangle, 28 per sphere) on each live lane-step; the shadow test
-    (50 per triangle, 28 per sphere) and 150 of shading, NEE and scatter
-    on each lane-step that traced a shadow ray (a live hit on a
-    non-emissive surface; si plane 3 counts them).  The kernel runs the
-    latter only for such lanes, but a warp runs it when one of its lanes
-    does; in the gated modes a lane whose quota is met takes no step (its
-    path would only regenerate), and the plain mode steps every lane.  A
-    miss's sky, the winner's attributes, the regeneration and the integer
-    RNG are not counted: a floor."""
-    return ((47 * n_tri + 28 * n_sph) * lane_steps
-            + (150 + 50 * n_tri + 28 * n_sph) * shadow_rays)
 
 
 def compare_states(got, want) -> dict:
@@ -593,11 +577,11 @@ def render_work(dev, full: RenderConfig, scene, cam, launches: int,
     and the shadow rays; the bound charges mc_ops to those, and the lane
     state read and written once a launch."""
     from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
-    from cpu_based_ray_tracer_tpu_torch.ops import fused, fused_mesh
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
 
     fs = fused.pack_scene(scene)
     cam16 = fused._camera_words(cam)
-    sf0, si0 = fused_mesh.state_planes(mc.wavefront_init(
+    sf0, si0 = fused.state_planes(mc.wavefront_init(
         scene, cam, full, SEED_KEY0, device=dev))
     r = full.width * full.height
     p = fused._Params(1, full.width, full.height, r, full.t_min,
@@ -1201,15 +1185,15 @@ def packet_pairs(cl, o, d, t_min: float) -> dict:
     (ray, cluster) pairs where the ray crosses the padded box, and the
     (32-ray warp, cluster) pairs where a ray of the warp does (the pairs
     the kernel runs Moller-Trumbore for; no cull by the best hit)."""
-    from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.ops import clusters
 
     rays = torch.cat([o.T, d.T])
     r = rays.shape[1]
     nw = -(-r // 32)
     ray_pairs = warp_pairs = 0
     for c in range(cl.n_clusters):
-        crossed = fm.crosses_box_plain(cl.aabb[c:c + 1], rays, t_min,
-                                       occl=False)[0]
+        crossed = clusters.crosses_box_plain(cl.aabb[c:c + 1], rays, t_min,
+                                             occl=False)[0]
         pad = torch.zeros((nw * 32,), dtype=torch.bool, device=o.device)
         pad[:r] = crossed
         ray_pairs += int(crossed.sum())
@@ -1322,10 +1306,11 @@ def mesh_fused_parity_phase(dev, cfg, n_steps=16) -> dict:
     kernels against plain, n_steps in plain mode and with stop_after=4.
     Returns the max abs error of each entry point."""
     from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
 
     scene, cam, mp, st, caps, p, tb = mesh_setup(dev, cfg)
     r = st.s.shape[0]
-    sf, si = fm.state_planes(st)
+    sf, si = fused.state_planes(st)
     bp = fm.StepBuffers(*[torch.zeros_like(x)
                           for x in fm.step_buffers(r, p, 1, dev)])
     errs, res = {"group": 0.0, "group_occl": 0.0}, {}
@@ -1376,7 +1361,7 @@ def mesh_fused_parity_phase(dev, cfg, n_steps=16) -> dict:
     # Every step of the stepper: the grouped nearest sweep's t, normal and
     # material id (hf rows 5-9) and the grouped occlusion sweep's flags (kb
     # row 8) bit equal to the plain version's.
-    sf_k, si_k = fm.state_planes(st)
+    sf_k, si_k = fused.state_planes(st)
     sf_p, si_p = sf_k.clone(), si_k.clone()
     bk = fm.step_buffers(r, p, n_steps, dev)
     bp = fm.step_buffers(r, p, n_steps, dev)
@@ -1696,15 +1681,17 @@ def sweep_splits(tb, p, rays, ray_id, cnt, want, occl: bool, lists,
     lanes.  With the slices K each takes, the grid, and the card's resident
     sweep blocks per SM."""
     from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.ops import clusters
 
-    per_sm, n_sm = fm.sweep_slots(occl, tb.mp.cs)
+    per_sm, n_sm = fm.LIB.occupancy("fused_mesh_sweep_slots", int(occl),
+                                    tb.mp.cs)
     n = min(int(cnt), rays.shape[1])
     lanes = ray_id[:n].long()
-    ray_blocks = -(-rays.shape[1] // fm.SWEEP_BLOCK)
-    live_blocks = -(-n // fm.SWEEP_BLOCK)
+    ray_blocks = -(-rays.shape[1] // clusters.SWEEP_BLOCK)
+    live_blocks = -(-n // clusters.SWEEP_BLOCK)
     res = dict(blocks_per_sm=per_sm, sms=n_sm, packed=n,
-               ray_blocks=live_blocks, waves=fm.SWEEP_WAVES)
-    for name, k_max in (("default", fm.SPLIT_MAX), ("unsplit", 1)):
+               ray_blocks=live_blocks, waves=clusters.SWEEP_WAVES)
+    for name, k_max in (("default", clusters.SPLIT_MAX), ("unsplit", 1)):
         out = torch.full_like(want, -7.0)
 
         def run():
@@ -1719,7 +1706,8 @@ def sweep_splits(tb, p, rays, ray_id, cnt, want, occl: bool, lists,
                                f"version")
         ms = timed(lambda: [run() for _ in range(n_iters)]) / n_iters
         k_max = max(1, min(k_max, tb.mp.n_clusters))
-        k = fm.split_count(n, per_sm * n_sm * fm.SWEEP_WAVES, k_max)
+        k = clusters.split_count(n, per_sm * n_sm * clusters.SWEEP_WAVES,
+                                 k_max)
         res[name] = dict(ms=ms, k=k, k_max=k_max,
                          grid_blocks=ray_blocks * k_max,
                          live_blocks=live_blocks * k,
@@ -1735,6 +1723,7 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
     state the calls left (CUDA events, ms per launch = per step), its
     plain version once, and its bound from this step's populations."""
     from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
 
     scene, cam, mp, st, caps, p, tb = mesh_setup(dev, cfg)
     kw = dict(cap_main=caps[0], cap_shadow=caps[1], device=dev)
@@ -1754,7 +1743,7 @@ def mesh_fused_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16,
 
     # one real step fills the buffers; then each entry point alone
     r = st.s.shape[0]
-    sf, si = fm.state_planes(st)
+    sf, si = fused.state_planes(st)
     b = fm.step_buffers(r, p, 1, dev)
     fm.run_steps(fm.KERNEL_OPS, tb, p, SEED_KEY0, sf.clone(), si.clone(), 1,
                  b)
@@ -2053,6 +2042,7 @@ def coherent_parity_phase(dev, cfg, shadow) -> tuple:
     from cpu_based_ray_tracer_tpu_torch.ops import coherent
     from cpu_based_ray_tracer_tpu_torch.ops.intersect import NO_HIT_T
     from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+    from cpu_based_ray_tracer_tpu_torch.ops import clusters
 
     scene = meshes.bvh_stage_scene(BVH_SUBDIVISIONS, device=dev)
     pack = coherent.pack_coherent(scene)
@@ -2078,8 +2068,9 @@ def coherent_parity_phase(dev, cfg, shadow) -> tuple:
                                        boxes=pack.boxes)
         ids, cnts = coherent._lists(wp_, pack.n_clusters)
         out_p = coherent.sweep_plain(pack.tri, rays, ids, cnts, cfg.t_min)
-        k_default = coherent.slices(rays.shape[1] * rays.shape[2],
-                                    pack.n_clusters, pack.cs)
+        k_default = clusters.slices(
+            coherent.LIB, "coherent_sweep_slots",
+            rays.shape[1] * rays.shape[2], pack.n_clusters, pack.cs)
         same = {"masks": torch.equal(mk, mp_), "tile_words": torch.equal(wk, wp_),
                 "tile_words_no_planes": torch.equal(wk0, wp_),
                 "ids": torch.equal(ids_k, ids), "cnts": torch.equal(cnts_k, cnts),
@@ -2121,6 +2112,7 @@ def coherent_speed_phase(dev, cfg, pack, cam_rays, swept, smi,
     from cpu_based_ray_tracer_tpu_torch.models import mesh
     from cpu_based_ray_tracer_tpu_torch.ops import coherent, packet
     from cpu_based_ray_tracer_tpu_torch.scenes import meshes
+    from cpu_based_ray_tracer_tpu_torch.ops import clusters
 
     o, d = cam_rays
     rays, _ = coherent._to_planes(o, d, (cfg.height, cfg.width))
@@ -2146,7 +2138,8 @@ def coherent_speed_phase(dev, cfg, pack, cam_rays, swept, smi,
     lists_wall_ms = (time.perf_counter() - t0) / n_iters * 1e3
     ids, cnts = lists()
     lanes = rays.shape[1] * rays.shape[2]
-    k_default = coherent.slices(lanes, pack.n_clusters, pack.cs)
+    k_default = clusters.slices(coherent.LIB, "coherent_sweep_slots",
+                                lanes, pack.n_clusters, pack.cs)
     sweep_ms = {}
     for k in sorted({k_default, *SWEEP_SLICES}):
         def sweep(k=k):
@@ -2160,7 +2153,8 @@ def coherent_speed_phase(dev, cfg, pack, cam_rays, swept, smi,
     for name, (c_rays, c_ids, c_cnts) in swept.items():
         if name == "camera":
             continue
-        k_c = coherent.slices(c_rays.shape[1] * c_rays.shape[2],
+        k_c = clusters.slices(coherent.LIB, "coherent_sweep_slots",
+                              c_rays.shape[1] * c_rays.shape[2],
                               pack.n_clusters, pack.cs)
         by_case[name] = {"slices_default": k_c, "ms_by_slices": {}}
         for k in sorted({k_c, *SWEEP_SLICES}):
@@ -2235,6 +2229,7 @@ def mesh_fused_164k_phase(dev, cfg, n_steps=16) -> dict:
     the max abs errors."""
     from cpu_based_ray_tracer_tpu_torch.ops import coherent
     from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
 
     scene, cam, mp, st, caps, p, tb = mesh_164k_setup(dev, cfg)
     if fm.fits_resident(mp.n_clusters, mp.cs):
@@ -2294,7 +2289,7 @@ def mesh_fused_164k_phase(dev, cfg, n_steps=16) -> dict:
     # state three kernel steps in (primary and bounce rays mixed)
     st3, _, _ = fm.wavefront_steps_fused_mesh(mp, cam, cfg, SEED_KEY0, st, 3,
                                               **kw)
-    sf, si = fm.state_planes(st3)
+    sf, si = fused.state_planes(st3)
     bp = fm.StepBuffers(*[torch.zeros_like(x) for x in
                           fm.step_buffers(sf.shape[1], p, 1, dev)])
     fm.run_op(fm.PLAIN_OPS, "k1", tb, p, SEED_KEY0, sf, si, bp)
@@ -2345,6 +2340,8 @@ def sl_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16, n_iters=10) -> dict:
     plain versions, and the bounds from this step's lists."""
     from cpu_based_ray_tracer_tpu_torch.ops import coherent
     from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
+    from cpu_based_ray_tracer_tpu_torch.ops import clusters
+    from cpu_based_ray_tracer_tpu_torch.ops import fused
 
     scene, cam, mp, st0, caps, p, tb = mesh_164k_setup(dev, cfg)
     modes = {}
@@ -2370,7 +2367,7 @@ def sl_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16, n_iters=10) -> dict:
             st_sl = st
     # one real step fills the buffers
     r = st_sl.s.shape[0]
-    sf, si = fm.state_planes(st_sl)
+    sf, si = fused.state_planes(st_sl)
     b = fm.step_buffers(r, p, 1, dev)
     fm.run_steps(fm.KERNEL_SL_OPS, tb, p, SEED_KEY0, sf.clone(), si.clone(),
                  1, b)
@@ -2420,7 +2417,7 @@ def sl_speed_phase(dev, cfg, smi, n_calls=3, n_steps=16, n_iters=10) -> dict:
             # the kernel's slices, which also stop once another slice has
             # set the ray's flag, make at most these
             n_t = rays.shape[1] // 4096
-            _, _, t_split = fm.split_sweep_plain(
+            _, _, t_split = clusters.split_sweep_plain(
                 mp.smc_tri, rays.view(7, n_t, 4096),
                 lst[0].view(n_t, mp.n_clusters), lst[1], p.t_min,
                 splits["default"]["k"], occl=True, n_live=n)
@@ -2684,7 +2681,10 @@ def rtiow_main_phase(dev, smi, n_iters=3) -> dict:
             raise RuntimeError(f"the one-launch {name} render differs from "
                                f"the plain lockstep render: {plain}")
 
-        per_sm, n_sm = fr.render_slots(pk, p)
+        per_sm, n_sm = fr.LIB.occupancy(
+            "fused_rtiow_render_slots",
+            pk.sph.numel() + pk.mat.numel() + 8 + 24, p.diffuse_model,
+            int(p.thinlens))
         threads = per_sm * n_sm * 256
         auto = fr.default_chunks(pk, p, dev)
         chunk_ms = {}
@@ -3123,7 +3123,7 @@ def concat_states(parts):
 
     cat = {f: torch.cat([getattr(p, f) for p in parts])
            for f in ("s", "b", "o", "d", "tp", "cur", "acc", "n_done")}
-    nrays = fused._wrap_i32(sum(p.nrays.to(torch.int64) for p in parts))
+    nrays = fused.wrap_i32(sum(p.nrays.to(torch.int64) for p in parts))
     return mc.WavefrontState(nrays=nrays, **cat)
 
 

@@ -91,6 +91,7 @@ def mesh_pack_from_arrays(d: dict, device="cpu"):
     the JAX (C, CS*16/128, 128) layout or (C, CS, 16)), its ints and
     tuples as they are."""
     from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh
+    from cpu_based_ray_tracer_tpu_torch.ops.clusters import MESH_NF
 
     kw = {f.name: d[f.name] for f in dataclasses.fields(fused_mesh.MeshPack)}
     for name in ("stri", "ssph", "mat", "light", "sky", "smc_tri",
@@ -98,7 +99,7 @@ def mesh_pack_from_arrays(d: dict, device="cpu"):
         kw[name] = torch.as_tensor(np.array(d[name], np.float32),
                                    device=device)
     kw["smc_tri"] = kw["smc_tri"].reshape(kw["smc_aabb"].shape[0], kw["cs"],
-                                          fused_mesh.MESH_NF)
+                                          MESH_NF)
     kw["gate_mask"] = np.asarray(d["gate_mask"], bool)
     return fused_mesh.MeshPack(**kw)
 
@@ -107,13 +108,14 @@ def coherent_pack_from_arrays(d: dict, device="cpu"):
     """An ``ops.coherent.CoherentPack`` on ``device`` from the fields of a
     JAX-package ``CoherentPack``: ``tri`` in either the JAX (C,
     CS*16/128, 128) layout or (C, CS, 16), ``aabb``, ``cs`` and ``n_tri``."""
-    from cpu_based_ray_tracer_tpu_torch.ops import coherent, fused_mesh
+    from cpu_based_ray_tracer_tpu_torch.ops import coherent
+    from cpu_based_ray_tracer_tpu_torch.ops.clusters import MESH_NF
 
     aabb = torch.as_tensor(np.array(d["aabb"], np.float32), device=device)
     tri = torch.as_tensor(np.array(d["tri"], np.float32), device=device)
     cs = int(d["cs"])
     return coherent.CoherentPack(
-        tri=tri.reshape(aabb.shape[0], cs, fused_mesh.MESH_NF), aabb=aabb,
+        tri=tri.reshape(aabb.shape[0], cs, MESH_NF), aabb=aabb,
         cs=cs, n_tri=int(d["n_tri"]))
 
 

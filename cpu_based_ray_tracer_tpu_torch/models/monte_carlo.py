@@ -49,6 +49,7 @@ from torch.utils import checkpoint
 from cpu_based_ray_tracer_tpu_torch import camera as cam_mod
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.ops import fused, intersect, sampling, vec
+from cpu_based_ray_tracer_tpu_torch.ops.fused import WavefrontState
 from cpu_based_ray_tracer_tpu_torch.scene import (Scene, flatten, to_device,
                                                   unflatten)
 from cpu_based_ray_tracer_tpu_torch.utils import (consts, graphs, profiling,
@@ -245,7 +246,7 @@ def trace(scene: Scene, origin, direction, cfg: RenderConfig, *, seed, pixel,
         recs += rec
     out = (radiance,)
     if count_rays:
-        out = out + (fused._wrap_i32(nrays),)
+        out = out + (fused.wrap_i32(nrays),)
     if return_record:
         out = out + (BounceRecord.stack(recs),)
     return out if len(out) > 1 else radiance
@@ -463,7 +464,7 @@ def render_wavefront(scene: Scene, camera, cfg: RenderConfig, seed: int,
             scene, cfg, seed=seed, pixel=pixel, sample=s, bounce=b, o=o,
             d=d, throughput=tp, alive=alive)
         acc = acc + delta
-        nrays = fused._wrap_i32(nrays.to(torch.int64) + n_main + n_shadow)
+        nrays = fused.wrap_i32(nrays.to(torch.int64) + n_main + n_shadow)
         # A path continues only below the depth cap (the scan engine's
         # truncation at cfg.max_depth).
         cont = continues & (b + 1 < cfg.max_depth)
@@ -497,22 +498,8 @@ def render_fast(scene: Scene, camera, cfg: RenderConfig, seed: int,
 # Each lane is a persistent worker for its pixel: when its path ends (miss,
 # emissive hit, RR death, depth cap) it regenerates the primary ray of its
 # pixel's next sample.  A fixed number of full-width steps runs per call and
-# the in-flight state carries across calls.
-
-@dataclasses.dataclass(frozen=True)
-class WavefrontState:
-    """Carryable lane state of the persistent wavefront integrator."""
-
-    s: torch.Tensor       # (R,) i32 current sample index per lane
-    b: torch.Tensor       # (R,) i32 current bounce of the in-flight path
-    o: torch.Tensor       # (R, 3) ray origin
-    d: torch.Tensor       # (R, 3) ray direction
-    tp: torch.Tensor      # (R, 3) path throughput
-    cur: torch.Tensor     # (R, 3) partial radiance of the in-flight path
-    acc: torch.Tensor     # (R, 3) summed radiance of completed samples
-    n_done: torch.Tensor  # (R,) i32 completed samples per lane
-    nrays: torch.Tensor   # () i32 traced-ray counter (wraps like int32)
-
+# the in-flight state carries across calls.  The state, ``WavefrontState``,
+# lives in ``ops.fused`` beside the kernels' layout of it.
 
 def wavefront_init(scene: Scene, camera, cfg: RenderConfig, seed: int,
                    pixel_offset: int = 0, n_lanes: int | None = None,
@@ -570,7 +557,7 @@ def wavefront_steps(scene: Scene, camera, cfg: RenderConfig, seed: int,
             cur=torch.where(done[:, None], 0.0, cur),
             acc=st.acc + torch.where(done[:, None], cur, 0.0),
             n_done=st.n_done + done.to(torch.int32),
-            nrays=fused._wrap_i32(st.nrays.to(torch.int64) + n_main
+            nrays=fused.wrap_i32(st.nrays.to(torch.int64) + n_main
                                   + n_shadow))
     return st
 

@@ -45,10 +45,10 @@ from typing import Optional
 
 import torch
 
-from cpu_based_ray_tracer_tpu_torch.ops import intersect
-from cpu_based_ray_tracer_tpu_torch.ops.fused_mesh import (
-    MESH_NF, SPLIT_MAX, SWEEP_WAVES, build_smem_clusters, crosses_box_plain,
-    split_count, split_sweep_plain)
+from cpu_based_ray_tracer_tpu_torch.ops import clusters, intersect
+from cpu_based_ray_tracer_tpu_torch.ops.clusters import (
+    MESH_NF, SPLIT_MAX, build_smem_clusters, crosses_box_plain,
+    split_sweep_plain)
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
 from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
@@ -63,7 +63,21 @@ MAX_CLUSTER_SIZE = 256   # rows the sweep kernel's block stages (SWEEP_BLOCK)
 
 # Launches of csrc/coherent.cu since the last reset.
 LAUNCHES = profiling.Counter("coherent", ("mask", "sweep"))
-_SLOTS: dict = {}          # (device, cs) -> the sweep's resident blocks
+
+_P = ctypes.c_void_p
+LIB = kernels.Library("coherent", {
+    # (aabb, levels, n_cl, rays, n_planes, hp, wp, t_min, cnt, masks,
+    #  words, part, tickets, ids, cnts, stream)
+    "coherent_mask": [_P, _P, ctypes.c_int, _P] + [ctypes.c_int] * 3
+    + [ctypes.c_float] + [_P] * 8,
+    # (cs, out)
+    "coherent_sweep_slots": [ctypes.c_int, _P],
+    # (tri, aabb, n_cl, cs, rays, hp, wp, ids, cnts, t_min, K, part,
+    #  tickets, out, stream)
+    "coherent_sweep": [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                       ctypes.c_int, _P, _P, ctypes.c_float, ctypes.c_int,
+                       _P, _P, _P, _P],
+}, LAUNCHES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,25 +293,21 @@ def _mask_kernel(aabb, rays, t_min: float, cnt=None, planes: bool = True,
     _check_planes(rays)
     if boxes is None:
         boxes = level_boxes(aabb)
-    tensors = [aabb, boxes, rays] + ([] if cnt is None else [cnt])
-    if not all(isinstance(x, torch.Tensor) and x.is_cuda
-               and x.is_contiguous() for x in tensors):
-        raise ValueError("the mask kernel takes contiguous CUDA tensors")
+    f32 = torch.float32
+    tensors = dict(aabb=(aabb, f32), boxes=(boxes, f32), rays=(rays, f32))
+    if cnt is not None:
+        tensors["cnt"] = (cnt, torch.int32)
+    kernels.check("coherent_mask", tensors)
     p, hp, wp = rays.shape
     n_cl = aabb.shape[0]
     b32 = -(-n_cl // _WORD)
-    if (aabb.dtype != torch.float32 or rays.dtype != torch.float32
-            or aabb.dim() != 2 or aabb.shape[1] != 8
-            or boxes.dtype != torch.float32
+    if (aabb.dim() != 2 or aabb.shape[1] != 8
             or boxes.shape != (b32, LEVEL_ROWS, 8)
             or aabb.data_ptr() % 16 or boxes.data_ptr() % 16
-            or (cnt is not None and (cnt.dtype != torch.int32
-                                     or cnt.numel() != 1))):
-        raise ValueError("the mask kernel takes aabb (C, 8) f32 and its "
-                         "level boxes, 16-byte aligned, rays f32 and cnt "
-                         "(1,) i32")
+            or (cnt is not None and cnt.numel() != 1)):
+        raise ValueError("the mask kernel takes aabb (C, 8) and its level "
+                         "boxes, 16-byte aligned, and cnt (1,)")
     dev = rays.device
-    stream = torch.cuda.current_stream(dev)
     n_tiles = hp // SUB * (wp // TILE_W)
     i32 = dict(dtype=torch.int32, device=dev)
     masks = torch.empty((b32, hp, wp), **i32) if planes else None
@@ -306,15 +316,12 @@ def _mask_kernel(aabb, rays, t_min: float, cnt=None, planes: bool = True,
     ids = torch.empty((n_tiles * n_cl,), **i32) if lists else None
     cnts = torch.empty((n_tiles,), **i32) if lists else None
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    rc = _fn("coherent_mask")(
-        aabb.data_ptr(), boxes.data_ptr(), n_cl, rays.data_ptr(), p, hp, wp,
-        float(t_min), ptr(cnt), ptr(masks), words.data_ptr(),
-        part.data_ptr(), kernels.tickets(n_tiles, stream).data_ptr(),
-        ptr(ids), ptr(cnts), stream.cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"coherent mask kernel launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES.add("mask")
+    LIB.launch(
+        "coherent_mask", aabb.data_ptr(), boxes.data_ptr(), n_cl,
+        rays.data_ptr(), p, hp, wp, float(t_min), ptr(cnt), ptr(masks),
+        words.data_ptr(), part.data_ptr(),
+        kernels.tickets(n_tiles, dev).data_ptr(), ptr(ids), ptr(cnts),
+        kernels.stream(rays), key="mask")
     return (masks, words, ids, cnts) if lists else (masks, words)
 
 
@@ -404,62 +411,43 @@ def sweep_plain(tri, rays, ids, cnts, t_min: float, k: int = 1, aabb=None):
     return _plane_major(torch.stack([best_t, idx]), hp, wp)
 
 
-def slices(n_lanes: int, n_cl: int, cs: int) -> int:
-    """The list slices K a sweep of n_lanes lanes takes on the current card
-    (``fused_mesh.split_count``'s rule: enough (256-lane block, slice) work
-    items to fill ``SWEEP_WAVES`` times the kernel's resident blocks, at
-    most ``SPLIT_MAX`` and the cluster count)."""
-    key = (torch.cuda.current_device(), cs)
-    if key not in _SLOTS:
-        out = (ctypes.c_int * 2)()
-        rc = _fn("coherent_sweep_slots")(cs, ctypes.addressof(out))
-        if rc != 0:
-            raise RuntimeError(f"coherent_sweep_slots failed: cudaError {rc}")
-        _SLOTS[key] = out[0] * out[1]
-    return split_count(n_lanes, _SLOTS[key] * SWEEP_WAVES,
-                       max(1, min(SPLIT_MAX, n_cl)))
-
-
 def _sweep_kernel(tri, aabb, rays, ids, cnts, t_min: float,
                   k: Optional[int] = None):
     """Launch the sweep kernel of csrc/coherent.cu on CUDA tensors; as
-    ``sweep_plain``.  ``k``: the list slices (default ``slices``'s)."""
+    ``sweep_plain``.  ``k``: the list slices (default
+    ``clusters.slices``'s)."""
     _check_planes(rays)
-    tensors = (tri, aabb, rays, ids, cnts)
-    if not all(isinstance(x, torch.Tensor) and x.is_cuda
-               and x.is_contiguous() for x in tensors):
-        raise ValueError("the sweep kernel takes contiguous CUDA tensors")
+    f32, i32 = torch.float32, torch.int32
+    kernels.check("coherent_sweep", dict(
+        tri=(tri, f32), aabb=(aabb, f32), rays=(rays, f32), ids=(ids, i32),
+        cnts=(cnts, i32)))
     p, hp, wp = rays.shape
     n_cl, cs = tri.shape[0], tri.shape[1]
     n_tiles = hp // SUB * (wp // TILE_W)
-    if (p != 6 or tri.dtype != torch.float32 or tri.shape[2:] != (MESH_NF,)
+    if (p != 6 or tri.shape[2:] != (MESH_NF,)
             or cs % GROUP_ROWS or cs > MAX_CLUSTER_SIZE
-            or aabb.dtype != torch.float32 or aabb.shape != (n_cl, 8)
-            or ids.dtype != torch.int32 or cnts.dtype != torch.int32
+            or aabb.shape != (n_cl, 8)
             or ids.numel() != n_tiles * n_cl or cnts.numel() != n_tiles):
-        raise ValueError("the sweep kernel takes rays (6, Hp, Wp) f32, tri "
-                         "(C, CS, 16) f32 with CS a multiple of 8 up to 256, "
-                         "aabb (C, 8) f32, ids (T * C,) and cnts (T,) i32")
+        raise ValueError("the sweep kernel takes rays (6, Hp, Wp), tri "
+                         "(C, CS, 16) with CS a multiple of 8 up to 256, "
+                         "aabb (C, 8), ids (T * C,) and cnts (T,)")
     n_lanes = hp * wp
-    k = slices(n_lanes, n_cl, cs) if k is None else int(k)
+    k = (clusters.slices(LIB, "coherent_sweep_slots", n_lanes, n_cl, cs)
+         if k is None else int(k))
     if not 1 <= k <= min(SPLIT_MAX, n_cl):
         raise ValueError(f"k must be in [1, {min(SPLIT_MAX, n_cl)}], not {k}")
     dev = rays.device
-    stream = torch.cuda.current_stream(dev)
     out = torch.empty((2, hp, wp), dtype=torch.float32, device=dev)
     part = tickets = None
     if k > 1:
         part = torch.empty((2 * k * n_lanes,), dtype=torch.int32, device=dev)
-        tickets = kernels.tickets(n_lanes // 256, stream)
+        tickets = kernels.tickets(n_lanes // 256, dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    rc = _fn("coherent_sweep")(
-        tri.data_ptr(), aabb.data_ptr(), n_cl, cs, rays.data_ptr(), hp, wp,
-        ids.data_ptr(), cnts.data_ptr(), float(t_min), k, ptr(part),
-        ptr(tickets), out.data_ptr(), stream.cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"coherent sweep kernel launch failed: "
-                           f"cudaError {rc}")
-    LAUNCHES.add("sweep")
+    LIB.launch(
+        "coherent_sweep", tri.data_ptr(), aabb.data_ptr(), n_cl, cs,
+        rays.data_ptr(), hp, wp, ids.data_ptr(), cnts.data_ptr(),
+        float(t_min), k, ptr(part), ptr(tickets), out.data_ptr(),
+        kernels.stream(rays), key="sweep")
     return out
 
 
@@ -483,28 +471,3 @@ def nearest(pack: CoherentPack, origin, direction, t_min: float,
     tt = torch.where(out[0] < intersect.NO_HIT_T, out[0], intersect.NO_HIT_T)
     return tt, out[1].to(torch.int32)
 
-
-# --- the kernels' C interface -------------------------------------------------
-
-_P = ctypes.c_void_p
-_SIGNATURES = {
-    # (aabb, levels, n_cl, rays, n_planes, hp, wp, t_min, cnt, masks,
-    #  words, part, tickets, ids, cnts, stream)
-    "coherent_mask": [_P, _P, ctypes.c_int, _P] + [ctypes.c_int] * 3
-    + [ctypes.c_float] + [_P] * 8,
-    # (cs, out)
-    "coherent_sweep_slots": [ctypes.c_int, _P],
-    # (tri, aabb, n_cl, cs, rays, hp, wp, ids, cnts, t_min, K, part,
-    #  tickets, out, stream)
-    "coherent_sweep": [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
-                       ctypes.c_int, _P, _P, ctypes.c_float, ctypes.c_int,
-                       _P, _P, _P, _P],
-}
-
-
-def _fn(name: str):
-    fn = getattr(kernels.load("coherent"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return fn

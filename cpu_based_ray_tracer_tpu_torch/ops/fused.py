@@ -52,6 +52,54 @@ TRI_W, SPH_W, LIGHT_W = 20, 16, 16
 LAUNCHES = profiling.Counter("fused_mc")
 
 
+# --- the lane state -----------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class WavefrontState:
+    """Carryable lane state of the persistent wavefront integrator."""
+
+    s: torch.Tensor       # (R,) i32 current sample index per lane
+    b: torch.Tensor       # (R,) i32 current bounce of the in-flight path
+    o: torch.Tensor       # (R, 3) ray origin
+    d: torch.Tensor       # (R, 3) ray direction
+    tp: torch.Tensor      # (R, 3) path throughput
+    cur: torch.Tensor     # (R, 3) partial radiance of the in-flight path
+    acc: torch.Tensor     # (R, 3) summed radiance of completed samples
+    n_done: torch.Tensor  # (R,) i32 completed samples per lane
+    nrays: torch.Tensor   # () i32 traced-ray counter (wraps like int32)
+
+
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap (JAX's int32 sums)."""
+    return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+
+
+def state_planes(state: WavefrontState):
+    """A ``WavefrontState`` as the kernels' contiguous planes: sf (15, R)
+    f32 [o d tp cur acc], si (4, R) i32 [s b n_done shadow-ray tally=0]."""
+    sf = torch.cat([x.T for x in (state.o, state.d, state.tp, state.cur,
+                                  state.acc)], 0).to(torch.float32)
+    si = torch.stack([state.s, state.b, state.n_done,
+                      torch.zeros_like(state.s)]).to(torch.int32)
+    return sf.contiguous(), si.contiguous()
+
+
+def planes_state(state: WavefrontState, sf, si,
+                 n_steps: int) -> WavefrontState:
+    """The state that ``n_steps`` steps from ``state`` left in the planes
+    sf / si (``state_planes``'s layout, si[3] the shadow rays traced).
+    Every lane traces a main ray each step; the ray counter wraps modulo
+    2^31 per call and modulo 2^32 overall, as the JAX package's int32
+    counter."""
+    r = sf.shape[1]
+    v3 = lambda k: sf[3 * k:3 * k + 3].T                          # noqa: E731
+    nrays = wrap_i32(state.nrays.to(torch.int64)
+                     + (int(n_steps) * r) % (1 << 31)
+                     + si[3].to(torch.int64).sum())
+    return WavefrontState(s=si[0], b=si[1], o=v3(0), d=v3(1), tp=v3(2),
+                          cur=v3(3), acc=v3(4), n_done=si[2], nrays=nrays)
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedScene:
     """Kernel-ready pack of a (small) scene, built by ``pack_scene``."""
@@ -563,28 +611,20 @@ def _steps_plain(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
 
 # --- the kernel -------------------------------------------------------------
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int,             # scene words
-             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_tri n_sph n_light
-             ctypes.c_uint32,                           # seed
-             ctypes.c_void_p, ctypes.c_void_p,          # sf si
-             ctypes.c_int, ctypes.c_int,                # R n_pix
-             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # width height n_steps
-             ctypes.c_float, ctypes.c_float,            # t_min eps_offset
-             ctypes.c_float, ctypes.c_float,            # rr_survival 1/rr
-             ctypes.c_float, ctypes.c_float,            # shadow_tol aspect
-             ctypes.c_int, ctypes.c_int,                # max_depth stop_after
-             ctypes.c_int, ctypes.c_void_p,             # single_path gb
-             ctypes.c_void_p,                           # lane counter
-             ctypes.c_void_p]                           # stream
-
-
-def _lib():
-    lib = kernels.load("fused_mc")
-    fn = lib.fused_mc_steps
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+LIB = kernels.Library("fused_mc", {"fused_mc_steps": [
+    ctypes.c_void_p, ctypes.c_int,             # scene words
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n_tri n_sph n_light
+    ctypes.c_uint32,                           # seed
+    ctypes.c_void_p, ctypes.c_void_p,          # sf si
+    ctypes.c_int, ctypes.c_int,                # R n_pix
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # width height n_steps
+    ctypes.c_float, ctypes.c_float,            # t_min eps_offset
+    ctypes.c_float, ctypes.c_float,            # rr_survival 1/rr
+    ctypes.c_float, ctypes.c_float,            # shadow_tol aspect
+    ctypes.c_int, ctypes.c_int,                # max_depth stop_after
+    ctypes.c_int, ctypes.c_void_p,             # single_path gb
+    ctypes.c_void_p,                           # lane counter
+    ctypes.c_void_p]}, LAUNCHES)               # stream
 
 
 def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
@@ -592,15 +632,10 @@ def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
     """Launch csrc/fused_mc.cu on CUDA tensors; updates sf/si (and, in
     ``single_path`` mode, the (8, R) G-buffer ``gb``) in place, as
     ``_steps_plain``."""
-    planes = ((sf, torch.float32), (si, torch.int32))
+    planes = {"sf": (sf, torch.float32), "si": (si, torch.int32)}
     if p.single_path:
-        planes += ((gb, torch.float32),)
-    for x, dt in planes:
-        if not (isinstance(x, torch.Tensor) and x.is_cuda and x.dtype == dt
-                and x.is_contiguous()):
-            raise ValueError("fused_mc takes contiguous CUDA state planes "
-                             "(15, R) float32 and (4, R) int32, and in "
-                             "single_path mode an (8, R) float32 G-buffer")
+        planes["the single_path G-buffer"] = (gb, torch.float32)
+    kernels.check("fused_mc", planes)
     r = sf.shape[1]
     if (sf.shape != (15, r) or si.shape != (4, r)
             or (p.single_path and gb.shape != (8, r))):
@@ -619,33 +654,21 @@ def _steps_kernel(fs: FusedScene, cam16, seed: int, sf, si, p: _Params,
     # the gated modes' lane counter (persistent threads)
     counter = (torch.zeros((1,), dtype=torch.int32, device=sf.device)
                if gated else None)
-    fn = _lib().fused_mc_steps
-    rc = fn(scene.data_ptr(), scene.numel(), fs.n_tri, fs.n_sph, fs.n_light,
-            seed, sf.data_ptr(), si.data_ptr(), r, p.n_pix, p.width,
-            p.height, p.n_steps, p.t_min, p.eps_offset, p.rr_survival,
-            1.0 / p.rr_survival, p.shadow_tol,
-            float(p.width) / float(p.height), p.max_depth, p.stop_after,
-            int(p.single_path), gb.data_ptr() if p.single_path else None,
-            None if counter is None else counter.data_ptr(),
-            torch.cuda.current_stream(sf.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_mc kernel launch failed: cudaError {rc}")
-    LAUNCHES.add()
+    LIB.launch(
+        "fused_mc_steps", scene.data_ptr(), scene.numel(), fs.n_tri,
+        fs.n_sph, fs.n_light, seed, sf.data_ptr(), si.data_ptr(), r,
+        p.n_pix, p.width, p.height, p.n_steps, p.t_min, p.eps_offset,
+        p.rr_survival, 1.0 / p.rr_survival, p.shadow_tol,
+        float(p.width) / float(p.height), p.max_depth, p.stop_after,
+        int(p.single_path), gb.data_ptr() if p.single_path else None,
+        None if counter is None else counter.data_ptr(), kernels.stream(sf))
     return sf, si
 
 
 # --- wrappers ---------------------------------------------------------------
 
-def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> int32 with two's-complement wrap (JAX's int32 sums)."""
-    return ((x + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
-
-
 def _run(core, fs: FusedScene, camera, cfg: RenderConfig, seed: int, state,
          n_steps: int, stop_after: int):
-    from cpu_based_ray_tracer_tpu_torch.models.monte_carlo import (
-        WavefrontState)
-
     if cfg.soft_shadow_beta > 0.0:
         raise NotImplementedError("the fused stepper implements the "
                                   "reference's hard shadow test only")
@@ -655,33 +678,21 @@ def _run(core, fs: FusedScene, camera, cfg: RenderConfig, seed: int, state,
         raise ValueError("fused stepper expects full-image lane state")
     dev = state.s.device
     cam16 = _camera_words(camera.to(dev))
-    sf = torch.cat([x.T for x in (state.o, state.d, state.tp, state.cur,
-                                  state.acc)], 0).to(torch.float32)
-    si = torch.stack([state.s, state.b, state.n_done,
-                      torch.zeros_like(state.s)]).to(torch.int32)
+    sf, si = state_planes(state)
     p = _Params(n_steps=int(n_steps), width=cfg.width, height=cfg.height,
                 n_pix=n_pix, t_min=float(cfg.t_min),
                 eps_offset=float(cfg.eps_offset),
                 rr_survival=float(cfg.rr_survival),
                 shadow_tol=float(cfg.shadow_tolerance),
                 max_depth=int(cfg.max_depth), stop_after=int(stop_after))
-    sf2, si2 = core(fs.to(dev), cam16, int(seed) & 0xFFFFFFFF,
-                    sf.contiguous(), si.contiguous(), p)
-    v3 = lambda k: sf2[3 * k:3 * k + 3].T                        # noqa: E731
-    # Every lane traces a main ray each step; the counter wraps modulo 2^31
-    # per call and modulo 2^32 overall, as the JAX package's int32 counter.
-    nrays = _wrap_i32(state.nrays.to(torch.int64)
-                      + (int(n_steps) * r) % (1 << 31)
-                      + si2[3].to(torch.int64).sum())
-    return WavefrontState(s=si2[0], b=si2[1], o=v3(0), d=v3(1), tp=v3(2),
-                          cur=v3(3), acc=v3(4), n_done=si2[2], nrays=nrays)
+    sf2, si2 = core(fs.to(dev), cam16, int(seed) & 0xFFFFFFFF, sf, si, p)
+    return planes_state(state, sf2, si2, n_steps)
 
 
 def wavefront_steps_fused(fs: FusedScene, camera, cfg: RenderConfig,
                           seed: int, state, n_steps: int, *,
                           stop_after: int = 0, device=None):
-    """Advance every lane of ``state`` (a full-image
-    ``models.monte_carlo.WavefrontState``) by ``n_steps`` bounce steps.
+    """Advance every lane of ``state`` (a full-image ``WavefrontState``) by ``n_steps`` bounce steps.
 
     ``device`` (default: the card) must be where ``state`` lies.  For CUDA
     tensors this launches csrc/fused_mc.cu; for CPU tensors it runs the

@@ -42,14 +42,13 @@ with the same triangle loops and so the same results.
   sweep cuts each ray block's cluster list into slices swept by blocks of
   their own (the packed rays alone are too few blocks to fill the card)
   and combines them in list order; a warp skips every cluster whose box
-  (padded: ``crosses_box_plain``) none of its rays crosses.
+  (padded: ``clusters.crosses_box_plain``) none of its rays crosses.
 - ``_k1_plain``, ``_sweep_plain``, ``_k1b_plain`` and ``_k2_plain`` (and
   ``coherent.mask_plain``) are the same arithmetic in PyTorch, with the
   same inputs and outputs as the kernels;
   ``wavefront_steps_fused_mesh_plain`` steps with them on any device.  The
-  entry points run them only for CPU tensors.  ``split_sweep_plain`` is
-  the sweep sliced and combined as the kernel does, and
-  ``crosses_box_plain`` the kernel's box cull, for the tests.
+  entry points run them only for CPU tensors.  The cluster table, the
+  split rule and the plain list sweeps live in ``ops.clusters``.
 
 Capacity: the packed buffers have a fixed size per call.  A step whose
 predicate population exceeds one reports overflow (``render_turbo_mesh``
@@ -69,21 +68,19 @@ import numpy as np
 import torch
 
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
-from cpu_based_ray_tracer_tpu_torch.ops import bvh as bvh_ops
+from cpu_based_ray_tracer_tpu_torch.ops import coherent
+from cpu_based_ray_tracer_tpu_torch.ops.clusters import (
+    MESH_NF, PACK, SPLIT_MAX, SWEEP_BLOCK, build_smem_clusters,
+    crosses_box_plain, list_sweep_plain)
 from cpu_based_ray_tracer_tpu_torch.ops.fused import (
     NO_HIT, _DET_EPS, _camera_words, _light_sample, _norm3, _shade_advance,
-    _wrap_i32, lanes)
+    lanes, planes_state, state_planes)
 from cpu_based_ray_tracer_tpu_torch.scene import Scene
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
 from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
-MESH_NF = 16            # floats per cluster triangle row: v0 e1 e2 n mid idx pad*2
 LANES_PER_TILE = 4096   # the caps are whole multiples of this many lanes
 PACK_BLOCK = 256        # lanes per K1/K1b block: one offsets-table row each
-SWEEP_BLOCK = 256       # packed rays per sweep block (csrc/fused_mesh.cu)
-SPLIT_MAX = 16          # most list slices per sweep ray block (the same)
-SWEEP_WAVES = 8         # the slices fill this many times the resident blocks
-_TILE_CHUNK = 16        # tiles per vectorized step of list_sweep_plain
 # The JAX package's SMEM budget for the cluster table: past it the sweeps
 # default to the shortlist-streaming mode.
 SMEM_RESIDENT_BUDGET = 736 * 1024
@@ -93,11 +90,6 @@ SMEM_RESIDENT_BUDGET = 736 * 1024
 LAUNCHES = profiling.Counter(
     "fused_mesh", ("k1", "group", "nearest", "k1b", "group_occl", "occl",
                    "k2", "nearest_sl", "occl_sl"))
-# pack_mesh_scene's device builds ("packs"), the level passes of their
-# BVH leaf orders (``bvh.leaf_order``, also counted for the other callers of
-# ``build_smem_clusters``) and their reads of the device ("host_reads"); a
-# pack reads the device a fixed number of times, whatever the mesh's size.
-PACK = profiling.Counter("fused_mesh_pack", ("packs", "levels", "host_reads"))
 # Bits of the key by which the resident sweeps' rays are grouped: cluster c
 # sets bit c % GROUP_BITS (csrc/fused_mesh.cu GROUP_BITS).
 GROUP_BITS = 12
@@ -106,79 +98,6 @@ GROUP_BITS = 12
 # steps, the caps, the overflow, the predicate populations and the sweep
 # mode (``resident``: the grouped resident sweeps, else the shortlists).
 TRACE: list = []
-
-
-def split_count(n: int, target: int, k_max: int) -> int:
-    """Slices per ray block that the sweep kernel takes for ``n`` packed
-    rays and ``target`` block slots (csrc/fused_mesh.cu split_count)."""
-    nb = -(-int(n) // SWEEP_BLOCK)
-    if nb <= 0:
-        return 1
-    return max(1, min(-(-int(target) // nb), k_max))
-
-
-# --- the pack ----------------------------------------------------------------
-
-class SmemClusters(NamedTuple):
-    """Cluster-major triangle table (the JAX package's name: there it is
-    SMEM-resident; here it stays in device memory)."""
-
-    tri: torch.Tensor       # (C, CS, MESH_NF) f32 rows: v0 e1 e2 n mid idx
-    aabb: torch.Tensor      # (C, 8) f32 min xyz / max xyz / pad
-    cs: int
-    box_aabb: torch.Tensor  # (B, 8) f32 union AABB per chunk of clusters
-    boxes: tuple            # ((c_start, c_end), ...) cluster ranges
-
-
-def build_smem_clusters(verts, normals, mids, cluster_size: int = 128
-                        ) -> SmemClusters:
-    """Spatially ordered FULL clusters: the triangles in median-split BVH
-    preorder (leaves of at most ``max(8, cs // 8)``), the preorder stream
-    cut into exactly-``cluster_size`` clusters; only the last cluster pads,
-    with all-zero triangles (det == 0, never hit; index -1).  AABBs are
-    rounded outward to float32.  Up to 64 spatial boxes of contiguous
-    clusters serve as the predicate AABBs of meshes with more than 64
-    clusters.  Built on the device of ``verts`` (numpy: the CPU) with no
-    read of it; byte-equal to the JAX package's build."""
-    tris = torch.as_tensor(verts).to(torch.float64).reshape(-1, 3, 3)
-    dev, f32 = tris.device, torch.float32
-    n, cs = tris.shape[0], cluster_size
-    c = -(-n // cs)
-    n_box = int(min(64, c))
-    edges = np.linspace(0, c, n_box + 1).astype(int)
-    boxes = tuple((int(edges[b]), int(edges[b + 1])) for b in range(n_box))
-    # A box's clusters as one row, padded by repeating its last one (the
-    # widths of the boxes differ by at most one).
-    width = int(np.diff(edges).max()) if n_box else 0
-    box_rows = torch.as_tensor(np.minimum(
-        edges[:-1, None] + np.arange(width), edges[1:, None] - 1)).to(dev)
-    order = bvh_ops.leaf_order(tris, leaf_size=max(8, cs // 8),
-                               on_level=lambda: PACK.add("levels"))
-
-    # One row a triangle in input order, and a last one for the padding.
-    table = torch.zeros((n + 1, MESH_NF), dtype=f32, device=dev)
-    table[:n, 0:3] = tris[:, 0]
-    table[:n, 3:6] = tris[:, 1] - tris[:, 0]
-    table[:n, 6:9] = tris[:, 2] - tris[:, 0]
-    table[:n, 9:12] = torch.as_tensor(normals).to(dev)
-    table[:n, 12] = torch.as_tensor(mids).to(dev)
-    table[:n, 13] = torch.arange(n, device=dev)   # original index (f32)
-    table[n, 13] = -1.0
-    idx = torch.full((c * cs,), n, dtype=torch.int64, device=dev)
-    idx[:n] = order
-    rows = table[idx].view(c, cs, MESH_NF)
-
-    inf = torch.full((1, 3), float("inf"), dtype=torch.float64, device=dev)
-    lo = torch.cat([tris.amin(1), inf])[idx].view(c, cs, 3).amin(1)
-    hi = torch.cat([tris.amax(1), -inf])[idx].view(c, cs, 3).amax(1)
-    aabb = torch.zeros((c, 8), dtype=f32, device=dev)
-    aabb[:, 0:3] = torch.nextafter(lo.to(f32), -inf.to(f32))
-    aabb[:, 3:6] = torch.nextafter(hi.to(f32), inf.to(f32))
-    box_aabb = torch.zeros((n_box, 8), dtype=f32, device=dev)
-    box_aabb[:, 0:3] = aabb[box_rows, 0:3].amin(1)
-    box_aabb[:, 3:6] = aabb[box_rows, 3:6].amax(1)
-    return SmemClusters(tri=rows, aabb=aabb, cs=cs, box_aabb=box_aabb,
-                        boxes=boxes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,8 +138,6 @@ class MeshPack:
     def smc_level_boxes(self) -> torch.Tensor:
         """The mask pass's word and group boxes of the cluster AABBs
         (``ops.coherent.level_boxes``), made once a pack."""
-        from cpu_based_ray_tracer_tpu_torch.ops import coherent
-
         return coherent.level_boxes(self.smc_aabb)
 
     def to(self, device) -> "MeshPack":
@@ -514,173 +431,6 @@ def _k1_plain(tb: _Tables, p: _Params, sf, hf, mr, mr_id, offs, cnt):
     _append((ox, oy, oz, dx, dy, dz), crossed & valid, mr, mr_id, offs, cnt)
 
 
-def list_sweep_plain(tri, rays, ids, cnts, t_min: float, *, occl: bool,
-                     n_live: int | None = None, cull=None):
-    """The cluster sweep over per-tile lists in PyTorch: the loops of the
-    sweep kernels (csrc/cluster_tri.cuh).  rays (P, T, L): the rays of T
-    tiles, P = 6 [o d] (nearest) or 7 [o d lim] (occlusion); tile t sweeps
-    the clusters ids[t, :cnts[t]] of tri (C, CS, MESH_NF), in that order.
-    Only the first ``n_live`` rays in tile order are swept (default all).
-
-    Nearest: the first row at the least t in a cluster wins, a later
-    cluster only when strictly nearer.  Occlusion: any row within
-    (t_min, lim] by the division-free accept.  Returns (best_t (T, L),
-    best_slot (T, L) i64 row of tri.reshape(-1, MESH_NF) or -1, tests) for
-    nearest and (occluded (T, L) bool, None, tests) for occlusion; tests
-    (T, L) i64 counts the triangle tests the kernels make (an occluded ray
-    stops at its first occluder).  ``cull`` (nearest only): cull(cid (A,),
-    rays (6, A, lc)) -> (A, CS, lc) bool, the rows of clusters cid that
-    each ray tests (the others it skips; csrc/coherent.cu's cull, which
-    is conservative, so the results stay the unculled sweep's)."""
-    where = torch.where
-    dev = rays.device
-    cs = tri.shape[1]
-    _, n_t, n_l = rays.shape
-    n_live = n_t * n_l if n_live is None else min(int(n_live), n_t * n_l)
-    rows = torch.arange(cs, device=dev)[None, :, None]
-    tests = torch.zeros((n_t, n_l), dtype=torch.int64, device=dev)
-    best = torch.zeros((n_t, n_l), dtype=torch.bool, device=dev)
-    slot = None
-    if not occl:
-        best = torch.full((n_t, n_l), NO_HIT, dtype=torch.float32, device=dev)
-        slot = torch.full((n_t, n_l), -1, dtype=torch.int64, device=dev)
-    ids = ids.to(torch.int64)
-    cn_all = cnts.to(torch.int64).cpu()          # loop bounds, on the host
-    # whole tiles in chunks, then the live part of the last tile
-    n_full = n_live // n_l
-    segs = [(t0, min(n_full, t0 + _TILE_CHUNK), n_l)
-            for t0 in range(0, n_full, _TILE_CHUNK)]
-    if n_live % n_l:
-        segs.append((n_full, n_full + 1, n_live % n_l))
-    for t0, t1, lc in segs:
-        cn = cn_all[t0:t1]
-        for j in range(int(cn.max())):
-            act = cn > j
-            tt = (slice(t0, t1) if bool(act.all())
-                  else (torch.nonzero(act)[:, 0] + t0).to(dev))
-            cid = ids[tt, j]
-            tc = tri[cid]                                   # (A, CS, NF)
-            ox, oy, oz, dx, dy, dz = (x[:, None, :lc] for x in rays[0:6, tt])
-            v0x, v0y, v0z = tc[:, :, 0:1], tc[:, :, 1:2], tc[:, :, 2:3]
-            e1x, e1y, e1z = tc[:, :, 3:4], tc[:, :, 4:5], tc[:, :, 5:6]
-            e2x, e2y, e2z = tc[:, :, 6:7], tc[:, :, 7:8], tc[:, :, 8:9]
-            s1x = dy * e2z - dz * e2y
-            s1y = dz * e2x - dx * e2z
-            s1z = dx * e2y - dy * e2x
-            det = s1x * e1x + s1y * e1y + s1z * e1z            # (A, CS, lc)
-            okd = torch.abs(det) > _DET_EPS
-            sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-            s2x = sy * e1z - sz * e1y
-            s2y = sz * e1x - sx * e1z
-            s2z = sx * e1y - sy * e1x
-            if occl:
-                lim = rays[6, tt][:, None, :lc]
-                sd = where(det >= 0.0, 1.0, -1.0)
-                adet = det * sd
-                tn = s2x * e2x + s2y * e2y + s2z * e2z
-                b1n = s1x * sx + s1y * sy + s1z * sz
-                b2n = s2x * dx + s2y * dy + s2z * dz
-                tsd = tn * sd
-                hit = (okd & (tsd > t_min * adet) & (tsd <= lim * adet)
-                       & (b1n * sd >= 0.0) & (b2n * sd >= 0.0)
-                       & ((det - b1n - b2n) * sd >= 0.0))
-                hit_c = hit.any(1)                              # (A, lc)
-                prev = best[tt, :lc]
-                first = torch.amin(where(hit, rows, cs), 1)
-                # tests up to and including the first accepted row
-                tests[tt, :lc] += where(prev, 0, where(hit_c, first + 1, cs))
-                best[tt, :lc] = prev | hit_c
-                continue
-            inv = 1.0 / where(okd, det, 1.0)
-            t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv
-            b1 = (s1x * sx + s1y * sy + s1z * sz) * inv
-            b2 = (s2x * dx + s2y * dy + s2z * dz) * inv
-            ok = (okd & (t > t_min) & (b1 >= 0.0) & (b2 >= 0.0)
-                  & (1.0 - b1 - b2 >= 0.0))
-            if cull is not None:
-                tested = cull(cid, rays[0:6, tt][:, :, :lc])    # (A, CS, lc)
-                ok &= tested
-            tm = where(ok, t, NO_HIT)                           # (A, CS, lc)
-            t_c = torch.amin(tm, 1)
-            # the strict t < best_t chain keeps the first row at the least t
-            i_c = torch.amin(where(tm == t_c[:, None], rows, cs), 1)
-            bt = best[tt, :lc]
-            better = t_c < bt
-            best[tt, :lc] = where(better, t_c, bt)
-            slot[tt, :lc] = where(better, cid[:, None] * cs + i_c,
-                                  slot[tt, :lc])
-            tests[tt, :lc] += cs if cull is None else tested.sum(1)
-    return best, slot, tests
-
-
-def split_sweep_plain(tri, rays, ids, cnts, t_min: float, k: int, *,
-                      occl: bool, n_live: int | None = None, cull=None):
-    """``list_sweep_plain`` as the split sweep kernel computes it: each
-    tile's list cut into ``k`` contiguous slices (slice i: positions
-    [n * i // k, n * (i + 1) // k) of a list of n), each slice swept alone,
-    then combined in slice order (nearest: a later slice wins only when
-    strictly nearer; occlusion: OR).  Same returns as
-    ``list_sweep_plain``; the tests are those of slices that each stop a
-    ray only at their own first occluder (the kernel's slices also stop
-    once another slice has found one, so they make at most these)."""
-    dev = rays.device
-    n_t, n_c = ids.shape
-    cn = cnts.to(torch.int64).to(dev)
-    pos = torch.arange(n_c, device=dev)
-    best = slot = tests = None
-    for i in range(k):
-        j0, j1 = cn * i // k, cn * (i + 1) // k
-        take = torch.clamp(j0[:, None] + pos, max=n_c - 1)
-        ids_i = torch.gather(ids.to(torch.int64), 1, take)
-        r, s, t = list_sweep_plain(tri, rays, ids_i, j1 - j0, t_min,
-                                   occl=occl, n_live=n_live, cull=cull)
-        if best is None:
-            best, slot, tests = r, s, t
-            continue
-        tests = tests + t
-        if occl:
-            best = best | r
-            continue
-        better = r < best
-        best = torch.where(better, r, best)
-        slot = torch.where(better, s, slot)
-    return best, slot, tests
-
-
-def crosses_box_plain(aabb, rays, t_min: float, *, occl: bool):
-    """The sweep kernel's cluster cull in PyTorch (csrc/fused_mesh.cu
-    ``crosses_box``): does each ray of rays (6 or 7, n) cross each box of
-    aabb (C, 8), every side pushed out by 1e-4 of the box's extent plus
-    the largest coordinate magnitude of the box and the ray's origin, and
-    1e-6?  The slab test of the mask pass, from min(t_min, 0) (occlusion:
-    up to lim with its slack).  -> (C, n) bool."""
-    ox, oy, oz, dx, dy, dz = rays[0:6]
-
-    def sinv(v):
-        tiny = torch.where(v < 0.0, -1e-20, 1e-20)
-        return 1.0 / torch.where(torch.abs(v) < 1e-20, tiny, v)
-
-    o_mag = torch.maximum(torch.maximum(torch.abs(ox), torch.abs(oy)),
-                          torch.abs(oz))
-    box = aabb[:, :6, None]
-    mag = torch.maximum(o_mag, torch.amax(torch.abs(box), 1))   # (C, n)
-    ts = []
-    for o, iv, j in ((ox, sinv(dx), 0), (oy, sinv(dy), 1), (oz, sinv(dz), 2)):
-        lo, hi = box[:, j], box[:, 3 + j]
-        m = 1e-4 * ((hi - lo) + mag) + 1e-6
-        ts.append(((lo - m - o) * iv, (hi + m - o) * iv))
-    t_in = torch.maximum(torch.maximum(torch.minimum(*ts[0]),
-                                       torch.minimum(*ts[1])),
-                         torch.minimum(*ts[2]))
-    t_out = torch.minimum(torch.minimum(torch.maximum(*ts[0]),
-                                        torch.maximum(*ts[1])),
-                          torch.maximum(*ts[2]))
-    crossed = (t_out >= min(float(t_min), 0.0)) & (t_in <= t_out)
-    if occl:
-        crossed &= t_in <= rays[6] * 1.000001 + 1e-5
-    return crossed
-
-
 def group_keys_plain(aabb, rays, t_min: float, *, occl: bool = False):
     """The grouping key of each ray of rays (6 or 7, n): bit c % GROUP_BITS
     set where the ray crosses cluster c's padded box (``crosses_box_plain``
@@ -862,7 +612,7 @@ class _CParams(ctypes.Structure):
 
 
 _P = ctypes.c_void_p
-_SIGNATURES = {
+LIB = kernels.Library("fused_mesh", {
     # (params, tables, sf, hf, mr, mr_id, offs, cnt, stream)
     "fused_mesh_k1": [_P] * 9,
     # (params, occl, tri, aabb, rays, ray_id, cap, cnt, ids, cnts, k_max,
@@ -879,15 +629,7 @@ _SIGNATURES = {
     "fused_mesh_k1b": [_P] * 11,
     # (params, tables, kb, sf, si, stream)
     "fused_mesh_k2": [_P] * 6,
-}
-
-
-def _fn(name: str):
-    fn = getattr(kernels.load("fused_mesh"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return fn
+}, LAUNCHES)
 
 
 def _cparams(tb: _Tables, p: _Params, seed: int, r: int) -> _CParams:
@@ -906,26 +648,6 @@ def _cparams(tb: _Tables, p: _Params, seed: int, r: int) -> _CParams:
         aspect=float(p.width) / float(p.height))
 
 
-def _check(name: str, tensors: dict):
-    """Every tensor a contiguous CUDA tensor of its dtype, or ValueError."""
-    for what, (x, dt) in tensors.items():
-        if not (isinstance(x, torch.Tensor) and x.is_cuda and x.dtype == dt
-                and x.is_contiguous()):
-            raise ValueError(f"{name} takes contiguous CUDA {dt} tensors; "
-                             f"{what} is not one")
-
-
-def _launch(name: str, key: str, *args):
-    rc = _fn(name)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES.add(key)
-
-
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _plane_rows(x, rows: int, r: int, what: str):
     if x.dim() != 2 or x.shape[0] != rows or x.shape[1] != r:
         raise ValueError(f"{what} must be ({rows}, {r}), not "
@@ -937,7 +659,7 @@ _F, _I = torch.float32, torch.int32
 
 def _k1_kernel(tb: _Tables, p: _Params, sf, hf, mr, mr_id, offs, cnt):
     """Launch K1 (csrc/fused_mesh.cu) on CUDA tensors; as ``_k1_plain``."""
-    _check("fused_mesh K1", dict(words=(tb.words, _F), sf=(sf, _F),
+    kernels.check("fused_mesh K1", dict(words=(tb.words, _F), sf=(sf, _F),
                                  hf=(hf, _F), mr=(mr, _F), mr_id=(mr_id, _I),
                                  offs=(offs, _I), cnt=(cnt, _I)))
     r = sf.shape[1]
@@ -947,19 +669,9 @@ def _k1_kernel(tb: _Tables, p: _Params, sf, hf, mr, mr_id, offs, cnt):
     if offs.shape != (-(-r // PACK_BLOCK), 2) or mr_id.shape != (p.cap_main,):
         raise ValueError("bad offsets table or id buffer shape")
     cp = _cparams(tb, p, 0, r)
-    _launch("fused_mesh_k1", "k1", ctypes.byref(cp), tb.words.data_ptr(),
-            sf.data_ptr(), hf.data_ptr(), mr.data_ptr(), mr_id.data_ptr(),
-            offs.data_ptr(), cnt.data_ptr(), _stream(sf))
-
-
-def sweep_slots(occl: bool, cs: int) -> tuple[int, int]:
-    """(resident sweep blocks per SM, SMs) of the current card for clusters
-    of ``cs`` triangles: the occupancy the split is sized by."""
-    out = (ctypes.c_int * 2)()
-    rc = _fn("fused_mesh_sweep_slots")(int(occl), cs, ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"fused_mesh_sweep_slots failed: cudaError {rc}")
-    return out[0], out[1]
+    LIB.launch("fused_mesh_k1", ctypes.byref(cp), tb.words.data_ptr(),
+               sf.data_ptr(), hf.data_ptr(), mr.data_ptr(), mr_id.data_ptr(),
+               offs.data_ptr(), cnt.data_ptr(), kernels.stream(sf), key="k1")
 
 
 def _sweep_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
@@ -975,7 +687,7 @@ def _sweep_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
                    out=(out, _F))
     if lists is not None:
         tensors.update(ids=(lists[0], _I), cnts=(lists[1], _I))
-    _check(name, tensors)
+    kernels.check(name, tensors)
     cap = rays.shape[1]
     _plane_rows(rays, 7 if occl else 6, cap, "rays")
     _plane_rows(out, 1 if occl else 5, out.shape[1], "out")
@@ -998,15 +710,14 @@ def _sweep_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, out, *,
         part = (torch.zeros((cap,), dtype=_I, device=rays.device) if occl
                 else torch.empty((2 * k_max * cap,), dtype=_I,
                                  device=rays.device))
-        tickets = torch.zeros((-(-cap // SWEEP_BLOCK),), dtype=_I,
-                              device=rays.device)
+        tickets = kernels.tickets(-(-cap // SWEEP_BLOCK), rays.device)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     cp = _cparams(tb, p, 0, out.shape[1])
-    _launch("fused_mesh_sweep", key, ctypes.byref(cp), int(occl),
-            tb.mp.smc_tri.data_ptr(), tb.mp.smc_aabb.data_ptr(),
-            rays.data_ptr(), ray_id.data_ptr(),
-            cap, cnt.data_ptr(), ids, cnts, k_max, ptr(part), ptr(tickets),
-            out.data_ptr(), _stream(rays))
+    LIB.launch("fused_mesh_sweep", ctypes.byref(cp), int(occl),
+               tb.mp.smc_tri.data_ptr(), tb.mp.smc_aabb.data_ptr(),
+               rays.data_ptr(), ray_id.data_ptr(),
+               cap, cnt.data_ptr(), ids, cnts, k_max, ptr(part), ptr(tickets),
+               out.data_ptr(), kernels.stream(rays), key=key)
 
 
 def _group_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, *,
@@ -1015,7 +726,7 @@ def _group_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, *,
     tensors: as ``group_plain``, but the order inside a key is the
     atomics'.  Returns (grouped rays, grouped ids, the keys (cap,) i32 in
     pack order; only the first min(cnt, cap) of each are written)."""
-    _check("fused_mesh group", dict(aabb=(tb.mp.smc_aabb, _F),
+    kernels.check("fused_mesh group", dict(aabb=(tb.mp.smc_aabb, _F),
                                     rays=(rays, _F), ray_id=(ray_id, _I),
                                     cnt=(cnt, _I)))
     cap = rays.shape[1]
@@ -1029,11 +740,11 @@ def _group_kernel(tb: _Tables, p: _Params, rays, ray_id, cnt, *,
     g_rays = torch.empty_like(rays)
     g_id = torch.empty_like(ray_id)
     cp = _cparams(tb, p, 0, cap)
-    _launch("fused_mesh_group", "group_occl" if occl else "group",
-            ctypes.byref(cp), int(occl),
-            tb.mp.smc_aabb.data_ptr(), rays.data_ptr(), ray_id.data_ptr(),
-            cap, cnt.data_ptr(), keys.data_ptr(), hist.data_ptr(),
-            g_rays.data_ptr(), g_id.data_ptr(), _stream(rays))
+    LIB.launch("fused_mesh_group", ctypes.byref(cp), int(occl),
+               tb.mp.smc_aabb.data_ptr(), rays.data_ptr(), ray_id.data_ptr(),
+               cap, cnt.data_ptr(), keys.data_ptr(), hist.data_ptr(),
+               g_rays.data_ptr(), g_id.data_ptr(), kernels.stream(rays),
+               key="group_occl" if occl else "group")
     return g_rays, g_id, keys
 
 
@@ -1054,8 +765,6 @@ def _lists(tb: _Tables, p: _Params, rays, cnt, kernel: bool):
     ``ops.coherent`` over the first cnt rays, in strips of 4,096, against
     the cluster AABBs (P = 7: up to lim); the kernel writes the lists in
     the same launch, the plain version makes them with ``_lists``."""
-    from cpu_based_ray_tracer_tpu_torch.ops import coherent
-
     planes = rays.view(rays.shape[0], -1, coherent.TILE_W)
     if kernel:
         return coherent._mask_kernel(
@@ -1078,7 +787,7 @@ def _sl_sweep(tb, p, rays, ray_id, cnt, out, *, occl: bool, kernel: bool):
 def _k1b_kernel(tb: _Tables, p: _Params, seed, sf, si, hf, kb, sr, sr_id,
                 offs, cnt):
     """Launch K1b on CUDA tensors; as ``_k1b_plain``."""
-    _check("fused_mesh K1b", dict(words=(tb.words, _F), sf=(sf, _F),
+    kernels.check("fused_mesh K1b", dict(words=(tb.words, _F), sf=(sf, _F),
                                   si=(si, _I), hf=(hf, _F), kb=(kb, _F),
                                   sr=(sr, _F), sr_id=(sr_id, _I),
                                   offs=(offs, _I), cnt=(cnt, _I)))
@@ -1092,23 +801,24 @@ def _k1b_kernel(tb: _Tables, p: _Params, seed, sf, si, hf, kb, sr, sr_id,
             or sr_id.shape != (p.cap_shadow,)):
         raise ValueError("bad offsets table or id buffer shape")
     cp = _cparams(tb, p, seed, r)
-    _launch("fused_mesh_k1b", "k1b", ctypes.byref(cp), tb.words.data_ptr(),
-            sf.data_ptr(), si.data_ptr(), hf.data_ptr(), kb.data_ptr(),
-            sr.data_ptr(), sr_id.data_ptr(), offs.data_ptr(), cnt.data_ptr(),
-            _stream(sf))
+    LIB.launch("fused_mesh_k1b", ctypes.byref(cp), tb.words.data_ptr(),
+               sf.data_ptr(), si.data_ptr(), hf.data_ptr(), kb.data_ptr(),
+               sr.data_ptr(), sr_id.data_ptr(), offs.data_ptr(),
+               cnt.data_ptr(), kernels.stream(sf), key="k1b")
 
 
 def _k2_kernel(tb: _Tables, p: _Params, seed, kb, sf, si):
     """Launch K2 on CUDA tensors; as ``_k2_plain``."""
-    _check("fused_mesh K2", dict(words=(tb.words, _F), kb=(kb, _F),
+    kernels.check("fused_mesh K2", dict(words=(tb.words, _F), kb=(kb, _F),
                                  sf=(sf, _F), si=(si, _I)))
     r = sf.shape[1]
     _plane_rows(sf, 15, r, "sf")
     _plane_rows(si, 4, r, "si")
     _plane_rows(kb, 9, r, "kb")
     cp = _cparams(tb, p, seed, r)
-    _launch("fused_mesh_k2", "k2", ctypes.byref(cp), tb.words.data_ptr(),
-            kb.data_ptr(), sf.data_ptr(), si.data_ptr(), _stream(sf))
+    LIB.launch("fused_mesh_k2", ctypes.byref(cp), tb.words.data_ptr(),
+               kb.data_ptr(), sf.data_ptr(), si.data_ptr(), kernels.stream(sf),
+               key="k2")
 
 
 class _Ops(NamedTuple):
@@ -1218,24 +928,11 @@ def params(cfg: RenderConfig, r: int, cap_main=None, cap_shadow=None,
                             LANES_PER_TILE))
 
 
-def state_planes(state):
-    """A ``WavefrontState`` as the kernels' contiguous planes: sf (15, R)
-    f32 [o d tp cur acc], si (4, R) i32 [s b n_done shadow-ray tally=0]."""
-    sf = torch.cat([x.T for x in (state.o, state.d, state.tp, state.cur,
-                                  state.acc)], 0).to(torch.float32)
-    si = torch.stack([state.s, state.b, state.n_done,
-                      torch.zeros_like(state.s)]).to(torch.int32)
-    return sf.contiguous(), si.contiguous()
-
-
 def _run(kernel: bool, mp: MeshPack, camera, cfg: RenderConfig, seed: int,
          state, n_steps: int, cap_main, cap_shadow, pixel_offset: int,
          resident, stop_after: int):
     """``wavefront_steps_fused_mesh``'s work, returning its triple and the
     sweep mode taken (``resident=None`` resolved by ``fits_resident``)."""
-    from cpu_based_ray_tracer_tpu_torch.models.monte_carlo import (
-        WavefrontState)
-
     if cfg.soft_shadow_beta > 0.0:
         raise NotImplementedError("the fused mesh stepper implements the "
                                   "reference's hard shadow test only")
@@ -1255,15 +952,7 @@ def _run(kernel: bool, mp: MeshPack, camera, cfg: RenderConfig, seed: int,
     caps = torch.tensor([p.cap_main, p.cap_shadow], dtype=_I, device=dev)
     overflow = torch.clamp(buf.cnt - caps, min=0).sum()
     npred = buf.cnt.sum(0)
-    v3 = lambda k: sf[3 * k:3 * k + 3].T                         # noqa: E731
-    # Every lane traces a main ray each step, plus the shadow rays K2
-    # counted; the counter wraps as the JAX package's int32 counter.
-    nrays = _wrap_i32(state.nrays.to(torch.int64)
-                      + (int(n_steps) * r) % (1 << 31)
-                      + si[3].to(torch.int64).sum())
-    new = WavefrontState(s=si[0], b=si[1], o=v3(0), d=v3(1), tp=v3(2),
-                         cur=v3(3), acc=v3(4), n_done=si[2], nrays=nrays)
-    return new, overflow, npred, resident
+    return planes_state(state, sf, si, n_steps), overflow, npred, resident
 
 
 def wavefront_steps_fused_mesh(mp: MeshPack, camera, cfg: RenderConfig,
@@ -1273,8 +962,8 @@ def wavefront_steps_fused_mesh(mp: MeshPack, camera, cfg: RenderConfig,
                                pixel_offset: int = 0,
                                resident: bool | None = None,
                                stop_after: int = 0, device=None):
-    """Advance every lane of ``state`` (a ``models.monte_carlo``
-    ``WavefrontState``) by ``n_steps`` bounce steps over the mesh pack.
+    """Advance every lane of ``state`` (an ``ops.fused.WavefrontState``)
+    by ``n_steps`` bounce steps over the mesh pack.
     Returns ``(state', overflow, npred)``: overflow 0 means every mesh
     crossing lane was tested (> 0: raise the caps and rerun, the state is
     invalid); npred (2,) the main and shadow predicate populations summed

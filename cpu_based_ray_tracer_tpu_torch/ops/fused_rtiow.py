@@ -547,7 +547,7 @@ def render_refill_plain(pk: RtiowPack, cam24, seed: int, sf, si,
 # --- the kernel -------------------------------------------------------------
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-_SIGNATURES = {
+LIB = kernels.Library("fused_rtiow", {
     # (scene, words, n_sph, n_mat, seed, sf, si, R, n_pix, width, height,
     #  n_steps, t_min, aspect, max_depth, spp, diffuse, thinlens, stream)
     "fused_rtiow_steps": [_P, _I, _I, _I, ctypes.c_uint32, _P, _P, _I, _I,
@@ -560,22 +560,14 @@ _SIGNATURES = {
                            _P, _P],
     # (words, diffuse, thinlens, out)
     "fused_rtiow_render_slots": [_I] * 3 + [_P],
-}
+}, LAUNCHES)
 
 
-def _fn(name: str):
-    fn = getattr(kernels.load("fused_rtiow"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_planes(sf, si):
-    for x, dt in ((sf, torch.float32), (si, torch.int32)):
-        if not (x.is_cuda and x.dtype == dt and x.is_contiguous()):
-            raise ValueError("fused_rtiow takes contiguous CUDA state planes "
-                             "(12, R) float32 and (3, R) int32")
+def _state_lanes(sf, si) -> int:
+    """The lanes of the state planes sf (12, R) f32 and si (3, R) i32,
+    contiguous CUDA tensors, or ValueError."""
+    kernels.check("fused_rtiow", dict(sf=(sf, torch.float32),
+                                      si=(si, torch.int32)))
     r = sf.shape[1]
     if sf.shape != (12, r) or si.shape != (3, r):
         raise ValueError(f"bad state plane shapes {tuple(sf.shape)}, "
@@ -588,25 +580,19 @@ def _scene_words(pk: RtiowPack, cam24, dev) -> torch.Tensor:
                       cam24]).to(device=dev, dtype=torch.float32)
 
 
-def _launched(name: str, rc: int):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    LAUNCHES.add()
-
-
 def _steps_kernel(pk: RtiowPack, cam24, seed: int, sf, si, p: _Params):
     """Launch csrc/fused_rtiow.cu's step mode on CUDA tensors; updates
     sf/si in place."""
-    r = _check_planes(sf, si)
+    r = _state_lanes(sf, si)
     if r == 0:
         return sf, si
     scene = _scene_words(pk, cam24, sf.device)
-    _launched("fused_rtiow", _fn("fused_rtiow_steps")(
-        scene.data_ptr(), scene.numel(), pk.n_sph, pk.n_mat, seed,
-        sf.data_ptr(), si.data_ptr(), r, p.n_pix, p.width, p.height,
-        p.n_steps, p.t_min, float(p.width) / float(p.height), p.max_depth,
-        p.spp, p.diffuse_model, int(p.thinlens),
-        torch.cuda.current_stream(sf.device).cuda_stream))
+    LIB.launch(
+        "fused_rtiow_steps", scene.data_ptr(), scene.numel(), pk.n_sph,
+        pk.n_mat, seed, sf.data_ptr(), si.data_ptr(), r, p.n_pix, p.width,
+        p.height, p.n_steps, p.t_min, float(p.width) / float(p.height),
+        p.max_depth, p.spp, p.diffuse_model, int(p.thinlens),
+        kernels.stream(sf))
     return sf, si
 
 
@@ -633,7 +619,7 @@ def _render_kernel(pk: RtiowPack, cam24, seed: int, sf, si, p: _Params,
     pixel of ``_setup``'s planes to its last sample in one launch, in
     place; each pixel's samples in ``chunks`` chunks (default
     ``default_chunks``)."""
-    r = _check_planes(sf, si)
+    r = _state_lanes(sf, si)
     if r != p.n_pix:
         raise ValueError(f"the render runs the image's {p.n_pix} pixels, "
                          f"not {r} lanes")
@@ -650,35 +636,25 @@ def _render_kernel(pk: RtiowPack, cam24, seed: int, sf, si, p: _Params,
     counts = torch.empty((later,), dtype=torch.int32, device=dev)
     tickets = torch.zeros((r if chunks > 1 else 0,), dtype=torch.int32,
                           device=dev)
-    _launched("fused_rtiow_render", _fn("fused_rtiow_render")(
-        scene.data_ptr(), scene.numel(), pk.n_sph, pk.n_mat, seed,
-        sf.data_ptr(), si.data_ptr(), r, p.width, p.height, p.t_min,
-        float(p.width) / float(p.height), p.max_depth, p.spp,
+    LIB.launch(
+        "fused_rtiow_render", scene.data_ptr(), scene.numel(), pk.n_sph,
+        pk.n_mat, seed, sf.data_ptr(), si.data_ptr(), r, p.width, p.height,
+        p.t_min, float(p.width) / float(p.height), p.max_depth, p.spp,
         p.diffuse_model, int(p.thinlens), chunks, cap, contrib.data_ptr(),
         counts.data_ptr(), tickets.data_ptr(), nxt.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream))
+        kernels.stream(sf))
     return sf, si
 
 
 def default_chunks(pk: RtiowPack, p: _Params, dev) -> int:
-    """``render_chunks`` on this card: its resident render threads, the
-    scratch within a quarter of its free memory."""
-    per_sm, n_sm = render_slots(pk, p)
+    """``render_chunks`` on this card: its resident render threads (blocks
+    of 256 per SM, for the scene's words), the scratch within a quarter of
+    its free memory."""
+    per_sm, n_sm = LIB.occupancy(
+        "fused_rtiow_render_slots", pk.sph.numel() + pk.mat.numel() + 8 + 24,
+        p.diffuse_model, int(p.thinlens))
     return render_chunks(p.n_pix, p.spp, per_sm * n_sm * 256,
                          torch.cuda.mem_get_info(dev)[0] // 4)
-
-
-def render_slots(pk: RtiowPack, p: _Params) -> tuple[int, int]:
-    """(resident blocks of 256 threads per SM, SMs) of the render kernel on
-    the current card: the threads one render launch runs."""
-    out = (ctypes.c_int * 2)()
-    words = pk.sph.numel() + pk.mat.numel() + 8 + 24
-    rc = _fn("fused_rtiow_render_slots")(words, p.diffuse_model,
-                                         int(p.thinlens),
-                                         ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"fused_rtiow_render_slots failed: cudaError {rc}")
-    return out[0], out[1]
 
 
 def rtiow_steps(pk: RtiowPack, cam24, seed: int, sf, si, p: _Params):

@@ -404,32 +404,23 @@ def _tree_plain(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
 
 # --- the kernel -------------------------------------------------------------
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int,               # tables, words
-             ctypes.c_int, ctypes.c_int, ctypes.c_int,    # n_tri n_sph n_mat
-             ctypes.c_int,                                # n_light
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # dirs out n_pix
-             ctypes.c_int, ctypes.c_int,                  # depth queue
-             ctypes.c_float, ctypes.c_float,              # t_min eps
-             ctypes.c_void_p]                             # stream
-
-
-def _lib():
-    lib = kernels.load("fused_whitted")
-    fn = lib.fused_whitted_tree
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
+LIB = kernels.Library("fused_whitted", {"fused_whitted_tree": [
+    ctypes.c_void_p, ctypes.c_int,                   # tables, words
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,        # n_tri n_sph n_mat
+    ctypes.c_int,                                    # n_light
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # dirs out n_pix
+    ctypes.c_int, ctypes.c_int,                      # depth queue
+    ctypes.c_float, ctypes.c_float,                  # t_min eps
+    ctypes.c_void_p]}, LAUNCHES)                     # stream
 
 
 def _tree_kernel(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
                  t_min: float, eps: float):
     """Launch csrc/fused_whitted.cu on CUDA tensors -> (4, R)."""
-    if not (dirs.is_cuda and dirs.dtype == torch.float32
-            and dirs.is_contiguous() and dirs.dim() == 2
-            and dirs.shape[0] == 3):
-        raise ValueError("fused_whitted takes contiguous CUDA (3, R) float32 "
-                         "ray directions")
+    kernels.check("fused_whitted", dict(dirs=(dirs, torch.float32)))
+    if dirs.dim() != 2 or dirs.shape[0] != 3:
+        raise ValueError(f"fused_whitted takes (3, R) ray directions, not "
+                         f"{tuple(dirs.shape)}")
     if queue not in (2, 4):
         raise NotImplementedError(f"no sorting network for queue={queue}")
     n_pix = dirs.shape[1]
@@ -442,13 +433,10 @@ def _tree_kernel(wp: WhittedPack, cam3, dirs, depth: int, queue: int,
                         wp.mat.reshape(-1), wp.light.reshape(-1), wp.sky,
                         wp.chess, cam8]).to(device=dirs.device,
                                             dtype=torch.float32).contiguous()
-    rc = _lib().fused_whitted_tree(
-        tables.data_ptr(), tables.numel(), wp.n_tri, wp.n_sph, wp.n_mat,
-        wp.n_light, dirs.data_ptr(), out.data_ptr(), n_pix, depth, queue,
-        t_min, eps, torch.cuda.current_stream(dirs.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_whitted kernel launch failed: cudaError {rc}")
-    LAUNCHES.add()
+    LIB.launch("fused_whitted_tree", tables.data_ptr(), tables.numel(),
+               wp.n_tri, wp.n_sph, wp.n_mat, wp.n_light, dirs.data_ptr(),
+               out.data_ptr(), n_pix, depth, queue, t_min, eps,
+               kernels.stream(dirs))
     return out
 
 

@@ -5,7 +5,7 @@ Host side, the triangles are partitioned into spatial clusters (the leaves
 of the median-split BVH, ``ops.bvh``, with leaf size CS), each padded to
 exactly CS never-hit triangles and stored contiguously beside its AABB.
 A ray runs Moller-Trumbore over the CS triangles of every cluster whose
-padded AABB it crosses (``ops.fused_mesh.crosses_box_plain``: every side
+padded AABB it crosses (``ops.clusters.crosses_box_plain``: every side
 pushed out by a margin that grows with the coordinates' magnitude, so a
 ray that hits a triangle crosses its cluster's box).  Within a cluster the
 lowest row at the minimum t wins; across clusters a cluster replaces the
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from cpu_based_ray_tracer_tpu_torch.ops import bvh as bvh_ops
-from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh
+from cpu_based_ray_tracer_tpu_torch.ops import clusters as clusters_ops
 from cpu_based_ray_tracer_tpu_torch.utils import kernels
 from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
@@ -54,8 +54,17 @@ _PLAIN_CHUNK = 65536
 
 # Launches of csrc/packet.cu since the last reset.
 LAUNCHES = profiling.Counter("packet")
-# (device index, cluster size) -> the kernel's resident block slots on it.
-_SLOTS: dict = {}
+
+_P = ctypes.c_void_p
+LIB = kernels.Library("packet", {
+    # (aabb, tri, tri_id, C, CS, o, d, R, t_min, K, part, tickets, t, idx,
+    #  stream)
+    "packet_nearest": ([_P] * 3 + [ctypes.c_int] * 2 + [_P] * 2
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+                       + [_P] * 5),
+    # (cs, out)
+    "packet_slots": [ctypes.c_int, _P],
+}, LAUNCHES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,8 +155,8 @@ def nearest_plain(clusters: Clusters, origin, direction, t_min: float = 0.0,
     for c in range(clusters.n_clusters):
         if return_passes:
             n_pass += _votes(aabb[c], o, d, best_t)
-        crossed = fused_mesh.crosses_box_plain(aabb[c:c + 1], rays, t_min,
-                                               occl=False)[0]
+        crossed = clusters_ops.crosses_box_plain(aabb[c:c + 1], rays, t_min,
+                                                 occl=False)[0]
         ray_ids = torch.nonzero(crossed)[:, 0]
         tb = tri[c]
         v0x, v0y, v0z = tb[:, 0:1], tb[:, 1:2], tb[:, 2:3]       # (CS, 1)
@@ -208,82 +217,39 @@ def _votes(box, o, d, best_t) -> int:
 
 # --- the kernel -------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_SIGNATURES = {
-    # (aabb, tri, tri_id, C, CS, o, d, R, t_min, K, part, tickets, t, idx,
-    #  stream)
-    "packet_nearest": ([_P] * 3 + [ctypes.c_int] * 2 + [_P] * 2
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
-                       + [_P] * 5),
-    # (cs, out)
-    "packet_slots": [ctypes.c_int, _P],
-}
-
-
-def _fn(name: str):
-    fn = getattr(kernels.load("packet"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def slices(r: int, n_clusters: int, cs: int) -> int:
-    """The cluster slices K a launch over r rays takes on the current card
-    (``fused_mesh.split_count``'s rule: enough (256-ray block, slice) work
-    items to fill ``fused_mesh.SWEEP_WAVES`` times the kernel's resident
-    blocks, at most ``fused_mesh.SPLIT_MAX`` and the cluster count)."""
-    key = (torch.cuda.current_device(), cs)
-    if key not in _SLOTS:
-        out = (ctypes.c_int * 2)()
-        rc = _fn("packet_slots")(cs, ctypes.addressof(out))
-        if rc != 0:
-            raise RuntimeError(f"packet_slots failed: cudaError {rc}")
-        _SLOTS[key] = out[0] * out[1]
-    k_max = max(1, min(fused_mesh.SPLIT_MAX, n_clusters))
-    return fused_mesh.split_count(r, _SLOTS[key] * fused_mesh.SWEEP_WAVES,
-                                  k_max)
-
-
 def _nearest_kernel(clusters: Clusters, origin, direction, t_min: float):
     """Launch csrc/packet.cu on CUDA tensors -> (t (R,), index (R,) i32)."""
-    for x in (origin, direction):
-        if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 2
-                and x.shape[1] == 3):
-            raise ValueError("packet takes CUDA (R, 3) float32 rays")
-    if origin.shape != direction.shape:
-        raise ValueError(f"origin {tuple(origin.shape)} and direction "
-                         f"{tuple(direction.shape)} differ")
-    dev = origin.device
+    o, d = origin.contiguous(), direction.contiguous()
+    f32 = torch.float32
+    kernels.check("packet", dict(origin=(o, f32), direction=(d, f32)))
+    if o.dim() != 2 or o.shape[1] != 3 or o.shape != d.shape:
+        raise ValueError(f"packet takes (R, 3) rays, not origin "
+                         f"{tuple(o.shape)} and direction {tuple(d.shape)}")
+    dev = o.device
     aabb, tri, tri_id = (x.to(dev).contiguous() for x in
                          (clusters.aabb, clusters.tri, clusters.tri_id))
+    kernels.check("packet", dict(tri=(tri, f32), aabb=(aabb, f32),
+                                 tri_id=(tri_id, torch.int32)))
     c, cs = clusters.n_clusters, clusters.cs
     if (tri.shape != (c, cs, 12) or aabb.shape != (c, 8)
-            or tri_id.shape != (c * cs,) or tri.dtype != torch.float32
-            or aabb.dtype != torch.float32 or tri_id.dtype != torch.int32):
-        raise ValueError("clusters must be tri (C, CS, 12) f32, aabb (C, 8) "
-                         "f32 and tri_id (C*CS,) i32")
-    o, d = origin.contiguous(), direction.contiguous()
+            or tri_id.shape != (c * cs,)):
+        raise ValueError("clusters must be tri (C, CS, 12), aabb (C, 8) and "
+                         "tri_id (C*CS,)")
     r = o.shape[0]
     t = torch.empty((r,), dtype=torch.float32, device=dev)
     idx = torch.empty((r,), dtype=torch.int32, device=dev)
     if r == 0:
         return t, idx
-    stream = torch.cuda.current_stream(dev)
-    k = slices(r, c, cs)
+    k = clusters_ops.slices(LIB, "packet_slots", r, c, cs)
     part = tickets = None
     if k > 1:
         part = torch.empty((2 * k * r,), dtype=torch.int32, device=dev)
-        tickets = kernels.tickets(-(-r // BLOCK), stream)
+        tickets = kernels.tickets(-(-r // BLOCK), dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    rc = _fn("packet_nearest")(
-        aabb.data_ptr(), tri.data_ptr(), tri_id.data_ptr(),
-        c, cs, o.data_ptr(), d.data_ptr(), r,
-        float(t_min), k, ptr(part), ptr(tickets), t.data_ptr(),
-        idx.data_ptr(), stream.cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"packet kernel launch failed: cudaError {rc}")
-    LAUNCHES.add()
+    LIB.launch("packet_nearest", aabb.data_ptr(), tri.data_ptr(),
+               tri_id.data_ptr(), c, cs, o.data_ptr(), d.data_ptr(), r,
+               float(t_min), k, ptr(part), ptr(tickets), t.data_ptr(),
+               idx.data_ptr(), kernels.stream(o))
     return t, idx
 
 

@@ -227,7 +227,7 @@ def wavefront_steps_sharded(scene: Scene, camera, cfg: RenderConfig,
     delta = torch.stack([o.nrays.to(mesh.device, torch.int64)
                          for o in outs]).sum().reshape(1)
     delta = _sum_over_group(delta, mesh)
-    nrays = fused._wrap_i32(state.nrays.to(torch.int64) + delta[0])
+    nrays = fused.wrap_i32(state.nrays.to(torch.int64) + delta[0])
     return _join(outs, mesh.device, nrays)
 
 
@@ -258,5 +258,5 @@ def wavefront_steps_fused_mesh_sharded(mp, camera, cfg: RenderConfig,
                                  overflow.to(torch.int64),
                                  *npred.to(torch.int64)]).to(mesh.device))
     total = _sum_over_group(torch.stack(sums).sum(0), mesh)
-    nrays = fused._wrap_i32(state.nrays.to(torch.int64) + total[0])
+    nrays = fused.wrap_i32(state.nrays.to(torch.int64) + total[0])
     return _join(outs, mesh.device, nrays), total[1], total[2:4]

@@ -1,4 +1,5 @@
-"""Device choice, and the build and load of the hand-written CUDA kernels.
+"""Device choice, the build and load of the hand-written CUDA kernels, and
+the one seam through which the kernel wrappers call them.
 
 Every ``csrc/<name>.cu`` exposes a plain C interface (``extern "C"``
 functions returning the ``cudaError_t`` of ``cudaGetLastError()``).  At
@@ -11,6 +12,12 @@ Flags: ``-fmad=false`` keeps ``a*b+c`` as two rounded operations, as the
 JAX package computes it, so knife-edge hits and the integer lane state
 match the plain PyTorch versions; no ``--use_fast_math`` (IEEE division and
 square root, full-precision ``cosf``/``sinf``).
+
+The seam: a wrapper declares its library once (``Library``: the entry
+points' signatures and the launch counter), checks its tensors with
+``check`` and launches with ``Library.launch`` on ``stream``'s handle.
+``Library.occupancy`` asks a kernel's resident blocks once per device and
+arguments; ``tickets`` keeps the split sweeps' zeroed tickets per stream.
 """
 
 from __future__ import annotations
@@ -109,13 +116,78 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def tickets(n: int, stream) -> torch.Tensor:
-    """n zero tickets for a split sweep's launch on ``stream``, from a
-    buffer kept for the stream (the launches on one stream run one after
-    another, and each leaves its tickets zero)."""
-    key = (stream.device.index, stream.cuda_stream)
+def stream(x: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of ``x``'s device."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def tickets(n: int, device) -> torch.Tensor:
+    """n zero tickets for a split sweep's launch on the current stream of
+    ``device``, from a buffer kept for the stream (the launches on one
+    stream run one after another, and each leaves its tickets zero)."""
+    s = torch.cuda.current_stream(device)
+    key = (s.device.index, s.cuda_stream)
     buf = TICKETS.get(key)
     if buf is None or buf.shape[0] < n:
         buf = TICKETS[key] = torch.zeros((n,), dtype=torch.int32,
-                                         device=stream.device)
+                                         device=s.device)
     return buf
+
+
+def check(kernel: str, tensors: dict) -> None:
+    """Each ``what: (tensor, dtype)`` of ``tensors`` a contiguous CUDA
+    tensor of that dtype, or ValueError naming ``kernel`` and ``what``."""
+    for what, (x, dt) in tensors.items():
+        if not (isinstance(x, torch.Tensor) and x.is_cuda and x.dtype == dt
+                and x.is_contiguous()):
+            raise ValueError(f"{kernel} takes contiguous CUDA {dt} tensors; "
+                             f"{what} is not one")
+
+
+class Library:
+    """The C entry points of ``csrc/<name>.cu``.  ``signatures``: entry ->
+    its ctypes argument types (every entry returns a ``cudaError_t`` as
+    int); ``launches``: the ``profiling.Counter`` that counts them.  The
+    library is built, loaded and its signatures bound at the first call."""
+
+    def __init__(self, name: str, signatures: dict,
+                 launches: profiling.Counter):
+        self.name = name
+        self.signatures = signatures
+        self.launches = launches
+        self._fns: dict | None = None
+        self._occupancy: dict = {}
+
+    def _fn(self, entry: str):
+        if self._fns is None:
+            lib = load(self.name)
+            fns = {}
+            for e, argtypes in self.signatures.items():
+                fn = getattr(lib, e)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+                fns[e] = fn
+            self._fns = fns
+        return self._fns[entry]
+
+    def launch(self, entry: str, *args, key: str | None = None) -> None:
+        """Call ``entry`` (a launch on the stream among ``args``); a
+        non-zero cudaError raises RuntimeError, else the launch counts
+        under ``key`` (default: the counter's one count)."""
+        rc = self._fn(entry)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
+        self.launches.add(key)
+
+    def occupancy(self, entry: str, *args) -> tuple[int, int]:
+        """(resident blocks per SM, SMs) that the query ``entry(*args,
+        out)`` reports for the current card, asked once per device and
+        args."""
+        key = (entry, torch.cuda.current_device(), args)
+        got = self._occupancy.get(key)
+        if got is None:
+            out = (ctypes.c_int * 2)()
+            rc = self._fn(entry)(*args, ctypes.addressof(out))
+            if rc != 0:
+                raise RuntimeError(f"{entry} failed: cudaError {rc}")
+            got = self._occupancy[key] = (out[0], out[1])
+        return got

@@ -40,8 +40,8 @@ from cpu_based_ray_tracer_tpu.scenes import meshes as jmeshes
 from cpu_based_ray_tracer_tpu_torch import camera, interop
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import mesh
-from cpu_based_ray_tracer_tpu_torch.ops import (bvh, coherent, fused_mesh,
-                                                intersect)
+from cpu_based_ray_tracer_tpu_torch.ops import (bvh, clusters, coherent,
+                                                fused_mesh, intersect)
 from cpu_based_ray_tracer_tpu_torch.scenes import meshes
 
 CS = 64
@@ -325,7 +325,7 @@ def _edge_case_pack():
     -> tri (4, 32, MESH_NF) f32, aabb (4, 8) f32, origins and directions
     (12288, 3) f32."""
     g = np.random.default_rng(11)
-    cs, nf = 32, fused_mesh.MESH_NF
+    cs, nf = 32, clusters.MESH_NF
     tri = np.zeros((4, cs, nf), np.float32)
 
     def grid(corner, du, dv):

@@ -17,10 +17,10 @@ from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import mesh
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
 from cpu_based_ray_tracer_tpu_torch.models import denoiser
-from cpu_based_ray_tracer_tpu_torch.ops import (bvh, coherent, fused,
-                                                fused_mesh, fused_rtiow,
-                                                fused_whitted, intersect,
-                                                packet)
+from cpu_based_ray_tracer_tpu_torch.ops import (bvh, clusters, coherent,
+                                                fused, fused_mesh,
+                                                fused_rtiow, fused_whitted,
+                                                intersect, packet)
 from cpu_based_ray_tracer_tpu_torch.scene import (REFLECTIVE_REFRACTIVE,
                                                   MaterialBuilder,
                                                   PointLights, make_scene,
@@ -223,7 +223,7 @@ def test_packet_kernel_slices_match_plain(cuda, r, n_clusters):
         o = torch.full_like(o, 3.0)
         d = v0 + (e1 + e2) / 3.0 - o
         d = d / d.norm()
-    k = packet.slices(r, cl.n_clusters, cl.cs)
+    k = clusters.slices(packet.LIB, "packet_slots", r, cl.n_clusters, cl.cs)
     assert 1 <= k <= min(16, n_clusters)
     if r == 16384 and n_clusters > 1:
         assert k == min(16, n_clusters)
@@ -257,7 +257,7 @@ def _mesh_step_inputs(device, steps_before=3, sub=2):
         cap_shadow=4096 * 2)
     p = fused_mesh.params(cfg, 4096)
     tb = fused_mesh._tables(mp, fused._camera_words(cam))
-    return (tb, p) + fused_mesh.state_planes(st)
+    return (tb, p) + fused.state_planes(st)
 
 
 @pytest.mark.parametrize("op", ["k1", "nearest", "k1b", "occl", "k2"])
@@ -319,7 +319,7 @@ def _k1_inputs(case, device):
         st = mc.wavefront_init(scene, cam, cfg, SEED, device=device)
         st, _, _ = fused_mesh.wavefront_steps_fused_mesh_plain(
             mp, cam, cfg, SEED, st, 3, cap_main=8192, cap_shadow=8192)
-        sf, _ = fused_mesh.state_planes(st)
+        sf, _ = fused.state_planes(st)
         tb = fused_mesh._tables(mp, fused._camera_words(cam))
         if case == "sphere":
             assert mp.n_sph == 1
@@ -687,7 +687,7 @@ def test_fused_mesh_split_sweep_matches_plain(cuda, op, lists):
     """The sweep with each ray block's list cut into 7 slices (more block
     slots than the packed rays fill, so every ray block takes 7), combined
     by the last slice to finish, against the unsplit plain sweep: outputs
-    bit equal (20 clusters)."""
+    bit equal (20 clusters), and the stream's tickets left zero."""
     tb, p, sf, si = _mesh_step_inputs(cuda, sub=3)
     fm = fused_mesh
     bp = fm.StepBuffers(*[torch.zeros_like(x) for x in
@@ -701,14 +701,19 @@ def test_fused_mesh_split_sweep_matches_plain(cuda, op, lists):
     got = torch.full_like(want, -7.0)
     lst = fm._lists(tb, p, rays, cnt, kernel=False) if lists else None
     fm._sweep_plain(tb, p, rays, ids, cnt, want, occl=occl, lists=lst)
-    per_sm, n_sm = fm.sweep_slots(occl, tb.mp.cs)
-    assert fm.split_count(int(cnt), fm.SWEEP_WAVES * per_sm * n_sm, 7) == 7
+    per_sm, n_sm = fm.LIB.occupancy("fused_mesh_sweep_slots", int(occl),
+                                    tb.mp.cs)
+    assert clusters.split_count(int(cnt), clusters.SWEEP_WAVES * per_sm
+                                * n_sm, 7) == 7
     fm._sweep_kernel(tb, p, rays, ids, cnt, got, occl=occl, lists=lst,
                      k_max=7)
     torch.cuda.synchronize()
     assert tb.mp.n_clusters >= 7 and int(cnt) > 0
     lanes = ids[:int(cnt)].long()
     assert torch.equal(got[:, lanes], want[:, lanes])
+    stream = torch.cuda.current_stream(cuda)
+    tickets = kernels.TICKETS[(stream.device.index, stream.cuda_stream)]
+    assert not bool(tickets.any())
 
 
 def flat_far_clusters(tilt: float, n_rays: int = 4096, seed: int = 5):
@@ -720,7 +725,7 @@ def flat_far_clusters(tilt: float, n_rays: int = 4096, seed: int = 5):
     20 away.  -> tri (3, 16, 16), aabb (3, 8), rays (7, n) [o d lim], numpy
     f32 (the sweep kernel's box cull on the worst case for its margin)."""
     g = np.random.default_rng(seed)
-    tri = np.zeros((3, 16, fused_mesh.MESH_NF), np.float32)
+    tri = np.zeros((3, 16, clusters.MESH_NF), np.float32)
     aabb = np.zeros((3, 8), np.float32)
     corner, span_u, span_v, normal = [], [], [], []
     for c in range(3):
@@ -964,7 +969,7 @@ def _gated_state(device, w=96, h=64, depth=6, stop_after=2):
     cfg = RenderConfig(width=w, height=h, spp=stop_after, max_depth=depth,
                        rr_survival=0.8)
     st = mc.wavefront_init(scene, cam, cfg, SEED, device=device)
-    sf, si = fused_mesh.state_planes(st)
+    sf, si = fused.state_planes(st)
     p = fused._Params(1, w, h, w * h, float(cfg.t_min), float(cfg.eps_offset),
                       0.8, float(cfg.shadow_tolerance), depth, stop_after)
     return fused.pack_scene(scene), fused._camera_words(cam), sf, si, p

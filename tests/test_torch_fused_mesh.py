@@ -32,7 +32,7 @@ from cpu_based_ray_tracer_tpu.utils import rng as jrng
 from cpu_based_ray_tracer_tpu_torch import interop
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
-from cpu_based_ray_tracer_tpu_torch.ops import compact, fused
+from cpu_based_ray_tracer_tpu_torch.ops import clusters, compact, fused
 from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
 from cpu_based_ray_tracer_tpu_torch.scene import make_spheres
 from cpu_based_ray_tracer_tpu_torch.scenes import cornell, meshes
@@ -125,7 +125,7 @@ def test_build_smem_clusters_byte_equal():
     rng = np.random.default_rng(1)
     nrm = rng.normal(size=(len(tris), 3)).astype(np.float32)
     mids = rng.integers(0, 4, len(tris)).astype(np.float32)
-    got = fm.build_smem_clusters(tris, nrm, mids, 128)
+    got = clusters.build_smem_clusters(tris, nrm, mids, 128)
     want = jfm.build_smem_clusters(tris, nrm, mids, 128)
     for f in ("tri", "aabb", "box_aabb"):
         a, b = getattr(got, f).numpy(), np.asarray(getattr(want, f))
@@ -512,7 +512,7 @@ def _split_inputs():
     in cluster 1 meets the same t again in cluster 5, in another slice."""
     g = np.random.default_rng(11)
     c, cs, n_l = 9, 16, 256
-    tri = np.zeros((c, cs, fm.MESH_NF), np.float32)
+    tri = np.zeros((c, cs, clusters.MESH_NF), np.float32)
     tri[..., 0:3] = g.uniform(-1.0, 1.0, (c, cs, 3))
     tri[..., 3:9] = g.uniform(-0.6, 0.6, (c, cs, 6))
     tri[..., 9:12] = g.normal(size=(c, cs, 3))
@@ -538,9 +538,9 @@ def test_split_sweep_equals_serial(k, occl):
     included; k = 1 also makes the same tests."""
     tri, rays, ids, cnts = _split_inputs()
     rays = rays if occl else rays[:6]
-    want = fm.list_sweep_plain(tri, rays, ids, cnts, 1e-3, occl=occl,
+    want = clusters.list_sweep_plain(tri, rays, ids, cnts, 1e-3, occl=occl,
                                n_live=400)
-    got = fm.split_sweep_plain(tri, rays, ids, cnts, 1e-3, k, occl=occl,
+    got = clusters.split_sweep_plain(tri, rays, ids, cnts, 1e-3, k, occl=occl,
                                n_live=400)
     assert torch.equal(got[0], want[0])
     if occl:
@@ -565,9 +565,9 @@ def test_box_cull_keeps_every_hit(tilt, occl):
     its padded box, so the culled sweep's results are the unculled ones."""
     tri, aabb, rays = (torch.as_tensor(x) for x in flat_far_clusters(tilt))
     rays = rays if occl else rays[:6]
-    crossed = fm.crosses_box_plain(aabb, rays, 1e-3, occl=occl)
+    crossed = clusters.crosses_box_plain(aabb, rays, 1e-3, occl=occl)
     for c in range(3):
-        res, _, _ = fm.list_sweep_plain(
+        res, _, _ = clusters.list_sweep_plain(
             tri, rays[:, None], torch.tensor([[c]]), torch.tensor([1]), 1e-3,
             occl=occl)
         hit = res[0] if occl else res[0] < fm.NO_HIT

@@ -13,7 +13,7 @@ import torch
 
 from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
-from cpu_based_ray_tracer_tpu_torch.ops import fused
+from cpu_based_ray_tracer_tpu_torch.ops import clusters, fused
 from cpu_based_ray_tracer_tpu_torch.ops import fused_mesh as fm
 from cpu_based_ray_tracer_tpu_torch.scenes import cornell, meshes
 
@@ -36,7 +36,7 @@ def _packed(sub: int, steps_before: int, occl: bool = False):
             cap_shadow=8192)
     p = fm.params(cfg, 4096)
     tb = fm._tables(mp, fused._camera_words(cam))
-    sf, si = fm.state_planes(st)
+    sf, si = fused.state_planes(st)
     b = fm.step_buffers(4096, p, 1, "cpu")
     for name in ("k1", "nearest", "k1b") if occl else ("k1",):
         fm.run_op(fm.PLAIN_OPS, name, tb, p, SEED, sf, si, b)
@@ -63,11 +63,11 @@ def test_group_keys_are_the_crossed_boxes(sub, steps_before, occl):
     tb, p, b, packed, _, cnt = _packed(sub, steps_before, occl)
     n = int(cnt)
     rays = packed[:, :n]
-    crossed = fm.crosses_box_plain(tb.mp.smc_aabb, rays, p.t_min, occl=occl)
+    crossed = clusters.crosses_box_plain(tb.mp.smc_aabb, rays, p.t_min, occl=occl)
     keys = fm.group_keys_plain(tb.mp.smc_aabb, rays, p.t_min, occl=occl)
     if occl:
         # the segment crosses no box that the line misses
-        line = fm.crosses_box_plain(tb.mp.smc_aabb, rays, p.t_min,
+        line = clusters.crosses_box_plain(tb.mp.smc_aabb, rays, p.t_min,
                                     occl=False)
         assert bool((line | ~crossed).all())
     n_cl = tb.mp.n_clusters
@@ -198,7 +198,7 @@ def test_group_keys_fold_past_the_key_bits():
     d /= np.linalg.norm(d, axis=0)
     rays = torch.as_tensor(np.concatenate([o, d]))
     aabb = torch.as_tensor(aabb)
-    crossed = fm.crosses_box_plain(aabb, rays, 1e-3, occl=False)
+    crossed = clusters.crosses_box_plain(aabb, rays, 1e-3, occl=False)
     keys = fm.group_keys_plain(aabb, rays, 1e-3)
     want = torch.zeros(500, dtype=torch.int64)
     for c in range(n_cl):
