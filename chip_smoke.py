@@ -14,7 +14,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. device     the card's name, power limit and clocks (nvidia-smi);
 2. build      every csrc/*.cu of the port, one nvcc each, started together,
               into build/torch_kernels/; then sass: cuobjdump -sass of
-              fused_mc, fused_mesh, coherent and fused_whitted
+              fused_mc, fused_mesh, coherent, fused_whitted and denoise
               (instructions per kernel; the listing under
               build/chip_smoke/);
 3. parity     the fused_mc kernel against its plain version: Cornell at
@@ -173,13 +173,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               contributor flag equal, color within 2e-3, position and normal
               within 1e-4; every state and G-buffer plane bit equal;
 28. denoiser_golden  the three denoiser_* goldens (128x128, 4 frames, JBF
-              16) through the fused engine (mean <= 2, p99 <= 16);
+              16) through the fused engine (mean <= 2, p99 <= 16); the
+              denoised frames bit equal to those of the a-trous levels'
+              plain twin on the card;
 29. denoiser_main  render_sequence(engine="fused") over 12 frames of a
               static camera at 896x896, depth 16, RR 0.8, DenoiserParams():
-              seconds per frame and one fused_mc launch a frame; image to
-              build/;
+              seconds per frame, one fused_mc launch and three
+              csrc/denoise.cu launches a frame, every frame bit equal to
+              the plain twin's; image to build/;
 30. single_path_speed  one single_path launch alone, its plain version,
-              the bound of its live lane-steps and shadow rays;
+              the bound of its live lane-steps and shadow rays; then
+              denoise_atrous_speed: each a-trous level of the default
+              filter (half-size 7: steps 1, 2, 4) on an 896x896 fused
+              G-buffer, one csrc/denoise.cu launch alone (ms), its plain
+              twin (ms, bit equal), and the bound of its work (each
+              in-frame tap's accumulation, each weighted tap's guidance
+              terms; four planes in, one out);
 31. mc_equal_spp  tools/bench_passes.py's mc_equal_spp: render_wavefront
               (the plain equal-spp engine, no kernel) at 896x896, 4 spp,
               depth 16, RR 0.8: seconds (median, min, max of 3 warm runs),
@@ -372,7 +381,7 @@ def build_phase():
 
 
 def sass_phase(names=("fused_mc", "fused_mesh", "coherent",
-                      "fused_whitted")) -> dict:
+                      "fused_whitted", "denoise")) -> dict:
     """cuobjdump -sass of the built libraries: each kernel's static
     instruction count, and its loops (a branch back to an earlier address)
     of 30 or more instructions with their f32 arithmetic, shared loads and
@@ -698,8 +707,8 @@ def reset_counts():
 
 def read_counts() -> dict:
     """The launches since ``reset_counts`` by kernel module: fused_mc,
-    fused_whitted, fused_rtiow and packet as numbers, fused_mesh and
-    coherent by entry point."""
+    fused_whitted, fused_rtiow and packet as numbers, fused_mesh, coherent
+    and denoise by entry point."""
     from cpu_based_ray_tracer_tpu_torch.utils import profiling
 
     return profiling.read_counters()
@@ -2872,9 +2881,41 @@ def denoiser_parity_phase(dev, cfg) -> dict:
     return res["color_max_abs_err"]
 
 
+@contextlib.contextmanager
+def plain_atrous():
+    """ops.denoise.joint_bilateral_atrous by the plain twin of its levels,
+    on any device, inside the block."""
+    from cpu_based_ray_tracer_tpu_torch.ops import denoise
+
+    routed = denoise.joint_bilateral_atrous
+
+    def plain(g, half_size, clamp=True):
+        return denoise._atrous(g, half_size, clamp, denoise._weights(),
+                               on_card=False)
+
+    denoise.joint_bilateral_atrous = plain
+    try:
+        yield
+    finally:
+        denoise.joint_bilateral_atrous = routed
+
+
+def equal_to_plain_twin(frames, scene, cams, cfg, seed, params,
+                        dev) -> bool:
+    """Whether ``frames``, from render_sequence(engine="fused") with the
+    a-trous kernel, are bit equal to the same sequence by its plain twin."""
+    from cpu_based_ray_tracer_tpu_torch.models import denoiser as dn
+
+    with plain_atrous():
+        twins = dn.render_sequence(scene, cams, cfg, seed, params,
+                                   engine="fused", device=dev)
+    return all(torch.equal(a, b) for a, b in zip(frames, twins))
+
+
 def denoiser_golden_phase(dev, mean_tol=2.0, p99_tol=16, n_frames=4):
     """tools/make_goldens.denoiser_triple (128x128, 4 frames of a static
-    camera, JBF half-size 16) through the fused engine."""
+    camera, JBF half-size 16) through the fused engine; every denoised
+    frame bit equal to the a-trous plain twin's."""
     from cpu_based_ray_tracer_tpu_torch.config import RenderConfig
     from cpu_based_ray_tracer_tpu_torch.models import denoiser as dn
     from cpu_based_ray_tracer_tpu_torch.ops import fused
@@ -2886,22 +2927,30 @@ def denoiser_golden_phase(dev, mean_tol=2.0, p99_tol=16, n_frames=4):
     launches = fused.LAUNCHES["fused_mc"]
     imgs = {"denoiser_noisy_1spp": dn.render_gbuffer_fused(
         scene, cam, cfg, SEED_KEY3, n_frames - 1, True, device=dev).color}
+    twins_equal = {}
     for name, p in (("denoiser_denoised", params),
                     ("denoiser_denoised_noclamp",
                      params.replace(immediate_clamping=False))):
-        imgs[name] = dn.render_sequence(scene, [cam] * n_frames, cfg,
-                                        SEED_KEY3, p, engine="fused",
-                                        device=dev)[-1]
+        frames = dn.render_sequence(scene, [cam] * n_frames, cfg,
+                                    SEED_KEY3, p, engine="fused", device=dev)
+        twins_equal[name] = equal_to_plain_twin(
+            frames, scene, [cam] * n_frames, cfg, SEED_KEY3, p, dev)
+        imgs[name] = frames[-1]
     res = {name: u8_gate(img, name, 1.0, mean_tol, p99_tol)
            for name, img in imgs.items()}
     emit(phase="denoiser_golden",
-         launches=fused.LAUNCHES["fused_mc"] - launches, **res)
+         launches=fused.LAUNCHES["fused_mc"] - launches,
+         atrous_bit_equal_to_plain=twins_equal, **res)
+    if not all(twins_equal.values()):
+        raise RuntimeError(f"the a-trous kernel's frames differ from the "
+                           f"plain twin's: {twins_equal}")
 
 
-def denoiser_main_phase(dev, cfg, n_frames=12) -> int:
+def denoiser_main_phase(dev, cfg, n_frames=12) -> dict:
     """bench_passes' denoiser_fused_frame: render_sequence over 12 frames
     of a static camera through the fused engine, the launch counters set
-    to 0 just before and read just after; one fused_mc launch a frame."""
+    to 0 just before and read just after (returned); one fused_mc launch
+    and three a-trous launches a frame."""
     from cpu_based_ray_tracer_tpu_torch.models import denoiser as dn
     from cpu_based_ray_tracer_tpu_torch.scenes import cornell
 
@@ -2915,6 +2964,8 @@ def denoiser_main_phase(dev, cfg, n_frames=12) -> int:
     sync(dev)
     secs = time.perf_counter() - t0
     counts = read_counts()
+    twins_equal = equal_to_plain_twin(frames, scene, [cam] * n_frames, cfg,
+                                      SEED_KEY0, params, dev)
     # Steady state: a frame with history (temporal pass on), timed alone.
     _, hist = dn.render_frame(scene, cam, cfg, SEED_KEY0, n_frames, None,
                               params, engine="fused", device=dev)
@@ -2931,14 +2982,19 @@ def denoiser_main_phase(dev, cfg, n_frames=12) -> int:
          f"depth{cfg.max_depth} rr{cfg.rr_survival} {params}",
          frames=n_frames, seconds=secs, seconds_per_frame=secs / n_frames,
          one_frame_seconds=frame_s, shape=list(img.shape), finite=finite,
-         mean=float(img.mean()), launches=counts, png=png)
-    if dev.type == "cuda" and counts["fused_mc"] != n_frames:
-        raise RuntimeError(f"the Denoiser sequence made {counts['fused_mc']}"
-                           f" fused_mc launches for {n_frames} frames")
+         mean=float(img.mean()), launches=counts,
+         atrous_bit_equal_to_plain=twins_equal, png=png)
+    if dev.type == "cuda" and (counts["fused_mc"] != n_frames or
+                               counts["denoise"]["atrous"] != 3 * n_frames):
+        raise RuntimeError(f"the Denoiser sequence made {counts} launches "
+                           f"for {n_frames} frames")
+    if not twins_equal:
+        raise RuntimeError("the a-trous kernel's frames differ from the "
+                           "plain twin's")
     if (tuple(img.shape) != (cfg.height, cfg.width, 3) or not finite
             or not float(img.mean()) > 0.0):
         raise RuntimeError("the Denoiser frames are wrong")
-    return counts["fused_mc"]
+    return counts
 
 
 def single_path_work(fs, cam16, sf, si, gb, p) -> tuple:
@@ -2989,6 +3045,92 @@ def single_path_speed_phase(dev, cfg, smi, n_iters=10) -> dict:
          n_steps=cfg.max_depth, n_iters=n_iters, live_lane_steps=live,
          shadow_rays=shadow, lane_steps_of_launch=r * cfg.max_depth,
          unit="ms per single_path launch of max_depth steps", **res)
+    return res
+
+
+# f32 operations of one a-trous tap (csrc/denoise.cu), an IEEE division,
+# square root, acosf or expf counted as one: a weighted (off-center,
+# in-frame, contributor) tap's guidance terms (d_pos 9, d_col 9, normal
+# angle 10, coplanarity 12, the sum, negation and exp 5), and every
+# in-frame tap's accumulation (3 mul, 4 add).
+ATROUS_WEIGHT_OPS, ATROUS_ACC_OPS = 45, 7
+
+
+def atrous_work(g, level: int) -> tuple:
+    """(f32 operations, bytes) that one a-trous level of G-buffer ``g``
+    needs: ATROUS_ACC_OPS per in-frame tap, ATROUS_WEIGHT_OPS more per
+    weighted tap, 4 a pixel for the normalisation (max, 3 div); color,
+    position, normal (12 B each) and contributor (1 B) in, 12 B out."""
+    con = g.contributor
+    h, w = con.shape
+    step = 1 << level
+    in_frame = weighted = 0
+    for ty in range(5):
+        for tx in range(5):
+            dy, dx = (ty - 2) * step, (tx - 2) * step
+            ny, nx = max(0, h - abs(dy)), max(0, w - abs(dx))
+            in_frame += ny * nx
+            if (ty, tx) != (2, 2) and ny and nx:
+                weighted += int(con[max(dy, 0):max(dy, 0) + ny,
+                                    max(dx, 0):max(dx, 0) + nx].sum())
+    ops = (in_frame * ATROUS_ACC_OPS + weighted * ATROUS_WEIGHT_OPS
+           + 4 * h * w)
+    return ops, (37 + 12) * h * w
+
+
+def denoise_atrous_speed_phase(dev, cfg, smi, n_iters=10) -> dict:
+    """Each level of the default a-trous filter (DenoiserParams(): half-size
+    7, three levels) on the 896x896 fused G-buffer of the Cornell box: one
+    csrc/denoise.cu launch alone by CUDA events (n_iters launches
+    enqueued behind a busy card, the mean), its
+    plain twin once, both outputs bit equal, and the bound of the level's
+    work."""
+    from cpu_based_ray_tracer_tpu_torch.models import denoiser as dn
+    from cpu_based_ray_tracer_tpu_torch.ops import denoise
+    from cpu_based_ray_tracer_tpu_torch.scenes import cornell
+
+    scene, cam = cornell.cornell_scene(dev), cornell.cornell_camera(dev)
+    params = dn.DenoiserParams()
+    g = dn.render_gbuffer_fused(scene, cam, cfg, SEED_KEY0, 3, True,
+                                device=dev)
+    wts = denoise._weights()
+    levels, color, ok = [], g.color, True
+    for level in range(denoise._levels(params.jbf_half_size)):
+        out = torch.empty_like(color)
+        denoise._atrous_level_kernel(g, color, level, wts,
+                                     out=out)  # warm-up
+        ms = timed(lambda: [denoise._atrous_level_kernel(
+            g, color, level, wts, out=out) for _ in range(n_iters)],
+            busy_ms=5.0) / n_iters
+        plain = []
+        plain_ms = timed(lambda: plain.append(denoise._atrous_level_plain(
+            g, color, level, wts)))
+        equal = bool(torch.equal(out, plain[0]))
+        ok &= equal
+        ops, nbytes = atrous_work(g, level)
+        b = bound(ops, nbytes)
+        levels.append(dict(step=1 << level, ms=ms, plain_ms=plain_ms,
+                           bit_equal=equal,
+                           max_abs_err=float((out - plain[0]).abs().max()),
+                           share_pct=100.0 * b["bound_ms"] / ms,
+                           share_no_fma_pct=100.0 * b["bound_no_fma_ms"] / ms,
+                           **b))
+        color = plain[0]
+    res = dict(ms=sum(x["ms"] for x in levels) / len(levels),
+               plain_ms=sum(x["plain_ms"] for x in levels) / len(levels),
+               bound_ms=sum(x["bound_ms"] for x in levels) / len(levels),
+               bound_no_fma_ms=sum(x["bound_no_fma_ms"] for x in levels)
+               / len(levels),
+               bound_by=levels[0]["bound_by"],
+               max_abs_err=max(x["max_abs_err"] for x in levels),
+               levels=levels)
+    emit(phase="denoise_atrous_speed", nvidia_smi=smi,
+         config=f"{cfg.width}x{cfg.height} half-size "
+                f"{params.jbf_half_size}", n_iters=n_iters,
+         contributors=int(g.contributor.sum()),
+         unit="ms per a-trous level (one launch), mean of the levels", **res)
+    if not ok:
+        raise RuntimeError("an a-trous level differs from its plain twin")
     return res
 
 
@@ -4008,8 +4150,9 @@ def main():
                         rr_survival=0.8)
     d_err = denoiser_parity_phase(dev, dcfg)
     denoiser_golden_phase(dev)
-    d_launches = denoiser_main_phase(dev, dcfg)
+    d_counts = denoiser_main_phase(dev, dcfg)
     dsp = single_path_speed_phase(dev, dcfg, smi)
+    asp = denoise_atrous_speed_phase(dev, dcfg, smi)
 
     mc_equal_spp_phase(dev, full, smi)
     mc_equal_spp_golden_phase(dev, RenderConfig(width=128, height=128,
@@ -4120,7 +4263,8 @@ def main():
         "library_ms": None, "single_path_unit":
             f"ms per single_path launch, {dcfg.width}x{dcfg.height} lanes, "
             f"{dcfg.max_depth} steps (the Denoiser frame's G-buffer)",
-        "single_path_launches": d_launches, "single_path_max_abs_err": d_err,
+        "single_path_launches": d_counts["fused_mc"],
+        "single_path_max_abs_err": d_err,
         "single_path_ms": dsp["ms"], "single_path_plain_ms": dsp["plain_ms"],
         "single_path_bound_ms": dsp["bound_ms"],
         "single_path_bound_by": dsp["bound_by"],
@@ -4199,6 +4343,20 @@ def main():
         "chunk_16384_pr7_vote_bound_ms":
             psp["camera_16384"]["pr7_vote_bound_ms"],
         "in_render_pr7_vote_bound_ms": pir["pr7_vote_bound_ms"],
+        "library_ms": None}, {
+        "name": "denoise_atrous", "route": "cuda",
+        "source": "cpu_based_ray_tracer_tpu_torch/csrc/denoise.cu",
+        "replaces": "the eager operations of cpu_based_ray_tracer_tpu_torch/"
+                    "ops/denoise.py::_atrous_level_plain",
+        "tpu_kernel": None,
+        "unit": f"ms per a-trous level, {dcfg.width}x{dcfg.height}, "
+                f"DenoiserParams() (three levels a frame)",
+        "launches": d_counts["denoise"]["atrous"],
+        "max_abs_err": asp["max_abs_err"],
+        "ms": asp["ms"], "plain_ms": asp["plain_ms"],
+        "bound_ms": asp["bound_ms"], "bound_by": asp["bound_by"],
+        "bound_no_fma_ms": asp["bound_no_fma_ms"],
+        "ms_by_level": [x["ms"] for x in asp["levels"]],
         "library_ms": None}] + mesh_kernels + coherent_kernels
         + sl_kernels}), flush=True)
     print(smi, flush=True)

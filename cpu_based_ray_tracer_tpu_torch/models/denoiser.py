@@ -62,9 +62,14 @@ def _gbuffer(camera, cfg: RenderConfig, color, pos, normal, contrib, pid,
     if immediate_clamping:
         color = torch.clamp(color, 0.0, 1.0)
     view, proj = cam_mod.view_proj_matrices(camera, w, h)
+    # Contiguous planes: the a-trous kernel reads (H, W, 3) rows and (H, W)
+    # flags, and the fused engine's planes are transposed views of its
+    # planar buffers.
     return denoise.GBuffer(
-        color=color.reshape(h, w, 3), world_pos=pos.reshape(h, w, 3),
-        normal=normal.reshape(h, w, 3), contributor=contrib.reshape(h, w),
+        color=color.reshape(h, w, 3).contiguous(),
+        world_pos=pos.reshape(h, w, 3).contiguous(),
+        normal=normal.reshape(h, w, 3).contiguous(),
+        contributor=contrib.reshape(h, w).contiguous(),
         prim_id=pid.reshape(h, w), view=view, proj=proj)
 
 

@@ -1,11 +1,13 @@
 """Joint-bilateral spatial and motion-vector temporal denoising (port of
-``cpu_based_ray_tracer_tpu.ops.denoise``).  Plain PyTorch: the JAX package
-has no kernel here.
+``cpu_based_ray_tracer_tpu.ops.denoise``).  The JAX package has no kernel
+here; the port has one, the a-trous level.
 
 - Joint bilateral: the K^2 window offsets are a loop over shifted images,
   each one elementwise pass over the frame (``joint_bilateral``, the dense
   oracle), or the edge-avoiding a-trous approximation with 5x5 dilated taps
-  (``joint_bilateral_atrous``, the default).
+  (``joint_bilateral_atrous``, the default).  On the card each a-trous
+  level is one launch of ``csrc/denoise.cu`` (counter ``LAUNCHES``), bit
+  equal to its plain twin ``_atrous_level_plain``, which runs on the CPU.
 - Temporal: reprojection through the previous frame's view/projection
   matrices, a primitive-id consistency test, then history clamped to
   mean +- tolerance * RMS-deviation-from-center over the current frame's
@@ -14,12 +16,13 @@ has no kernel here.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from cpu_based_ray_tracer_tpu_torch.ops import vec
-from cpu_based_ray_tracer_tpu_torch.utils import profiling
+from cpu_based_ray_tracer_tpu_torch.utils import kernels, profiling
 
 # Heuristic sigmas of the reference denoiser.
 SIGMA_POSITION = 32.0
@@ -88,8 +91,8 @@ def joint_bilateral(g: GBuffer, half_size: int, clamp: bool = True,
     color_p, pos_p, nrm_p = (_pad(x, k) for x in (g.color, g.world_pos,
                                                   g.normal))
     con_p = _pad(g.contributor, k)
-    wts = (_inv2(sigma_position), _inv2(sigma_color), _inv2(sigma_normal),
-           _inv2(sigma_coplanarity))
+    wts = _weights(sigma_position, sigma_color, sigma_normal,
+                   sigma_coplanarity)
     c_sum = torch.zeros_like(g.color)
     w_sum = torch.zeros((h, w), dtype=g.color.dtype, device=g.color.device)
     for i in range(size * size):
@@ -109,6 +112,114 @@ def joint_bilateral(g: GBuffer, half_size: int, clamp: bool = True,
     return torch.where(g.contributor[..., None], out, g.color)
 
 
+def _levels(half_size: int) -> int:
+    """The a-trous levels L: the smallest with footprint 2 (2^L - 1) >=
+    half_size, at least 1."""
+    n = 1
+    while 2 * ((1 << n) - 1) < half_size:
+        n += 1
+    return n
+
+
+def _weights(sigma_position: float = SIGMA_POSITION,
+             sigma_color: float = SIGMA_COLOR,
+             sigma_normal: float = SIGMA_NORMAL,
+             sigma_coplanarity: float = SIGMA_COPLANARITY) -> tuple:
+    return (_inv2(sigma_position), _inv2(sigma_color), _inv2(sigma_normal),
+            _inv2(sigma_coplanarity))
+
+
+def _atrous_level_plain(g: GBuffer, color: torch.Tensor, level: int,
+                        wts: tuple, clamp: bool | None = None
+                        ) -> torch.Tensor:
+    """One a-trous level of ``color`` (H, W, 3): 5x5 taps dilated by
+    2^level, guided by ``g`` and by ``color`` itself.  ``clamp`` not None
+    makes it the filter's last level: clamped to [0, 1] if ``clamp``, then
+    ``g.color`` at non-contributor pixels."""
+    h, w, _ = color.shape
+    step = 1 << level
+    kpad = 2 * step
+    color_p, pos_p, nrm_p = (_pad(x, kpad) for x in (color, g.world_pos,
+                                                     g.normal))
+    con_p = _pad(g.contributor, kpad)
+    c_sum = torch.zeros_like(color)
+    w_sum = torch.zeros((h, w), dtype=color.dtype, device=color.device)
+    for ty in range(5):
+        for tx in range(5):
+            dy, dx = ty * step, tx * step
+            nb_c = color_p[dy:dy + h, dx:dx + w]
+            nb_ok = con_p[dy:dy + h, dx:dx + w]
+            if ty == 2 and tx == 2:
+                weight = torch.where(nb_ok, 1.0, 0.0).to(color.dtype)
+            else:
+                weight = torch.where(nb_ok, _tap_weight(
+                    g, color, nb_c, pos_p[dy:dy + h, dx:dx + w],
+                    nrm_p[dy:dy + h, dx:dx + w], *wts), 0.0)
+            c_sum = c_sum + weight[..., None] * nb_c
+            w_sum = w_sum + weight
+    out = c_sum / torch.clamp(w_sum, min=1e-20)[..., None]
+    if clamp is None:
+        return out
+    if clamp:
+        out = torch.clamp(out, 0.0, 1.0)
+    return torch.where(g.contributor[..., None], out, g.color)
+
+
+# Launches of csrc/denoise.cu since the last reset, one an a-trous level.
+LAUNCHES = profiling.Counter("denoise", ("atrous",))
+LIB = kernels.Library("denoise", {"denoise_atrous_level": [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # color pos normal
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # contributor orig out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,            # h w step
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,      # wp wc wn
+    ctypes.c_float,                                      # wcp
+    ctypes.c_int, ctypes.c_int,                          # last clamp
+    ctypes.c_void_p]}, LAUNCHES)                         # stream
+
+
+def _atrous_level_kernel(g: GBuffer, color: torch.Tensor, level: int,
+                         wts: tuple, clamp: bool | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """``_atrous_level_plain`` by one launch of csrc/denoise.cu into
+    ``out`` (H, W, 3; default a new ``torch.empty``), not ``color``."""
+    f32 = torch.float32
+    if out is None:
+        out = torch.empty_like(color)
+    kernels.check("denoise", dict(
+        color=(color, f32), world_pos=(g.world_pos, f32),
+        normal=(g.normal, f32), contributor=(g.contributor, torch.bool),
+        orig=(g.color, f32), out=(out, f32)))
+    h, w, _ = color.shape
+    if not (color.shape == g.world_pos.shape == g.normal.shape
+            == g.color.shape == out.shape == (h, w, 3)
+            and g.contributor.shape == (h, w)):
+        raise ValueError("denoise takes (H, W, 3) planes and an (H, W) "
+                         "contributor plane of one frame")
+    if h * w:
+        LIB.launch("denoise_atrous_level", color.data_ptr(),
+                   g.world_pos.data_ptr(), g.normal.data_ptr(),
+                   g.contributor.data_ptr(), g.color.data_ptr(),
+                   out.data_ptr(), h, w, 1 << level, *wts,
+                   int(clamp is not None), int(bool(clamp)),
+                   kernels.stream(color), key="atrous")
+    return out
+
+
+def _atrous(g: GBuffer, half_size: int, clamp: bool, wts: tuple,
+            on_card: bool) -> torch.Tensor:
+    """The a-trous filter by the kernel (``on_card``: one launch a level)
+    or by the plain twin."""
+    n_iters = _levels(half_size)
+    level_fn = _atrous_level_kernel if on_card else _atrous_level_plain
+    with profiling.span("denoise.atrous"):
+        out = g.color
+        for level in range(n_iters):
+            with profiling.span("denoise.atrous.level"):
+                out = level_fn(g, out, level, wts,
+                               clamp if level == n_iters - 1 else None)
+        return out
+
+
 def joint_bilateral_atrous(g: GBuffer, half_size: int, clamp: bool = True,
                            sigma_position: float = SIGMA_POSITION,
                            sigma_color: float = SIGMA_COLOR,
@@ -120,45 +231,12 @@ def joint_bilateral_atrous(g: GBuffer, half_size: int, clamp: bool = True,
     smallest with footprint 2 (2^L - 1) >= half_size; each iteration
     filters the previous one's color (the color guidance updates with it).
     Same guidance terms, contributor skipping, center tap and
-    pass-through as the dense filter."""
-    h, w, _ = g.color.shape
-    n_iters = 1
-    while 2 * ((1 << n_iters) - 1) < half_size:
-        n_iters += 1
-    wts = (_inv2(sigma_position), _inv2(sigma_color), _inv2(sigma_normal),
-           _inv2(sigma_coplanarity))
-
-    def one_level(color, level):
-        step = 1 << level
-        kpad = 2 * step
-        color_p, pos_p, nrm_p = (_pad(x, kpad) for x in (color, g.world_pos,
-                                                         g.normal))
-        con_p = _pad(g.contributor, kpad)
-        c_sum = torch.zeros_like(color)
-        w_sum = torch.zeros((h, w), dtype=color.dtype, device=color.device)
-        for ty in range(5):
-            for tx in range(5):
-                dy, dx = ty * step, tx * step
-                nb_c = color_p[dy:dy + h, dx:dx + w]
-                nb_ok = con_p[dy:dy + h, dx:dx + w]
-                if ty == 2 and tx == 2:
-                    weight = torch.where(nb_ok, 1.0, 0.0).to(color.dtype)
-                else:
-                    weight = torch.where(nb_ok, _tap_weight(
-                        g, color, nb_c, pos_p[dy:dy + h, dx:dx + w],
-                        nrm_p[dy:dy + h, dx:dx + w], *wts), 0.0)
-                c_sum = c_sum + weight[..., None] * nb_c
-                w_sum = w_sum + weight
-        return c_sum / torch.clamp(w_sum, min=1e-20)[..., None]
-
-    with profiling.span("denoise.atrous"):
-        out = g.color
-        for level in range(n_iters):
-            with profiling.span("denoise.atrous.level"):
-                out = one_level(out, level)
-        if clamp:
-            out = torch.clamp(out, 0.0, 1.0)
-        return torch.where(g.contributor[..., None], out, g.color)
+    pass-through as the dense filter.  On the card one kernel launch a
+    level (the planes contiguous), elsewhere the plain twin."""
+    return _atrous(g, half_size, clamp,
+                   _weights(sigma_position, sigma_color, sigma_normal,
+                            sigma_coplanarity),
+                   g.color.device.type == "cuda")
 
 
 def _box_sum(x: torch.Tensor, k: int) -> torch.Tensor:

@@ -18,7 +18,7 @@ from cpu_based_ray_tracer_tpu_torch.models import mesh
 from cpu_based_ray_tracer_tpu_torch.models import monte_carlo as mc
 from cpu_based_ray_tracer_tpu_torch.models import denoiser
 from cpu_based_ray_tracer_tpu_torch.ops import (bvh, clusters, coherent,
-                                                fused, fused_mesh,
+                                                denoise, fused, fused_mesh,
                                                 fused_rtiow, fused_whitted,
                                                 intersect, packet)
 from cpu_based_ray_tracer_tpu_torch.scene import (REFLECTIVE_REFRACTIVE,
@@ -929,6 +929,112 @@ def test_single_path_kernel_matches_plain(cuda):
                                      denoiser.DenoiserParams(),
                                      engine="fused")
     assert frame.is_cuda and frame.shape == (64, 96, 3)
+
+
+# --- the Denoiser's a-trous levels (csrc/denoise.cu) -------------------------
+
+def _denoise_gbuffer(dev, h=97, w=131, seed=7) -> denoise.GBuffer:
+    """A G-buffer no 32 x 8 block shape divides: a gently bumped plane
+    with normals near +z (a tenth of them flipped away, edges the filter
+    keeps), colors in [0, 1.2], ~15% non-contributors inside the frame
+    and a 3-pixel ring of misses (position and normal zero) along the
+    border."""
+    gen = torch.Generator().manual_seed(seed)
+    rows, cols = torch.meshgrid(torch.arange(h), torch.arange(w),
+                                indexing="ij")
+    pos = torch.stack([cols * 0.01, rows * 0.01,
+                       0.003 * torch.randn((h, w), generator=gen)], -1)
+    nrm = torch.tensor([0.0, 0.0, 1.0]) + 0.15 * torch.randn(
+        (h, w, 3), generator=gen)
+    nrm = torch.where(torch.rand((h, w, 1), generator=gen) < 0.1, -nrm, nrm)
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True)
+    con = torch.rand((h, w), generator=gen) > 0.15
+    ring = torch.ones((h, w), dtype=torch.bool)
+    ring[3:h - 3, 3:w - 3] = False
+    con &= ~ring
+    pos = torch.where(ring[..., None], 0.0, pos)
+    nrm = torch.where(ring[..., None], 0.0, nrm)
+    color = 1.2 * torch.rand((h, w, 3), generator=gen)
+    eye = torch.eye(4)
+    return denoise.GBuffer(
+        color=color.float().to(dev), world_pos=pos.float().to(dev),
+        normal=nrm.float().to(dev), contributor=con.to(dev),
+        prim_id=torch.where(con, 1, -1).int().to(dev), view=eye.to(dev),
+        proj=eye.to(dev))
+
+
+@pytest.mark.parametrize("half_size", [3, 7, 16, 32])
+@pytest.mark.parametrize("clamp", [True, False])
+def test_atrous_kernel_matches_plain(cuda, half_size, clamp):
+    """Each level's launch bit equal to the plain twin run on the card from
+    the same input, and the whole filter bit equal to the plain route; one
+    launch a level."""
+    g = _denoise_gbuffer(cuda)
+    wts = denoise._weights()
+    n = denoise._levels(half_size)
+    assert n == {3: 2, 7: 3, 16: 4, 32: 5}[half_size]
+    color = g.color
+    for level in range(n):
+        want = denoise._atrous_level_plain(g, color, level, wts)
+        got = denoise._atrous_level_kernel(g, color, level, wts)
+        assert torch.equal(got, want), level
+        if level == n - 1:   # the last launch also clamps and passes misses
+            got = denoise._atrous_level_kernel(g, color, level, wts, clamp)
+            last = denoise._atrous_level_plain(g, color, level, wts, clamp)
+            assert torch.equal(got, last)
+            assert torch.equal(last, torch.where(
+                g.contributor[..., None],
+                torch.clamp(want, 0.0, 1.0) if clamp else want, g.color))
+        color = want
+    launches = denoise.LAUNCHES["atrous"]
+    got = denoise.joint_bilateral_atrous(g, half_size, clamp=clamp)
+    torch.cuda.synchronize()
+    assert denoise.LAUNCHES["atrous"] == launches + n
+    assert torch.equal(got, denoise._atrous(g, half_size, clamp, wts,
+                                            on_card=False))
+    assert not torch.equal(got, g.color)
+    assert 0.05 < float(g.contributor.float().mean()) < 0.9
+
+
+def test_atrous_kernel_on_a_rendered_gbuffer(cuda):
+    """The Denoiser's filter over a G-buffer of the Cornell box from each
+    engine (fused and scan), bit equal to the plain route; denoise_frame
+    launches one level at a time."""
+    from cpu_based_ray_tracer_tpu_torch.models import denoiser as dn
+
+    scene, cam = cornell.cornell_scene(cuda), cornell.cornell_camera(cuda)
+    cfg = RenderConfig(width=131, height=97, max_depth=8, rr_survival=0.8)
+    for render in (dn.render_gbuffer_fused, dn.render_gbuffer):
+        g = render(scene, cam, cfg, SEED, 2, device=cuda)
+        for k in (7, 16):
+            want = denoise._atrous(g, k, True, denoise._weights(),
+                                   on_card=False)
+            assert torch.equal(denoise.joint_bilateral_atrous(g, k), want)
+        launches = denoise.LAUNCHES["atrous"]
+        color, _ = dn.denoise_frame(g, None, dn.DenoiserParams())
+        assert denoise.LAUNCHES["atrous"] == launches + 3
+        assert torch.equal(color, denoise._atrous(
+            g, 7, True, denoise._weights(), on_card=False))
+
+
+def test_atrous_kernel_refuses_bad_tensors(cuda):
+    g = _denoise_gbuffer(cuda, h=16, w=24)
+    wts, out = denoise._weights(), torch.empty_like(g.color)
+    bad = (g.replace(world_pos=g.world_pos.transpose(0, 1).contiguous()
+                     .transpose(0, 1)),
+           g.replace(normal=g.normal.double()),
+           g.replace(color=g.color.double()),
+           g.replace(contributor=g.contributor.to(torch.uint8)),
+           g.replace(color=g.color.cpu()))
+    for b in bad:
+        with pytest.raises(ValueError, match="contiguous CUDA"):
+            denoise._atrous_level_kernel(b, b.color, 0, wts, out=out)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        denoise.joint_bilateral_atrous(bad[0], 7)
+    with pytest.raises(ValueError, match="one frame"):
+        denoise._atrous_level_kernel(g, g.color, 0, wts, out=out[:8])
+    with pytest.raises(RuntimeError, match="cudaError"):
+        denoise._atrous_level_kernel(g, out, 0, wts, out=out)
 
 
 def test_new_wrappers_refuse_bad_tensors(cuda):

@@ -118,9 +118,28 @@ def test_joint_bilateral_matches_jax(clamp):
     np.testing.assert_allclose(got, want, rtol=FILTER_RTOL, atol=FILTER_ATOL)
 
 
-@pytest.mark.parametrize("half_size", [3, 7, 16])
-def test_joint_bilateral_atrous_matches_jax(half_size):
+def _border_misses(a: dict, width: int = 2) -> dict:
+    """``a`` with misses on a ``width``-pixel ring along the frame's border
+    (no contributor, position and normal zero, id -1)."""
+    ring = np.ones((H, W), dtype=bool)
+    ring[width:H - width, width:W - width] = False
+    return dict(a, contributor=a["contributor"] & ~ring,
+                world_pos=np.where(ring[..., None], 0.0,
+                                   a["world_pos"]).astype(np.float32),
+                normal=np.where(ring[..., None], 0.0,
+                                a["normal"]).astype(np.float32),
+                prim_id=np.where(ring, -1, a["prim_id"]).astype(np.int32))
+
+
+@pytest.mark.parametrize("half_size,border", [
+    pytest.param(3, False, id="3"), pytest.param(7, False, id="7"),
+    pytest.param(16, False, id="16"), pytest.param(32, False, id="32"),
+    pytest.param(7, True, id="7-border"),
+    pytest.param(32, True, id="32-border")])
+def test_joint_bilateral_atrous_matches_jax(half_size, border):
     a = _gbuffer_arrays(4)
+    if border:
+        a = _border_misses(a)
     want = np.asarray(jde.joint_bilateral_atrous(_jax_g(a), half_size))
     got = de.joint_bilateral_atrous(_port_g(a), half_size).numpy()
     np.testing.assert_allclose(got, want, rtol=FILTER_RTOL, atol=FILTER_ATOL)
